@@ -1,0 +1,27 @@
+"""PyTorch + CUDA port of the weighted-Manhattan ALSH system (``repro``).
+
+The JAX package ``repro`` is the reference; this package mirrors its layout
+(``core/``, ``kernels/``, ``engine/``, ``api/``, ``distance/``, ``configs/``,
+``launch/``) so each module here has one counterpart there. It imports
+``torch`` and numpy only — never ``jax`` and never ``repro``.
+
+Ported so far: the sealed f32 index — build, single-probe query and the
+exact scan — with the three hot kernels hand-written in CUDA for Hopper
+(``kernels/csrc``). Entry points run on the CUDA card unless the caller asks
+for ``device="cpu"``; on CPU tensors the kernels' plain PyTorch versions run.
+Modes that are not ported yet raise :class:`NotImplementedError` naming the
+ROADMAP item that ports them.
+"""
+
+from __future__ import annotations
+
+__all__ = ["not_ported"]
+
+
+def not_ported(feature: str, roadmap_item: str) -> NotImplementedError:
+    """The error every unported mode raises: names the feature and the
+    ``ROADMAP.md`` item that will port it (never a silent fallback)."""
+    return NotImplementedError(
+        f"{feature} is not ported to repro_torch yet (ROADMAP.md {roadmap_item}); "
+        f"use the JAX package `repro` for it"
+    )

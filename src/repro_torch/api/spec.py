@@ -1,0 +1,150 @@
+"""QuerySpec / QualitySpec / UpdateSpec — counterpart of ``repro.api.spec``.
+
+The specs keep the reference's fields and validation, so a spec that is
+invalid there is invalid here with the same message. Fields this port does
+not execute yet raise ``NotImplementedError`` naming the ROADMAP.md item:
+``mode="multiprobe"``, ``early_exit``, ``screen_alpha``, and a non-"auto"
+``impl``; a :class:`QualitySpec` or a mutable :class:`UpdateSpec` raises
+where ``Index`` receives it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+from repro_torch import not_ported
+
+MODES = ("exact", "probe", "multiprobe")
+IMPLS = ("auto", "gather", "onehot")
+
+
+@dataclasses.dataclass(frozen=True)
+class QuerySpec:
+    """How to execute a query: ``k`` neighbours; ``mode`` "probe" (the
+    paper's single-probe ALSH) or "exact" (streaming scan, the oracle).
+    The remaining fields mirror the reference and are not ported yet."""
+
+    k: int = 1
+    mode: str = "probe"
+    n_probes: int = 8
+    max_flips: int = 3
+    impl: str = "auto"
+    screen_alpha: float = 0.0
+    early_exit: bool = False
+    exit_group: int = 8
+    exit_slack: float = 0.0
+
+    def __post_init__(self):
+        if self.mode not in MODES:
+            raise ValueError(f"QuerySpec.mode must be one of {MODES}, got {self.mode!r}")
+        if not isinstance(self.k, int) or self.k <= 0:
+            raise ValueError(f"QuerySpec.k must be a positive int, got {self.k!r}")
+        if self.screen_alpha != 0.0 and not self.screen_alpha >= 1.0:
+            raise ValueError(
+                f"QuerySpec.screen_alpha must be 0 (screen off) or >= 1.0 "
+                f"(keep ceil(k·α) proxy survivors), got {self.screen_alpha!r}"
+            )
+        if self.impl not in IMPLS:
+            raise ValueError(f"QuerySpec.impl must be one of {IMPLS}, got {self.impl!r}")
+        if self.impl != "auto" and self.mode != "probe":
+            raise ValueError(
+                f"QuerySpec.impl={self.impl!r} only applies to mode='probe' "
+                f"(got mode={self.mode!r}, which would silently ignore it)"
+            )
+        if self.mode == "multiprobe":
+            if not isinstance(self.n_probes, int) or self.n_probes <= 0:
+                raise ValueError(
+                    f"QuerySpec.n_probes must be a positive int, got {self.n_probes!r}"
+                )
+            if not isinstance(self.max_flips, int) or self.max_flips < 0:
+                raise ValueError(
+                    f"QuerySpec.max_flips must be a non-negative int, got {self.max_flips!r}"
+                )
+        if not isinstance(self.early_exit, bool):
+            raise ValueError(f"QuerySpec.early_exit must be a bool, got {self.early_exit!r}")
+        if not isinstance(self.exit_group, int) or self.exit_group <= 0:
+            raise ValueError(
+                f"QuerySpec.exit_group must be a positive int, got {self.exit_group!r}"
+            )
+        if not (0.0 <= self.exit_slack < 1.0):
+            raise ValueError(
+                f"QuerySpec.exit_slack must be a miss-probability budget in "
+                f"[0, 1), got {self.exit_slack!r}"
+            )
+        if self.early_exit and self.mode == "exact":
+            raise ValueError(
+                "QuerySpec.early_exit does not apply to mode='exact' (the "
+                "streaming scan already visits every row exactly once)"
+            )
+        # valid in the reference, not executed by this port yet
+        if self.mode == "multiprobe":
+            raise not_ported("QuerySpec(mode='multiprobe')", "Queue A item 5")
+        if self.early_exit:
+            raise not_ported("QuerySpec(early_exit=True)", "Queue A item 8")
+        if self.screen_alpha != 0.0:
+            raise not_ported("QuerySpec(screen_alpha>0)", "Queue A item 6")
+        if self.impl != "auto":
+            raise not_ported(f"QuerySpec(impl={self.impl!r})", "Queue A item 10")
+
+
+@dataclasses.dataclass(frozen=True)
+class QualitySpec:
+    """What quality the caller needs; the planner derives the mechanism.
+    Same fields and validation as the reference; the planner itself is not
+    ported (``Index`` raises when given one)."""
+
+    k: int = 10
+    recall_target: float = 0.9
+    approx_c: float = 2.0
+    fail_prob: float = 0.1
+    latency_budget_ms: float | None = None
+    calibration_queries: int = 64
+    seed: int = 0
+
+    def __post_init__(self):
+        if not isinstance(self.k, int) or self.k <= 0:
+            raise ValueError(f"QualitySpec.k must be a positive int, got {self.k!r}")
+        if not (0.0 < self.recall_target <= 1.0):
+            raise ValueError(
+                f"QualitySpec.recall_target must be in (0, 1], got {self.recall_target!r}"
+            )
+        if not self.approx_c > 1.0:
+            raise ValueError(
+                f"QualitySpec.approx_c must be > 1 (Thm 1 needs R2 > R1), got {self.approx_c!r}"
+            )
+        if not (0.0 < self.fail_prob < 1.0):
+            raise ValueError(f"QualitySpec.fail_prob must be in (0, 1), got {self.fail_prob!r}")
+        if self.latency_budget_ms is not None and not self.latency_budget_ms > 0:
+            raise ValueError(
+                f"QualitySpec.latency_budget_ms must be positive (or None), "
+                f"got {self.latency_budget_ms!r}"
+            )
+        if not isinstance(self.calibration_queries, int) or self.calibration_queries <= 0:
+            raise ValueError(
+                f"QualitySpec.calibration_queries must be a positive int, "
+                f"got {self.calibration_queries!r}"
+            )
+
+
+@dataclasses.dataclass(frozen=True)
+class UpdateSpec:
+    """Build-time mutability policy. ``delta_capacity=0`` (the default) is
+    the immutable index this port builds; a delta segment is not ported."""
+
+    delta_capacity: int = 0
+    compact_threshold: float = 0.75
+
+    def __post_init__(self):
+        if not isinstance(self.delta_capacity, int) or self.delta_capacity < 0:
+            raise ValueError(
+                f"UpdateSpec.delta_capacity must be a non-negative int, "
+                f"got {self.delta_capacity!r}"
+            )
+        if not (0.0 < self.compact_threshold <= 1.0):
+            raise ValueError(
+                f"UpdateSpec.compact_threshold must be in (0, 1], got {self.compact_threshold!r}"
+            )
+
+    @property
+    def mutable(self) -> bool:
+        return self.delta_capacity > 0

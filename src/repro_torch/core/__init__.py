@@ -1,0 +1,25 @@
+"""Data structures and primitives of the port (transforms, hash families,
+the sealed index)."""
+
+from repro_torch.core.hash_families import LSHParams, PrefixTables, make_prefix_tables
+from repro_torch.core.index import (
+    ALSHIndex,
+    IndexConfig,
+    QueryResult,
+    build_index,
+    index_from_numpy,
+)
+from repro_torch.core.transforms import BoundedSpace, discretize
+
+__all__ = [
+    "ALSHIndex",
+    "BoundedSpace",
+    "IndexConfig",
+    "LSHParams",
+    "PrefixTables",
+    "QueryResult",
+    "build_index",
+    "discretize",
+    "index_from_numpy",
+    "make_prefix_tables",
+]

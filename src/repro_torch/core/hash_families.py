@@ -1,0 +1,117 @@
+"""Paper §4.2: the ALSH families and the O(d) projection trick (§4.2.3).
+
+Counterpart of ``repro.core.hash_families``. Data hash f(x) = h(P(x)), query
+hash g(x) = h(Q_w(x)); both need a Gaussian projection over the 2Md-dim
+transformed vectors, which §4.2.3 collapses to a lookup in a folded prefix
+table b' of shape (H, d, M+1):
+
+    a^T P(o)   = sum_i        b'[h, i, o_i]
+    a^T Q_w(q) = sum_i  w_i * b'[h, i, q_i]
+
+The lookup runs in ``repro_torch.kernels.ops.alsh_project`` (the CUDA kernel
+on the card, its plain version on the CPU).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Literal
+
+import torch
+
+from repro_torch.core.families import get_family
+from repro_torch.kernels import ops
+
+__all__ = [
+    "LSHParams",
+    "PrefixTables",
+    "make_prefix_tables",
+    "project_data",
+    "project_query",
+    "hash_data",
+    "hash_query",
+]
+
+
+@dataclasses.dataclass(frozen=True)
+class LSHParams:
+    """Static configuration of one ALSH family instance (d, M, H = K·L,
+    family name, l2 bucket width W)."""
+
+    d: int
+    M: int
+    n_hashes: int
+    family: Literal["l2", "theta"] = "theta"
+    W: float = 4.0
+
+
+@dataclasses.dataclass
+class PrefixTables:
+    """The folded projection state of §4.2.3.
+
+    folded: (H, d, M+1) — b'[h, i, m] = suffix_cos[h, i, m] + prefix_sin[h, i, m]
+    offsets: (H,) — the uniform offset b ~ U[0, W] for l2 (zeros for theta).
+    """
+
+    folded: torch.Tensor
+    offsets: torch.Tensor
+
+    def to(self, device) -> "PrefixTables":
+        return PrefixTables(self.folded.to(device), self.offsets.to(device))
+
+
+def _prefix_tables_from_rows(a_rows: torch.Tensor) -> torch.Tensor:
+    """Eq 28 (0-indexed): (..., 2d, M) Gaussian rows -> folded (..., d, M+1).
+
+    Rows 0..d-1 become suffix sums with a trailing 0 column, rows d..2d-1
+    prefix sums with a leading 0 column; the two halves are added (folded)
+    because data and query share the lookup index.
+    """
+    d = a_rows.shape[-2] // 2
+    cos_rows, sin_rows = a_rows[..., :d, :], a_rows[..., d:, :]
+    zeros = a_rows.new_zeros((*a_rows.shape[:-2], d, 1))
+    suffix = torch.cat([torch.cumsum(cos_rows.flip(-1), dim=-1).flip(-1), zeros], dim=-1)
+    prefix = torch.cat([zeros, torch.cumsum(sin_rows, dim=-1)], dim=-1)
+    return suffix + prefix
+
+
+def make_prefix_tables(
+    generator: torch.Generator, params: LSHParams, dtype=torch.float32
+) -> PrefixTables:
+    """Draw H Gaussian projections from ``generator`` and fold them.
+
+    The draw happens on the generator's device (a CPU generator gives the
+    same tables whatever device the index later lives on); callers move the
+    result with :meth:`PrefixTables.to`.
+    """
+    a = torch.randn(
+        (params.n_hashes, 2 * params.d, params.M), generator=generator, dtype=dtype
+    )
+    offsets = get_family(params.family).make_offsets(generator, params.n_hashes, params.W, dtype)
+    return PrefixTables(folded=_prefix_tables_from_rows(a), offsets=offsets)
+
+
+def project_data(levels: torch.Tensor, tables: PrefixTables) -> torch.Tensor:
+    """a^T P(o) for a batch of lattice points: (n, d) int32 -> (n, H) f32."""
+    return ops.alsh_project(levels, tables.folded, weights=None)
+
+
+def project_query(
+    levels: torch.Tensor, w: torch.Tensor, tables: PrefixTables
+) -> torch.Tensor:
+    """a^T Q_w(q): the asymmetric (weighted) projection, (b, d) -> (b, H)."""
+    return ops.alsh_project(levels, tables.folded, weights=w)
+
+
+def hash_data(levels: torch.Tensor, tables: PrefixTables, params: LSHParams) -> torch.Tensor:
+    """f(o) = h(P(o)) for a batch: (n, d) -> (n, H) int32 codes."""
+    proj = project_data(levels, tables)
+    return get_family(params.family).codes_from_projections(proj, tables.offsets, params.W)
+
+
+def hash_query(
+    levels: torch.Tensor, w: torch.Tensor, tables: PrefixTables, params: LSHParams
+) -> torch.Tensor:
+    """g(q) = h(Q_w(q)) for a batch: (b, d) + (b, d) weights -> (b, H) int32."""
+    proj = project_query(levels, w, tables)
+    return get_family(params.family).codes_from_projections(proj, tables.offsets, params.W)

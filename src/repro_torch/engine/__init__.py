@@ -1,0 +1,14 @@
+"""The shared execution pipeline (key enumeration → sources → one tail)."""
+
+from repro_torch.engine.pipeline import dispatch, execute, probe_keys, query, sources_for
+from repro_torch.engine.sources import CandidateSource, SortedTableSource
+
+__all__ = [
+    "CandidateSource",
+    "SortedTableSource",
+    "dispatch",
+    "execute",
+    "probe_keys",
+    "query",
+    "sources_for",
+]

@@ -1,0 +1,195 @@
+"""Build and bind the hand-written CUDA kernels (``csrc/*.cu``).
+
+Each source is compiled on first CUDA use with ``nvcc`` for ``sm_90a`` into
+a shared library with a plain C interface and loaded with ``ctypes`` — no
+PyTorch headers, so a build takes seconds. Libraries land in
+``csrc/build/`` (listed in ``.gitignore``) under a name that hashes the
+sources and flags, so an edited source is rebuilt and an unchanged one is
+reused. :func:`build_all` starts one ``nvcc`` per source, all at once.
+
+Nothing here runs at import time: the CPU tests import every module of the
+package on machines without ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = CSRC / "build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: ``$CUDA_HOME/bin/nvcc``, ``nvcc`` on the PATH, or
+    the toolkit's default location."""
+    cands = []
+    if os.environ.get("CUDA_HOME"):
+        cands.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    which = shutil.which("nvcc")
+    if which:
+        cands.append(which)
+    cands.append("/usr/local/cuda/bin/nvcc")
+    for c in cands:
+        if os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError(
+        "nvcc not found (set CUDA_HOME or put nvcc on PATH): the repro_torch "
+        "CUDA kernels are compiled from csrc/ at first use on the GPU"
+    )
+
+
+@dataclasses.dataclass
+class Kernel:
+    """One CUDA source, its C entry points, and its launch count.
+
+    ``functions`` maps each exported C function to its ctypes argtypes
+    (every function returns ``int``). ``launches`` counts the wrapper's
+    calls of its launch function — the wrapper adds one there and nowhere
+    else (the scan's two launches, partial and merge, count once).
+    """
+
+    name: str
+    source: str
+    functions: dict
+    launches: int = 0
+    build_seconds: float | None = None
+    build_log: str = ""
+    _lib: ctypes.CDLL | None = dataclasses.field(default=None, repr=False)
+    _tmp: Path | None = dataclasses.field(default=None, repr=False)  # build in flight
+    _t0: float = dataclasses.field(default=0.0, repr=False)
+
+    @property
+    def source_path(self) -> Path:
+        return CSRC / self.source
+
+    @property
+    def library_path(self) -> Path:
+        h = hashlib.sha256()
+        h.update(self.source_path.read_bytes())
+        for header in sorted(CSRC.glob("*.cuh")):
+            h.update(header.read_bytes())
+        h.update(" ".join(NVCC_FLAGS).encode())
+        return BUILD_DIR / f"{self.source_path.stem}-{h.hexdigest()[:16]}.so"
+
+    def start_build(self) -> subprocess.Popen | None:
+        """Start ``nvcc`` for this source (None when already built)."""
+        if self.library_path.exists():
+            return None
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = self.library_path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(self.source_path)]
+        self._tmp = tmp
+        self._t0 = time.perf_counter()
+        return subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, cwd=CSRC
+        )
+
+    def finish_build(self, proc: subprocess.Popen) -> None:
+        out, _ = proc.communicate()
+        self.build_log = out
+        self.build_seconds = time.perf_counter() - self._t0
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {self.source_path}:\n{out}")
+        os.replace(self._tmp, self.library_path)
+
+    def lib(self) -> ctypes.CDLL:
+        """The loaded library, building it first if needed."""
+        if self._lib is None:
+            proc = self.start_build()
+            if proc is not None:
+                self.finish_build(proc)
+            lib = ctypes.CDLL(str(self.library_path))
+            for fn, argtypes in self.functions.items():
+                f = getattr(lib, fn)
+                f.argtypes = argtypes
+                f.restype = _I
+            lib.cuda_error_string.argtypes = [_I]
+            lib.cuda_error_string.restype = ctypes.c_char_p
+            self._lib = lib
+        return self._lib
+
+    def check(self, err: int, what: str) -> None:
+        """Raise if a launch function returned a CUDA error."""
+        if err != 0:
+            msg = self.lib().cuda_error_string(err).decode()
+            raise RuntimeError(f"{self.name}: {what} failed with CUDA error {err} ({msg})")
+
+
+ALSH_PROJECT = Kernel(
+    "alsh_project",
+    "alsh_project.cu",
+    {"alsh_project_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P]},
+)
+GATHER_RERANK = Kernel(
+    "gather_rerank_topk",
+    "gather_rerank.cu",
+    {"gather_rerank_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]},
+)
+WL1_SCAN_TOPK = Kernel(
+    "wl1_scan_topk",
+    "wl1_topk.cu",
+    {
+        "wl1_scan_splits": [_I, _I],
+        "wl1_scan_topk_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    },
+)
+KERNELS = {k.name: k for k in (ALSH_PROJECT, GATHER_RERANK, WL1_SCAN_TOPK)}
+
+
+def build_all() -> dict[str, Kernel]:
+    """Compile every kernel source in parallel (one nvcc each) and load it."""
+    procs = {name: k.start_build() for name, k in KERNELS.items()}
+    for name, proc in procs.items():
+        if proc is not None:
+            KERNELS[name].finish_build(proc)
+    for k in KERNELS.values():
+        k.lib()
+    return KERNELS
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS.values():
+        k.launches = 0
+
+
+def launch_counts() -> dict[str, int]:
+    return {name: k.launches for name, k in KERNELS.items()}
+
+
+def stream_of(t) -> int:
+    """The current CUDA stream of ``t``'s device, as a pointer-sized int."""
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def require(t, name: str, dtype, ndim: int, device) -> None:
+    """Validate a kernel argument before its pointer is handed to C."""
+    import torch
+
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if t.ndim != ndim:
+        raise ValueError(f"{name} must have {ndim} dims, got shape {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if any(s >= 2**31 for s in t.shape):
+        raise ValueError(f"{name}: every dim must fit int32, got shape {tuple(t.shape)}")

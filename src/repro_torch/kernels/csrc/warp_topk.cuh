@@ -1,0 +1,73 @@
+// A warp's running top-k list in shared memory, shared by the gather/rerank
+// and scan kernels.
+//
+// The list holds k (dist, id) entries in ascending dist order; empty slots
+// are (+inf, -1). Every lane of the warp calls the helpers with the same
+// arguments. An insertion goes AFTER every entry of equal distance, so when
+// candidates arrive in position order the list is ordered by (dist,
+// position): a stable sort, the tie rule of the plain versions (and of
+// lax.top_k over id-ascending candidates).
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math_constants.h>
+
+#define FULL_MASK 0xffffffffu
+
+__device__ __forceinline__ void warp_topk_init(float* td, int* ti, int k, int lane) {
+  for (int j = lane; j < k; j += 32) {
+    td[j] = CUDART_INF_F;
+    ti[j] = -1;
+  }
+  __syncwarp();
+}
+
+// Inserts (dv, id) if it ranks within the k best; returns the new k-th
+// distance (the admission threshold for the next candidate).
+__device__ __forceinline__ float warp_topk_insert(float* td, int* ti, int k, float dv, int id,
+                                                  int lane) {
+  int cnt = 0;
+  for (int j = lane; j < k; j += 32) cnt += (td[j] <= dv) ? 1 : 0;
+  cnt = __reduce_add_sync(FULL_MASK, cnt);
+  if (cnt < k) {
+    // shift [cnt, k-1) right by one slot; walk 32-slot chunks from the top
+    // so no chunk overwrites a slot a later chunk still has to read
+    for (int j0 = ((k - 1) / 32) * 32; j0 >= 0; j0 -= 32) {
+      const int j = j0 + lane;
+      const bool mv = (j > cnt) && (j < k);
+      float a = 0.f;
+      int b = 0;
+      if (mv) {
+        a = td[j - 1];
+        b = ti[j - 1];
+      }
+      __syncwarp();
+      if (mv) {
+        td[j] = a;
+        ti[j] = b;
+      }
+      __syncwarp();
+    }
+    if (lane == 0) {
+      td[cnt] = dv;
+      ti[cnt] = id;
+    }
+    __syncwarp();
+  }
+  return td[k - 1];
+}
+
+// Offers the 32 lanes' candidates (one per lane, lane order = arrival
+// order) to the list; lanes with ok == false offer nothing.
+__device__ __forceinline__ float warp_topk_offer(float* td, int* ti, int k, float worst, float dv,
+                                                 int id, bool ok, int lane) {
+  unsigned pass = __ballot_sync(FULL_MASK, ok && dv < worst);
+  while (pass) {
+    const int src = __ffs(pass) - 1;
+    pass &= pass - 1;
+    const float v = __shfl_sync(FULL_MASK, dv, src);
+    const int i = __shfl_sync(FULL_MASK, id, src);
+    if (v < worst) worst = warp_topk_insert(td, ti, k, v, i, lane);
+  }
+  return worst;
+}

@@ -1,0 +1,82 @@
+"""Dispatch of the kernel entry points by tensor device.
+
+Counterpart of ``repro.kernels.ops``. Policy:
+
+  * a CUDA tensor launches the hand-written CUDA kernel — or raises; it is
+    never routed to the plain version, and no ``try`` falls back when the
+    build or the launch fails;
+  * a CPU tensor takes the plain PyTorch version (``kernels/ref.py``);
+  * ``force="plain"`` runs the plain version on any device. It exists for
+    the tests and for ``chip_smoke.py``, which hold each kernel against its
+    plain version on the card; the engine never passes it.
+
+The CUDA wrappers import nothing CUDA-specific until they run, so this
+module imports on machines without a GPU or ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ref
+
+FORCES = (None, "plain")
+
+
+def _use_kernel(t: torch.Tensor, force: str | None) -> bool:
+    if force not in FORCES:
+        raise ValueError(f"force must be one of {FORCES}, got {force!r}")
+    if force == "plain":
+        return False
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"no kernel or plain version for device {t.device}")
+
+
+def alsh_project(
+    levels: torch.Tensor,
+    folded: torch.Tensor,
+    weights: torch.Tensor | None = None,
+    force: str | None = None,
+) -> torch.Tensor:
+    """§4.2.3 hash projection: (n, d) levels × (H, d, M+1) tables -> (n, H)."""
+    if _use_kernel(levels, force):
+        from repro_torch.kernels.alsh_project import alsh_project_cuda
+
+        return alsh_project_cuda(levels, folded, weights)
+    return ref.alsh_project(levels, folded, weights)
+
+
+def wl1_scan_topk(
+    data: torch.Tensor,
+    queries: torch.Tensor,
+    weights: torch.Tensor,
+    k: int,
+    force: str | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Streaming exact k-NN scan: (n, d) × (b, d) -> ((b, k), (b, k)) without
+    the (b, n) distance matrix."""
+    if _use_kernel(data, force):
+        from repro_torch.kernels.wl1_topk import wl1_scan_topk_cuda
+
+        return wl1_scan_topk_cuda(data, queries, weights, k)
+    return ref.wl1_scan_topk(data, queries, weights, k)
+
+
+def gather_rerank_topk(
+    data: torch.Tensor,
+    ids: torch.Tensor,
+    queries: torch.Tensor,
+    weights: torch.Tensor,
+    k: int,
+    force: str | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused ALSH probe tail: (n, d) table + (b, P) candidate ids (>= n ⇒
+    invalid) -> top-k ((b, k) dists, (b, k) ids), no (b, P, d) gather."""
+    if _use_kernel(data, force):
+        from repro_torch.kernels.gather_rerank import gather_rerank_topk_cuda
+
+        return gather_rerank_topk_cuda(data, ids, queries, weights, k)
+    return ref.gather_rerank_topk(data, ids, queries, weights, k)

@@ -79,3 +79,10 @@ except ModuleNotFoundError:
 @pytest.fixture(scope="session")
 def rng():
     return jax.random.PRNGKey(20260714)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU and nvcc (repro_torch kernels); skips without a card",
+    )

@@ -1,0 +1,167 @@
+"""Boundaries of the port: it imports neither ``jax`` nor ``repro``, its entry
+points default to the CUDA card and refuse to carry on without one, and
+every mode it does not port yet raises ``NotImplementedError``."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch.api as tapi
+from repro_torch.engine import pipeline
+
+ROOT = Path(__file__).resolve().parents[1]
+SRC = ROOT / "src"
+
+
+def _port_modules():
+    pkg = SRC / "repro_torch"
+    for p in sorted(pkg.rglob("*.py")):
+        rel = p.relative_to(SRC).with_suffix("")
+        parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
+        yield ".".join(parts)
+
+
+def test_port_imports_no_jax_and_no_reference():
+    mods = list(_port_modules())
+    assert "repro_torch.kernels.ops" in mods and "repro_torch.launch.serve" in mods
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'repro' or m.startswith('repro.'))\n"
+        "assert not bad, bad\n"
+        "print(len(sys.modules))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_chip_smoke_imports_no_jax_and_no_reference():
+    text = (ROOT / "chip_smoke.py").read_text()
+    for line in text.splitlines():
+        s = line.strip()
+        if s.startswith(("import ", "from ")):
+            mod = s.split()[1]
+            assert not mod.startswith(("jax", "repro.")) and mod != "repro", line
+
+
+def _cfg(**kw):
+    base = dict(d=4, M=8, K=3, L=2, space=tapi.BoundedSpace(0.0, 1.0, 8.0))
+    base.update(kw)
+    return tapi.IndexConfig(**base)
+
+
+def test_build_defaults_to_cuda_and_raises_without_it(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    data = np.random.default_rng(0).uniform(0, 1, (16, 4)).astype(np.float32)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        tapi.Index.build(0, data, _cfg())
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        tapi.Index.from_numpy({}, _cfg())
+    idx = tapi.Index.build(0, data, _cfg(), device="cpu")  # the explicit CPU path works
+    assert idx.device.type == "cpu"
+
+
+def test_query_runs_on_the_index_device():
+    rs = np.random.default_rng(1)
+    idx = tapi.Index.build(0, rs.uniform(0, 1, (16, 4)).astype(np.float32), _cfg(), device="cpu")
+    res = idx.query(rs.uniform(0, 1, (3, 4)), np.ones((3, 4)), tapi.QuerySpec(k=2))
+    assert res.dists.device.type == "cpu" and res.ids.dtype == torch.int32
+
+
+@pytest.mark.parametrize(
+    "make",
+    [
+        lambda: tapi.QuerySpec(k=5, mode="multiprobe"),
+        lambda: tapi.QuerySpec(k=5, early_exit=True),
+        lambda: tapi.QuerySpec(k=5, screen_alpha=2.0),
+        lambda: tapi.QuerySpec(k=5, impl="onehot"),
+        lambda: _cfg(storage="int8"),
+        lambda: _cfg(storage="bf16"),
+    ],
+    ids=["multiprobe", "early_exit", "screen_alpha", "impl", "int8", "bf16"],
+)
+def test_unported_specs_raise(make):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        make()
+
+
+def test_unported_index_modes_raise():
+    rs = np.random.default_rng(2)
+    data = rs.uniform(0, 1, (16, 4)).astype(np.float32)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tapi.Index.build(0, data, tapi.QualitySpec(k=3), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tapi.Index.build(0, data, _cfg(), update=tapi.UpdateSpec(delta_capacity=8), device="cpu")
+    idx = tapi.Index.build(0, data, _cfg(), device="cpu")
+    q = rs.uniform(0, 1, (2, 4))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        idx.query(q, np.ones((2, 4)), tapi.QualitySpec(k=3))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        idx.shard(None)
+    w = torch.ones((2, 4))
+    qt = torch.as_tensor(q, dtype=torch.float32)
+    for kw in ({"screen_alpha": 2.0}, {"early_exit": True}):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            pipeline.query(idx.state, None, None, qt, w, idx.config, k=2, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        pipeline.query(idx.state, object(), None, qt, w, idx.config, k=2)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        pipeline.probe_keys(idx.state, qt, w, idx.config, mode="multiprobe")
+
+
+@pytest.mark.parametrize("mode", ["stream", "broker", "lm"])
+def test_serve_unported_modes_raise(mode):
+    from repro_torch.launch import serve
+
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        serve.main(["--mode", mode, "--device", "cpu"])
+
+
+def test_serve_alsh_runs_on_cpu(capsys):
+    from repro_torch.launch import serve
+
+    serve.main(["--mode", "alsh", "--device", "cpu", "--n", "512", "--d", "8", "--K", "4",
+                "--L", "4", "--query-batch", "16", "--batches", "1"])
+    out = capsys.readouterr().out
+    assert "[alsh] built index over n=512 d=8" in out and "[alsh] batch 0:" in out
+
+
+def test_query_validation_matches_reference_messages():
+    rs = np.random.default_rng(3)
+    idx = tapi.Index.build(0, rs.uniform(0, 1, (16, 4)).astype(np.float32), _cfg(), device="cpu")
+    with pytest.raises(ValueError, match="trailing dim config.d=4"):
+        idx.query(np.zeros((2, 3)), np.ones((2, 3)))
+    bad = np.zeros((3, 4))
+    bad[1, 2] = np.nan
+    with pytest.raises(ValueError, match=r"non-finite values \(NaN/Inf\) in 1 of 3 rows \[1\]"):
+        idx.query(bad, np.ones((3, 4)))
+
+
+def test_kernel_dispatch_never_quietly_falls_back():
+    """A CPU tensor takes the plain version; an unknown force is refused;
+    the CUDA wrappers refuse CPU tensors instead of computing on them."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.alsh_project import alsh_project_cuda
+    from repro_torch.kernels.gather_rerank import gather_rerank_topk_cuda
+    from repro_torch.kernels.wl1_topk import wl1_scan_topk_cuda
+
+    lv = torch.zeros((2, 3), dtype=torch.int32)
+    folded = torch.ones((4, 3, 5))
+    assert torch.equal(ops.alsh_project(lv, folded), torch.full((2, 4), 3.0))
+    with pytest.raises(ValueError, match="force"):
+        ops.alsh_project(lv, folded, force="ref")
+    x = torch.zeros((5, 3))
+    with pytest.raises(ValueError, match="CUDA"):
+        alsh_project_cuda(lv, folded)
+    with pytest.raises(ValueError, match="CUDA"):
+        wl1_scan_topk_cuda(x, x[:2], x[:2], 1)
+    with pytest.raises(ValueError, match="CUDA"):
+        gather_rerank_topk_cuda(x, lv, x[:2], x[:2], 1)
