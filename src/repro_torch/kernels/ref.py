@@ -119,27 +119,39 @@ def gather_rerank_topk(
 
 
 def unexplained_id_mismatches(
-    got_d: torch.Tensor,
     got_i: torch.Tensor,
     want_d: torch.Tensor,
     want_i: torch.Tensor,
+    data: torch.Tensor,
+    queries: torch.Tensor,
+    weights: torch.Tensor,
     rtol: float,
     atol: float,
 ) -> int:
     """Top-k slots whose ids differ between two versions of a kernel and
-    that no near-tie explains.
+    that no genuine tie explains.
 
     Two versions that sum in different orders may order candidates whose
     distances agree within rounding either way. A mismatched slot is
-    explained when the reference distance there lies within ``atol + rtol *
-    |d|`` of a neighbouring slot's, or when it is the last slot (whose rival
-    is the unseen (k+1)-th candidate).
+    explained only when the id returned there is a real row whose distance
+    to the query, recomputed here in f64 from ``data``, lies within ``atol +
+    rtol * |d|`` of the reference distance at that slot. A right distance
+    written beside a wrong id is not explained, and neither is an id
+    repeated more often in a row than the reference repeats it (candidate
+    lists that are not deduped may hold an id twice in both versions).
     """
     wd = want_d.double()
-    tol = atol + rtol * wd.abs()
-    gap = (wd[:, 1:] - wd[:, :-1]).abs()
-    inf = torch.full_like(wd[:, :1], float("inf"))
-    near_prev = torch.cat([inf, gap], dim=1) <= tol
-    near_next = torch.cat([gap, torch.zeros_like(wd[:, :1])], dim=1) <= tol
+    n = data.shape[0]
+    valid = (got_i >= 0) & (got_i < n)
+    rows = data[got_i.long().clamp(0, max(n - 1, 0))].double()  # (b, k, d)
+    true_d = (weights.double()[:, None, :] * (rows - queries.double()[:, None, :]).abs()).sum(-1)
+    true_d = torch.where(valid, true_d, torch.full_like(true_d, float("inf")))
+    tie = valid & ((true_d - wd).abs() <= atol + rtol * wd.abs())
     mism = got_i != want_i
-    return int((mism & ~(near_prev | near_next)).sum())
+
+    def repeats(ids: torch.Tensor) -> torch.Tensor:
+        srt = torch.sort(ids, dim=1).values
+        return ((srt[:, 1:] == srt[:, :-1]) & (srt[:, 1:] >= 0)).sum(dim=1)
+
+    extra = (repeats(got_i) - repeats(want_i)).clamp(min=0)
+    return int((mism & ~tie).sum()) + int(extra.sum())

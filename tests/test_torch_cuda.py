@@ -6,7 +6,8 @@ without a card. Run on the GPU machine with
 
 Tolerances: the kernels and the plain versions sum in different orders, so
 values agree to f32 rounding (rtol/atol 1e-5 for distances, 1e-4 absolute
-for projections of magnitude ~10); ids agree except at near-ties.
+for projections of magnitude ~10); ids agree except where the row returned is
+a genuine tie (its recomputed distance matches the plain version's slot).
 """
 
 import numpy as np
@@ -40,6 +41,9 @@ PROJECT_SHAPES = [
     (300, 128, 384, 32),
     (129, 40, 33, 64),
     (20000, 24, 128, 16),  # 256-row tiles, d not a multiple of the chunk
+    (300, 20, 64, 100),  # M+1 = 101: 8-coordinate chunks
+    (20000, 24, 128, 100),  # 8-coordinate chunks on 256-row tiles
+    (2000, 16, 40, 200),  # M+1 = 201: 4-coordinate chunks
 ]
 
 
@@ -54,12 +58,13 @@ def _t(x, dev):
     return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
 
 
-def _check_topk(got, want):
+def _check_topk(got, want, data, q, w):
     gd, gi = (t.cpu() for t in got)
     wd, wi = (t.cpu() for t in want)
     torch.testing.assert_close(gd, wd, rtol=1e-5, atol=1e-5)
     assert torch.equal(gi == -1, ~torch.isfinite(gd))
-    assert ref.unexplained_id_mismatches(gd, gi, wd, wi, rtol=1e-5, atol=1e-5) == 0
+    assert ref.unexplained_id_mismatches(gi, wd, wi, data.cpu(), q.cpu(), w.cpu(),
+                                         rtol=1e-5, atol=1e-5) == 0
 
 
 @pytest.mark.parametrize("weighted", [False, True])
@@ -83,7 +88,7 @@ def test_scan_topk_kernel_matches_plain(dev, n, b, d, k):
     w = _t(rs.normal(size=(b, d)).astype(np.float32), dev)
     got = ops.wl1_scan_topk(data, q, w, k)
     torch.cuda.synchronize()
-    _check_topk(got, ops.wl1_scan_topk(data, q, w, k, force="plain"))
+    _check_topk(got, ops.wl1_scan_topk(data, q, w, k, force="plain"), data, q, w)
 
 
 def test_scan_topk_kernel_ties_go_to_lower_id(dev):
@@ -93,7 +98,7 @@ def test_scan_topk_kernel_ties_go_to_lower_id(dev):
     q = _t(rs.normal(size=(9, 16)).astype(np.float32), dev)
     w = _t(np.abs(rs.normal(size=(9, 16))).astype(np.float32), dev)
     got = ops.wl1_scan_topk(data, q, w, 12)
-    _check_topk(got, ops.wl1_scan_topk(data, q, w, 12, force="plain"))
+    _check_topk(got, ops.wl1_scan_topk(data, q, w, 12, force="plain"), data, q, w)
     gd, gi = (t.cpu() for t in got)
     tie = gd[:, 1:] == gd[:, :-1]  # exact ties: copies of one row
     assert tie.any() and torch.all(gi[:, 1:][tie] > gi[:, :-1][tie])
@@ -108,7 +113,7 @@ def test_gather_rerank_kernel_matches_plain(dev, n, b, P, d, k):
     ids = _t(np.minimum(rs.integers(0, n + max(2, n // 3), (b, P)), n).astype(np.int32), dev)
     got = ops.gather_rerank_topk(data, ids, q, w, k)
     torch.cuda.synchronize()
-    _check_topk(got, ops.gather_rerank_topk(data, ids, q, w, k, force="plain"))
+    _check_topk(got, ops.gather_rerank_topk(data, ids, q, w, k, force="plain"), data, q, w)
 
 
 def test_gather_rerank_kernel_packed_and_all_invalid(dev):
@@ -123,7 +128,7 @@ def test_gather_rerank_kernel_packed_and_all_invalid(dev):
     cand[0] = n  # every slot a sentinel
     packed, _ = _dedupe_candidates(cand, n)
     got = ops.gather_rerank_topk(data, packed, q, w, k)
-    _check_topk(got, ops.gather_rerank_topk(data, packed, q, w, k, force="plain"))
+    _check_topk(got, ops.gather_rerank_topk(data, packed, q, w, k, force="plain"), data, q, w)
     assert torch.all(got[1][0] == -1) and torch.all(torch.isinf(got[0][0]))
 
 
@@ -145,7 +150,8 @@ def test_engine_on_the_card_matches_the_cpu_path(dev, family):
     cpu = tapi.Index(state=gpu.state.to("cpu"), config=cfg)
     ex_g = gpu.query(q, w, tapi.QuerySpec(k=10, mode="exact"))
     ex_c = cpu.query(q, w, tapi.QuerySpec(k=10, mode="exact"))
-    _check_topk((ex_g.dists, ex_g.ids), (ex_c.dists, ex_c.ids))
+    _check_topk((ex_g.dists, ex_g.ids), (ex_c.dists, ex_c.ids), cpu.state.data,
+                torch.from_numpy(q), torch.from_numpy(w))
     pr_g = gpu.query(q, w, tapi.QuerySpec(k=10))
     pr_c = cpu.query(q, w, tapi.QuerySpec(k=10))
     same = (pr_g.n_candidates.cpu() == pr_c.n_candidates).float().mean()

@@ -172,9 +172,16 @@ def test_distance_helpers_match_reference():
 def test_unexplained_id_mismatches_counts_only_non_ties():
     """The near-tie rule chip_smoke.py and the CUDA tests use to compare a
     kernel's top-k ids with its plain version's."""
-    want_d = torch.tensor([[1.0, 2.0, 2.0000001, 5.0], [1.0, 3.0, 4.0, 9.0]])
-    want_i = torch.tensor([[7, 3, 4, 8], [1, 2, 3, 4]], dtype=torch.int32)
-    swapped = torch.tensor([[7, 4, 3, 9], [1, 2, 3, 4]], dtype=torch.int32)  # tie swap + last slot
-    assert tref.unexplained_id_mismatches(want_d, swapped, want_d, want_i, 1e-5, 1e-5) == 0
-    wrong = torch.tensor([[7, 3, 4, 8], [1, 5, 3, 4]], dtype=torch.int32)  # slot 1: no tie
-    assert tref.unexplained_id_mismatches(want_d, wrong, want_d, want_i, 1e-5, 1e-5) == 1
+    data = torch.tensor([[1.0], [2.0], [2.0000001], [5.0], [5.0], [7.0]])
+    q = torch.tensor([[0.0], [0.0]])
+    w = torch.tensor([[1.0], [1.0]])
+    want_d, want_i = tref.wl1_scan_topk(data, q, w, 4)
+    assert want_i[0].tolist() == [0, 1, 2, 3]
+
+    def count(got_i):
+        return tref.unexplained_id_mismatches(torch.tensor(got_i, dtype=torch.int32), want_d,
+                                              want_i, data, q, w, 1e-5, 1e-5)
+
+    assert count([[0, 1, 2, 3], [0, 2, 1, 4]]) == 0  # a near-tie swap; a tie in the last slot
+    assert count([[0, 1, 2, 5], [0, 1, 2, 3]]) == 1  # last slot: right distance, wrong id
+    assert count([[0, 3, 2, 3], [0, 1, 2, -1]]) == 3  # no tie, a repeated id, a missing row
