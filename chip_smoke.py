@@ -10,22 +10,41 @@ Phases, each of which fails the run (exit code 1) when it fails:
   2. build: every CUDA kernel under ``src/repro_torch/kernels/csrc`` is
      compiled with nvcc (one process per source, all started together),
      with the ``-Xptxas -v`` register and shared-memory report;
-  3. one phase per kernel, at the service widths: the kernel and its plain
+  3. service set-up, made once and shared by the later phases: the
+     ``SERVICE`` configuration's (n=262,144, d=128, M=32, K=12, L=32,
+     C=128) near-duplicate clusters (see ``Workload``) and query batch, the
+     f32 theta index built over them on the card with ``Index.build``, and
+     the batch's deduped probe candidates;
+  4. one phase per kernel, at the service widths: the kernel and its plain
      PyTorch version run on the same seeded inputs on the card and must
      agree (tolerances printed with each phase); the kernel's time (CUDA
      events, warmed up), the plain version's time, one PyTorch library
      call's time where one computes the same function, and the least time
      the card could take (bytes over 3.35 TB/s or flops over 67 TFLOP/s
-     FP32, whichever is larger);
-  4. main path: the ``SERVICE`` configuration (n=262,144, d=128, M=32,
-     K=12, L=32, C=128) built on the card with ``Index.build`` over
-     near-duplicate clusters (see ``Workload``), three probe-mode query
-     batches of 1024 with k=10, recall@10 against exact mode on the first
-     64 queries of each, held to a stated floor; then one l2 build and
-     batch at the same widths with bucket width ``L2_W``. Every kernel's
-     launch counter is zeroed just before and must have risen just after;
-  5. check: on a small input, the card's answers agree with the plain
-     PyTorch path on the CPU over the same index state.
+     FP32, whichever is larger; a gather moves each distinct row once).
+     The quantized gather runs three cases over the service candidates —
+     int8 with scales (the exact pass), int8 with the proxy query (the
+     screen pass) and bf16 — and each must also equal, bit for bit, the f32
+     kernel over the decoded table;
+  5. main paths, each with every launch counter zeroed just before its
+     queries and read just after; a kernel of the path that was never
+     launched fails the run:
+     a. f32: three probe-mode query batches of 1024 with k=10 on the
+        service index, recall@10 against exact mode on the first 64
+        queries of each, held to a stated floor; then one l2 build and
+        batch at the same widths with bucket width ``L2_W``;
+     b. quantized: the same theta index stored as int8 and as bf16 (same
+        seed), served at screen α=2 and α=0: ``n_candidates`` must equal
+        the f32 index's, recall@10 against the index's own exact mode must
+        clear the floor, f32 storage at α=2 must equal α=0, and the
+        quantized kernel must launch twice per screened and once per
+        unscreened batch;
+     c. multiprobe: theta, 8 probes per table, up to 3 flipped bits, on
+        the f32 index and batch of a probe batch; its j-th distance is
+        never worse than the probe batch's;
+  6. check: on a small input, the card's answers agree with the plain
+     PyTorch path on the CPU over the same index state (f32 probe and
+     exact, int8 screened probe).
 
 The line before the last is a JSON object with each kernel's numbers; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -57,12 +76,16 @@ SIGMA = 1e-3
 THETA_RECALL_FLOOR = 0.5  # mean probe recall@10 over a batch's first 64 queries
 L2_W = 64.0  # l2 bucket width of the l2 batch (the projections' scale; see PERF.md)
 L2_RECALL_FLOOR = 0.5
+QUANT_RECALL_FLOOR = 0.5  # recall@10 of a quantized batch against its own exact mode
+SCREEN_ALPHA = 2.0  # the serve CLI's default --screen-alpha
 
 KERNEL_META = {
     "alsh_project": ("src/repro_torch/kernels/csrc/alsh_project.cu",
                      "src/repro/kernels/alsh_project.py:103"),
     "gather_rerank_topk": ("src/repro_torch/kernels/csrc/gather_rerank.cu",
                            "src/repro/kernels/gather_rerank.py:365"),
+    "gather_rerank_topk_blocked": ("src/repro_torch/kernels/csrc/gather_rerank_blocked.cu",
+                                   "src/repro/kernels/gather_rerank.py:288"),
     "wl1_scan_topk": ("src/repro_torch/kernels/csrc/wl1_topk.cu",
                       "src/repro/kernels/wl1_topk.py:132"),
 }
@@ -168,15 +191,63 @@ class Workload:
         return q.contiguous(), w.contiguous()
 
 
-def _service_inputs():
-    from repro_torch.configs.paper_alsh import SERVICE
+class Service:
+    """What the SERVICE phases share, made once: the clustered workload
+    ``wl``, the service batch ``q``/``w``, the f32 theta ``index`` over the
+    rows, and the batch's deduped probe candidates ``cand`` (b, L*C) =
+    (1024, 4096) with their ``valid`` slot count and ``distinct`` row count."""
 
-    wl = Workload(SERVICE.n_per_shard, SERVICE.d)
-    q, w = wl.batch(SERVICE.query_batch, SEED + 1)
-    return wl, q, w
+    def __init__(self):
+        import torch
+
+        import repro_torch.api as tapi
+        from repro_torch.configs.paper_alsh import SERVICE
+        from repro_torch.core.index import _dedupe_candidates
+        from repro_torch.engine.pipeline import probe_keys, sources_for
+
+        cfg = SERVICE.index_config
+        self.wl = Workload(SERVICE.n_per_shard, SERVICE.d)
+        self.q, self.w = self.wl.batch(SERVICE.query_batch, SEED + 1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        self.index = tapi.Index.build(SEED + 2, self.wl.data, cfg)
+        torch.cuda.synchronize()
+        print(f"  [theta] built the f32 index over n={self.index.n} d={cfg.d} K={cfg.K} "
+              f"L={cfg.L} C={cfg.max_candidates} on {self.index.device} in "
+              f"{time.perf_counter() - t0:.3f} s")
+        keys = probe_keys(self.index.state, self.q, self.w, cfg)
+        cand = sources_for(self.index.state, cfg, keys)[0].emit(self.q, self.w)
+        self.cand, n_cand = _dedupe_candidates(cand, self.index.n)
+        self.valid = int(n_cand.sum())
+        self.distinct = distinct_rows(self.cand, self.index.n)
+        print(f"  candidates: ids {tuple(self.cand.shape)}, {self.valid} valid "
+              f"({self.valid / self.cand.shape[0]:.1f} per query), {self.distinct} distinct rows")
 
 
-def phase_alsh_project(run):
+def distinct_rows(ids, n: int) -> int:
+    """The number of distinct valid ids (< n) in ``ids``."""
+    import torch
+
+    return int(torch.unique(ids[ids < n]).numel())
+
+
+def gather_bound(ids, n: int, d: int, k: int, row_bytes: int, scaled: bool):
+    """The least time of one fused gather/rerank/top-k over ``ids`` (b, P):
+    each distinct valid row read once at its stored width, the ids, q and w
+    (and the scales) read once, the (b, k) outputs written once; 3 flops per
+    coordinate of every valid (query, row) pair (a subtract and a fused
+    multiply-add, the |.| a free operand modifier), 4 with the decode's
+    multiply. Also returns the bytes the queries gather row by row, which
+    the L2 serves beyond the distinct rows (not part of the bound)."""
+    b = ids.shape[0]
+    nv = int((ids < n).sum())
+    nbytes = (distinct_rows(ids, n) * d * row_bytes + 4 * ids.numel() + 4 * 2 * b * d
+              + 8 * b * k + (4 * d if scaled else 0))
+    flops = (4 if scaled else 3) * nv * d
+    return (*bound(nbytes, flops), nbytes, flops, nv * d * row_bytes)
+
+
+def phase_alsh_project(run, svc):
     import torch
     import torch.nn.functional as F
 
@@ -186,8 +257,7 @@ def phase_alsh_project(run):
     from repro_torch.kernels import ops
 
     cfg = SERVICE.index_config
-    wl, q, w = _service_inputs()
-    data = wl.data
+    data, q, w = svc.wl.data, svc.q, svc.w
     tables = hf.make_prefix_tables(torch.Generator().manual_seed(SEED), cfg.lsh_params).to(data.device)
     folded = tables.folded.contiguous()
     H, d, m1 = folded.shape
@@ -259,28 +329,15 @@ def _check_topk(label, got, want, data, q, w):
     return err
 
 
-def phase_gather_rerank(run):
+def phase_gather_rerank(run, svc):
     import torch
 
-    import repro_torch.api as tapi
     from repro_torch.configs.paper_alsh import SERVICE
-    from repro_torch.core.index import _dedupe_candidates
-    from repro_torch.engine.pipeline import probe_keys, sources_for
     from repro_torch.kernels import ops
 
-    wl, q, w = _service_inputs()
-    data = wl.data
-    cfg = SERVICE.index_config
-    index = tapi.Index.build(SEED, data, cfg)
-    keys = probe_keys(index.state, q, w, cfg)
-    cand = sources_for(index.state, cfg, keys)[0].emit(q, w)  # (b, L*C) = (1024, 4096)
-    cand, n_cand = _dedupe_candidates(cand, index.n)
-    b, P = cand.shape
+    data, q, w, cand = svc.wl.data, svc.q, svc.w, svc.cand
+    n, d = data.shape
     k = SERVICE.topk
-    d = data.shape[1]
-    V = int(n_cand.sum())
-    print(f"  candidates: ids ({b}, {P}) from the SERVICE index, {V} valid "
-          f"({V / b:.1f} per query)")
     got = ops.gather_rerank_topk(data, cand, q, w, k)
     want = ops.gather_rerank_topk(data, cand, q, w, k, force="plain")
     torch.cuda.synchronize()
@@ -289,22 +346,93 @@ def phase_gather_rerank(run):
     plain_ms = time_ms(lambda: ops.gather_rerank_topk(data, cand, q, w, k, force="plain"),
                        iters=1)
     profile("gather_rerank_topk", lambda: ops.gather_rerank_topk(data, cand, q, w, k), top=2)
-    nbytes = 4 * (V * d + b * P + 2 * b * d) + 8 * b * k
-    flops = 3 * V * d
-    b_ms, b_by = bound(nbytes, flops)
+    b_ms, b_by, nbytes, flops, l2_bytes = gather_bound(cand, n, d, k, 4, scaled=False)
     print(f"  kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library: none; bound "
-          f"{b_ms * 1e3:.1f} us by {b_by} ({nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP)")
+          f"{b_ms * 1e3:.1f} us by {b_by} ({nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP); "
+          f"rows gathered per query, served by HBM or L2: {l2_bytes / 1e6:.1f} MB")
     run.record("gather_rerank_topk", max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                bound_by=b_by, library_ms=None)
 
 
-def phase_scan(run):
+def phase_gather_rerank_blocked(run, svc):
+    import torch
+
+    from repro_torch import quant
+    from repro_torch.configs.paper_alsh import SERVICE
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.gather_rerank import gather_rerank_topk_cuda
+
+    data, q, w, cand = svc.wl.data, svc.q, svc.w, svc.cand
+    (n, d), P = data.shape, cand.shape[1]
+    k = SERVICE.topk
+    p8, s8 = quant.get_codec("int8").encode(data)
+    pb, _ = quant.get_codec("bf16").encode(data)
+    qp, wp = quant.proxy_query(q, w, p8.dtype, s8)
+    keep = quant.screen_keep(k, SCREEN_ALPHA, P)
+    # the survivors of the screen pass, -1 mapped to the sentinel, are the
+    # exact pass's candidates on the screened main path
+    _, surv = ops.gather_rerank_topk(p8, cand, qp, wp, keep)
+    surv = torch.where(surv >= 0, surv, torch.full_like(surv, n))
+    cases = (
+        ("int8, scales: exact pass over all candidates", p8, s8, cand, q, w, k),
+        (f"int8, proxy q/w: screen pass keeping {keep}", p8, None, cand, qp, wp, keep),
+        ("bf16: over all candidates", pb, None, cand, q, w, k),
+        (f"int8, scales: exact pass over the {keep} survivors", p8, s8, surv, q, w, k),
+    )
+    out = {}
+    for label, payload, scales, ids, qq, ww, kk in cases:
+        def kernel():
+            return ops.gather_rerank_topk(payload, ids, qq, ww, kk, scales=scales)
+
+        got = kernel()
+        want = ops.gather_rerank_topk(payload, ids, qq, ww, kk, scales=scales, force="plain")
+        torch.cuda.synchronize()
+        decoded = quant.decode_table(payload, scales)
+        err = _check_topk(label, got, want, decoded, qq, ww)
+        f32 = gather_rerank_topk_cuda(decoded.contiguous(), ids, qq, ww, kk)
+        bitwise = torch.equal(got[0], f32[0]) and torch.equal(got[1], f32[1])
+        print(f"  {label}: bit-equal to the f32 kernel over the decoded table: {bitwise}")
+        if not bitwise:
+            raise AssertionError(f"{label}: differs from the f32 kernel over the decoded table")
+        ms = time_ms(kernel, iters=10, warmup=2)
+        plain_ms = time_ms(
+            lambda: ops.gather_rerank_topk(payload, ids, qq, ww, kk, scales=scales,
+                                           force="plain"), iters=1)
+        f32_ms = time_ms(lambda: gather_rerank_topk_cuda(decoded, ids, qq, ww, kk), iters=10,
+                         warmup=1)
+        b_ms, b_by, nbytes, flops, l2_bytes = gather_bound(
+            ids, n, d, kk, payload.element_size(), scaled=scales is not None)
+        nv, nd = int((ids < n).sum()), distinct_rows(ids, n)
+        print(f"  {label}: ids {tuple(ids.shape)}, {nv} valid, {nd} distinct rows; kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, f32 kernel over the decoded table "
+              f"{f32_ms:.4f} ms, library: none; bound {b_ms * 1e3:.1f} us by {b_by} "
+              f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP); rows gathered per query, "
+              f"served by HBM or L2: {l2_bytes / 1e6:.1f} MB")
+        out[label] = {"ids_shape": list(ids.shape), "valid_ids": nv, "distinct_rows": nd,
+                      "k": kk,
+                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "f32_ms": f32_ms,
+                      "bound_ms": b_ms, "bound_by": b_by}
+    profile("gather_rerank_topk_blocked (int8 screen pass)",
+            lambda: ops.gather_rerank_topk(p8, cand, qp, wp, keep), top=2)
+    # at 20 survivors per query the events time may hold host time between
+    # launches; the profiler's device time of one call separates the two
+    profile("gather_rerank_topk_blocked (int8 exact pass over the survivors)",
+            lambda: ops.gather_rerank_topk(p8, surv, q, w, k, scales=s8), top=2)
+    decoded8 = quant.decode_table(p8, s8)
+    profile("gather_rerank_topk (f32 over the decoded survivors)",
+            lambda: gather_rerank_topk_cuda(decoded8, surv, q, w, k), top=2)
+    main = out[cases[0][0]]
+    run.record("gather_rerank_topk_blocked", max_abs_err=main["max_abs_err"], ms=main["ms"],
+               plain_ms=main["plain_ms"], bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+               library_ms=None, cases=out)
+
+
+def phase_scan(run, svc):
     import torch
 
     from repro_torch.kernels import ops
 
-    wl, q, w = _service_inputs()
-    data = wl.data
+    data, q, w = svc.wl.data, svc.q, svc.w
     k = 10
     # service: exact mode on a full batch; main: the main path's recall check
     # (exact mode on a batch's first 64 queries); recorded: the repo's kernel shape
@@ -335,7 +463,34 @@ def phase_scan(run):
             }
 
 
-def _serve(family: str, batches: int, wl, **overrides):
+def _timed_query(index, q, w, spec):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = index.query(q, w, spec)
+    torch.cuda.synchronize()
+    return res, (time.perf_counter() - t0) * 1e3
+
+
+def _median_ms(index, q, w, spec, reps: int = 5) -> float:
+    """Median host-clock time of ``reps`` warm calls of one batch."""
+    times = sorted(_timed_query(index, q, w, spec)[1] for _ in range(reps))
+    return times[reps // 2]
+
+
+def _check_result(res, b, k):
+    import torch
+
+    if tuple(res.ids.shape) != (b, k):
+        raise AssertionError("result shape")
+    if not bool((torch.isfinite(res.dists) == (res.ids >= 0)).all()):
+        raise AssertionError("ids == -1 must coincide with dists == +inf")
+    if not bool((res.dists[:, 1:] >= res.dists[:, :-1]).all()):
+        raise AssertionError("dists must ascend")
+
+
+def _serve(family: str, batches: int, wl, index=None, **overrides):
     import dataclasses
 
     import torch
@@ -344,37 +499,29 @@ def _serve(family: str, batches: int, wl, **overrides):
     from repro_torch.configs.paper_alsh import SERVICE
     from repro_torch.distance import recall_at_k
 
-    cfg = dataclasses.replace(SERVICE.index_config, family=family, **overrides)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    index = tapi.Index.build(SEED + 2, wl.data, cfg)
-    torch.cuda.synchronize()
-    print(f"  [{family}] built index over n={index.n} d={cfg.d} K={cfg.K} L={cfg.L} "
-          f"C={cfg.max_candidates} W={cfg.W} on {index.device} in "
-          f"{time.perf_counter() - t0:.3f} s")
+    if index is None:
+        cfg = dataclasses.replace(SERVICE.index_config, family=family, **overrides)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        index = tapi.Index.build(SEED + 2, wl.data, cfg)
+        torch.cuda.synchronize()
+        print(f"  [{family}] built index over n={index.n} d={cfg.d} K={cfg.K} L={cfg.L} "
+              f"C={cfg.max_candidates} W={cfg.W} on {index.device} in "
+              f"{time.perf_counter() - t0:.3f} s")
     spec = tapi.QuerySpec(k=SERVICE.topk)
     exact = tapi.QuerySpec(k=SERVICE.topk, mode="exact")
     out = []
     for bi in range(batches):
         q, w = wl.batch(SERVICE.query_batch, SEED + 100 + bi)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = index.query(q, w, spec)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
+        res, ms = _timed_query(index, q, w, spec)
+        dt = ms / 1e3
         ref = index.query(q[:64], w[:64], exact)
         rec = recall_at_k(res.ids[:64], ref.ids, SERVICE.topk)
         cand_frac = float(res.n_candidates.float().mean()) / index.n
         print(f"  [{family}] batch {bi}: {SERVICE.query_batch} queries in {dt * 1e3:.2f} ms "
               f"({dt / SERVICE.query_batch * 1e6:.2f} us/query) cand_frac={cand_frac:.5f} "
               f"recall@{SERVICE.topk}={rec:.3f}")
-        if tuple(res.ids.shape) != (SERVICE.query_batch, SERVICE.topk):
-            raise AssertionError("result shape")
-        found = res.ids >= 0
-        if not bool((torch.isfinite(res.dists) == found).all()):
-            raise AssertionError("ids == -1 must coincide with dists == +inf")
-        if not bool((res.dists[:, 1:] >= res.dists[:, :-1]).all()):
-            raise AssertionError("dists must ascend")
+        _check_result(res, SERVICE.query_batch, SERVICE.topk)
         if not bool((res.dists[:64] >= ref.dists - 1e-4).all()):
             raise AssertionError("a probe result beat the exact scan")
         out.append({"ms": dt * 1e3, "cand_frac": cand_frac, "recall": rec})
@@ -423,21 +570,30 @@ def profile(label, fn, top=12, unprofiled_wall=False):
         print(f"    {e.self_device_time_total:9.1f} us  x{e.count:<4d} {e.key[:90]}")
 
 
-def phase_main_path():
+def _path_counts(label, needed):
+    """The launch counts since the last reset; fails when a kernel of the
+    path was never launched."""
+    from repro_torch.kernels import _build
+
+    counts = _build.launch_counts()
+    print(f"  launches on the {label} path: {counts}")
+    missing = [k for k in needed if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the {label} path: {missing}")
+    return counts
+
+
+def phase_main_path(svc):
     import repro_torch.api as tapi
     from repro_torch.kernels import _build
 
-    wl, _, _ = _service_inputs()
+    wl = svc.wl
     _build.reset_launch_counts()
-    index, q, w, theta = _serve("theta", 3, wl)
+    index, q, w, theta = _serve("theta", 3, wl, index=svc.index)
     profile("of one theta probe batch", lambda: index.query(q, w, tapi.QuerySpec(k=10)),
             unprofiled_wall=True)
     *_, l2 = _serve("l2", 1, wl, W=L2_W)
-    counts = _build.launch_counts()
-    print(f"  launches on the main path: {counts}")
-    missing = [k for k, v in counts.items() if v == 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the main path: {missing}")
+    counts = _path_counts("f32", ("alsh_project", "gather_rerank_topk", "wl1_scan_topk"))
     for family, rows, floor in (("theta", theta, THETA_RECALL_FLOOR), ("l2", l2, L2_RECALL_FLOOR)):
         rec = sum(r["recall"] for r in rows) / len(rows)
         print(f"  [{family}] mean recall@10 {rec:.3f} (floor {floor})")
@@ -446,10 +602,118 @@ def phase_main_path():
     return counts, {"theta": theta, "l2": l2}
 
 
+def phase_quant_path(svc):
+    """Quantized storage at the SERVICE widths: int8 and bf16 indexes built
+    from the f32 index's seed, served screened (α=2) and unscreened beside
+    the f32 index."""
+    import dataclasses
+
+    import torch
+
+    import repro_torch.api as tapi
+    from repro_torch.configs.paper_alsh import SERVICE
+    from repro_torch.distance import recall_at_k
+    from repro_torch.kernels import _build
+
+    wl, f32, cfg = svc.wl, svc.index, svc.index.config
+    k, b = SERVICE.topk, SERVICE.query_batch
+    exact = tapi.QuerySpec(k=k, mode="exact")
+    q, w = wl.batch(b, SEED + 100)  # the f32 path's first batch
+    _build.reset_launch_counts()
+    plain, _ = _timed_query(f32, q, w, tapi.QuerySpec(k=k))
+    folded, _ = _timed_query(f32, q, w, tapi.QuerySpec(k=k, screen_alpha=SCREEN_ALPHA))
+    f32_ms = _median_ms(f32, q, w, tapi.QuerySpec(k=k))
+    print(f"  [f32] the same batch: {f32_ms:.2f} ms (median of 5 warm calls)")
+    same = bool((plain.ids == folded.ids).all()) and bool((plain.dists == folded.dists).all())
+    print(f"  [f32] alpha={SCREEN_ALPHA} equals alpha=0 (ids and dists): {same}")
+    if not same:
+        raise AssertionError("f32 storage with screen_alpha > 0 must equal alpha = 0")
+    oracle = f32.query(q[:64], w[:64], exact)
+    rows = {}
+    for storage in ("int8", "bf16"):
+        t0 = time.perf_counter()
+        index = tapi.Index.build(SEED + 2, wl.data, dataclasses.replace(cfg, storage=storage))
+        torch.cuda.synchronize()
+        print(f"  [{storage}] built in {time.perf_counter() - t0:.3f} s; table_bytes "
+              f"{index.table_bytes} ({f32.table_bytes / index.table_bytes:.2f}x smaller than f32)")
+        own = index.query(q[:64], w[:64], exact)
+        for alpha in (SCREEN_ALPHA, 0.0):
+            spec = tapi.QuerySpec(k=k, screen_alpha=alpha)
+            before = _build.launch_counts()["gather_rerank_topk_blocked"]
+            res, _ = _timed_query(index, q, w, spec)
+            launched = _build.launch_counts()["gather_rerank_topk_blocked"] - before
+            ms = _median_ms(index, q, w, spec)
+            _check_result(res, b, k)
+            same_cand = bool((res.n_candidates == plain.n_candidates).all())
+            rec_own = recall_at_k(res.ids[:64], own.ids, k)
+            rec_f32 = recall_at_k(res.ids[:64], oracle.ids, k)
+            cand_frac = float(res.n_candidates.float().mean()) / index.n
+            print(f"  [{storage}] alpha={alpha}: {b} queries in {ms:.2f} ms (median of 5 warm; "
+                  f"{ms / b * 1e3:.2f} us/query) cand_frac={cand_frac:.5f} (equal to f32's: "
+                  f"{same_cand}) recall@{k} vs own exact {rec_own:.3f}, vs f32 exact "
+                  f"{rec_f32:.3f}; quantized-kernel launches {launched}")
+            if not same_cand:
+                raise AssertionError(f"{storage}: n_candidates differ from the f32 index's")
+            if rec_own < QUANT_RECALL_FLOOR:
+                raise AssertionError(f"{storage} alpha={alpha}: recall@{k} {rec_own:.3f} is "
+                                     f"under its floor {QUANT_RECALL_FLOOR}")
+            if launched != (2 if alpha else 1):
+                raise AssertionError(f"{storage} alpha={alpha}: {launched} quantized-kernel "
+                                     f"launches, expected {2 if alpha else 1}")
+            rows[f"{storage}/alpha={alpha}"] = {"ms": ms, "cand_frac": cand_frac,
+                                                "recall_own": rec_own, "recall_f32": rec_f32}
+        if storage == "int8":
+            profile("of one int8 screened batch",
+                    lambda: index.query(q, w, tapi.QuerySpec(k=k, screen_alpha=SCREEN_ALPHA)),
+                    unprofiled_wall=True)
+    # f32 timed again after the quantized batches: f32, quantized, f32 in turns
+    rows["f32_ms"] = [f32_ms, _median_ms(f32, q, w, tapi.QuerySpec(k=k))]
+    print(f"  [f32] the same batch again: {rows['f32_ms'][1]:.2f} ms (median of 5 warm calls)")
+    counts = _path_counts("quantized", ("alsh_project", "gather_rerank_topk_blocked",
+                                        "wl1_scan_topk"))
+    return counts, rows
+
+
+def phase_multiprobe_path(svc):
+    """Theta multiprobe (the QuerySpec defaults: 8 probes, up to 3 flipped
+    bits) on the f32 SERVICE index and the batch of a probe batch."""
+    import repro_torch.api as tapi
+    from repro_torch.configs.paper_alsh import SERVICE
+    from repro_torch.distance import recall_at_k
+    from repro_torch.kernels import _build
+
+    index = svc.index
+    k, b = SERVICE.topk, SERVICE.query_batch
+    q, w = svc.wl.batch(b, SEED + 100)
+    _build.reset_launch_counts()
+    mspec = tapi.QuerySpec(k=k, mode="multiprobe", n_probes=8, max_flips=3)
+    probe, _ = _timed_query(index, q, w, tapi.QuerySpec(k=k))
+    mp, _ = _timed_query(index, q, w, mspec)
+    ms = _median_ms(index, q, w, mspec)
+    _check_result(mp, b, k)
+    ex = index.query(q[:64], w[:64], tapi.QuerySpec(k=k, mode="exact"))
+    rec, rec_probe = recall_at_k(mp.ids[:64], ex.ids, k), recall_at_k(probe.ids[:64], ex.ids, k)
+    cand_frac = float(mp.n_candidates.float().mean()) / index.n
+    worse = int((mp.dists > probe.dists + 1e-6).sum())
+    print(f"  [theta multiprobe] {b} queries in {ms:.2f} ms (median of 5 warm; "
+          f"{ms / b * 1e3:.2f} us/query) "
+          f"cand_frac={cand_frac:.5f} (probe "
+          f"{float(probe.n_candidates.float().mean()) / index.n:.5f}) recall@{k}={rec:.3f} "
+          f"(probe {rec_probe:.3f}); slots where multiprobe is worse than probe: {worse}")
+    if worse or not bool((mp.n_candidates >= probe.n_candidates).all()):
+        raise AssertionError("multiprobe must see a superset of the probe batch's candidates")
+    profile("of one theta multiprobe batch", lambda: index.query(q, w, mspec), top=6)
+    counts = _path_counts("multiprobe", ("alsh_project", "gather_rerank_topk"))
+    return counts, {"ms": ms, "cand_frac": cand_frac, "recall": rec, "recall_probe": rec_probe}
+
+
 def phase_small_check():
     """The card's answers against the plain PyTorch path on the CPU, over
     one index state (built on the card, copied to the CPU)."""
+    import dataclasses
+
     import repro_torch.api as tapi
+    from repro_torch import quant
     from repro_torch.kernels.ref import unexplained_id_mismatches
 
     cfg = tapi.IndexConfig(d=128, M=32, K=12, L=32, max_candidates=128,
@@ -457,21 +721,26 @@ def phase_small_check():
     wl = Workload(8192, 128, seed=SEED + 7)
     q, w = (t.cpu() for t in wl.batch(64, SEED + 8))
     data = wl.data.cpu()
-    gpu = tapi.Index.build(SEED, data, cfg)
-    cpu = tapi.Index(state=gpu.state.to("cpu"), config=cfg)
-    for mode in ("exact", "probe"):
-        spec = tapi.QuerySpec(k=10, mode=mode)
+    int8 = dataclasses.replace(cfg, storage="int8")
+    for label, config, spec in (
+        ("exact", cfg, tapi.QuerySpec(k=10, mode="exact")),
+        ("probe", cfg, tapi.QuerySpec(k=10)),
+        ("int8 screened probe", int8, tapi.QuerySpec(k=10, screen_alpha=SCREEN_ALPHA)),
+    ):
+        gpu = tapi.Index.build(SEED, data, config)
+        cpu = tapi.Index(state=gpu.state.to("cpu"), config=config)
+        decoded = quant.decode_table(cpu.state.data, cpu.state.scales)
         g = gpu.query(q, w, spec)
         c = cpu.query(q, w, spec)
         same_cand = float((g.n_candidates.cpu() == c.n_candidates).float().mean())
         rows = (g.n_candidates.cpu() == c.n_candidates)
-        bad = unexplained_id_mismatches(g.ids.cpu()[rows], c.dists[rows], c.ids[rows], data,
+        bad = unexplained_id_mismatches(g.ids.cpu()[rows], c.dists[rows], c.ids[rows], decoded,
                                         q[rows], w[rows], DIST_RTOL, DIST_ATOL)
         err = float((g.dists.cpu()[rows] - c.dists[rows]).nan_to_num(0, 0, 0).abs().max())
-        print(f"  {mode}: card vs CPU plain path on n=8192 d=128 b=64: same candidate "
+        print(f"  {label}: card vs CPU plain path on n=8192 d=128 b=64: same candidate "
               f"count {same_cand:.3f}, max_abs_err {err:.3g}, unexplained id mismatches {bad}")
         if bad or err > 1e-3 or same_cand < 0.95:
-            raise AssertionError(f"{mode}: card and CPU paths disagree")
+            raise AssertionError(f"{label}: card and CPU paths disagree")
 
 
 def main() -> int:
@@ -497,20 +766,34 @@ def main() -> int:
     if run.failures:
         print(f"chip_smoke: FAILED phases: {run.failures}")
         return 1
-    run.phase("kernel alsh_project", phase_alsh_project, run)
-    run.phase("kernel gather_rerank_topk", phase_gather_rerank, run)
-    run.phase("kernel wl1_scan_topk", phase_scan, run)
-    main_out = run.phase("main path (SERVICE, theta + l2)", phase_main_path)
-    run.phase("check against the CPU path", phase_small_check)
-    if run.failures or main_out is None:
+    svc = run.phase("service set-up (SERVICE workload, f32 theta index, candidates)",
+                    Service)
+    if svc is None:
         print(f"chip_smoke: FAILED phases: {run.failures}")
         return 1
-    counts, _ = main_out
+    run.phase("kernel alsh_project", phase_alsh_project, run, svc)
+    run.phase("kernel gather_rerank_topk", phase_gather_rerank, run, svc)
+    run.phase("kernel gather_rerank_topk_blocked", phase_gather_rerank_blocked, run, svc)
+    run.phase("kernel wl1_scan_topk", phase_scan, run, svc)
+    paths = [
+        run.phase("main path (SERVICE, theta + l2)", phase_main_path, svc),
+        run.phase("main path (SERVICE, int8 and bf16 storage, screen alpha 2 and 0)",
+                  phase_quant_path, svc),
+        run.phase("main path (SERVICE, theta multiprobe)", phase_multiprobe_path, svc),
+    ]
+    run.phase("check against the CPU path", phase_small_check)
+    if run.failures or any(p is None for p in paths):
+        print(f"chip_smoke: FAILED phases: {run.failures}")
+        return 1
+    # launches: each path's own counts (zeroed just before it), summed
+    counts = {name: sum(p[0][name] for p in paths) for name in paths[0][0]}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     rows = []
     for name, entry in run.kernels.items():
         entry["launches"] = counts[name]
+        entry["launches_by_path"] = dict(zip(("f32", "quantized", "multiprobe"),
+                                             (p[0][name] for p in paths)))
         rows.append({k: entry[k] for k in keys} | {
             k: v for k, v in entry.items() if k not in keys
         })

@@ -5,9 +5,10 @@ The JAX package ``repro`` is the reference; this package mirrors its layout
 ``launch/``) so each module here has one counterpart there. It imports
 ``torch`` and numpy only — never ``jax`` and never ``repro``.
 
-Ported so far: the sealed f32 index — build, single-probe query and the
-exact scan — with the three hot kernels hand-written in CUDA for Hopper
-(``kernels/csrc``). Entry points run on the CUDA card unless the caller asks
+Ported so far: the sealed index — build, single-probe and multiprobe query
+and the exact scan — with f32, bf16 or int8 row storage and the quantized
+proxy screen (``quant/``); its four kernels are hand-written in CUDA for
+Hopper (``kernels/csrc``). Entry points run on the CUDA card unless the caller asks
 for ``device="cpu"``; on CPU tensors the kernels' plain PyTorch versions run.
 Modes that are not ported yet raise :class:`NotImplementedError` naming the
 ROADMAP item that ports them.

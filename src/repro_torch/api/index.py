@@ -2,7 +2,11 @@
 
     index = Index.build(seed, data, cfg)                     # on the GPU
     res   = index.query(q, w, QuerySpec(k=10))               # single-probe
+    res   = index.query(q, w, QuerySpec(k=10, mode="multiprobe", n_probes=8))
     res   = index.query(q, w, QuerySpec(k=10, mode="exact")) # oracle scan
+
+A config with ``storage="int8"`` or ``"bf16"`` keeps the table payload
+encoded; ``QuerySpec(screen_alpha=α)`` screens it before the exact rerank.
 
 ``Index.build`` runs on ``device="cuda"`` unless the caller passes
 ``device="cpu"``; without a card it raises rather than carry on on the CPU.
@@ -20,6 +24,7 @@ import torch
 
 from repro_torch import engine, not_ported
 from repro_torch.api.spec import QualitySpec, QuerySpec, UpdateSpec
+from repro_torch.core.families import n_flip_subsets
 from repro_torch.core.index import (
     ALSHIndex,
     IndexConfig,
@@ -82,6 +87,23 @@ def validate_query_args(d: int, queries: torch.Tensor, weights: torch.Tensor) ->
             )
 
 
+def _check_probe_reach(cfg: IndexConfig, spec: QuerySpec) -> None:
+    """Reject multiprobe specs asking for more probes than the (K,
+    max_flips) perturbation enumeration can reach — beyond that count every
+    extra probe re-probes a duplicate bucket and buys nothing."""
+    if spec.mode != "multiprobe":
+        return
+    cap = n_flip_subsets(cfg.K, spec.max_flips)
+    if spec.n_probes > cap:
+        raise ValueError(
+            f"QuerySpec.n_probes={spec.n_probes} exceeds the "
+            f"{cap} distinct probe keys reachable with K={cfg.K} "
+            f"hash bits and max_flips={spec.max_flips} — extra probes "
+            f"would silently hit duplicate buckets; lower n_probes or "
+            f"raise max_flips"
+        )
+
+
 @dataclasses.dataclass
 class Index:
     """A built sealed ALSH index that owns its static configuration."""
@@ -130,10 +152,20 @@ class Index:
     def device(self) -> torch.device:
         return self.state.device
 
+    @property
+    def table_bytes(self) -> int:
+        """Resident bytes of the row table (payload + decode scales) — the
+        memory the storage codec compresses. Hash tables and permutations
+        are excluded: they are storage-invariant."""
+        total = self.state.data.nbytes
+        if self.state.scales is not None:
+            total += self.state.scales.nbytes
+        return int(total)
+
     def query(self, queries, weights, spec=QuerySpec()) -> QueryResult:
         """Batched k-NN under d_w^l1 on the index's device. ``spec`` is a
-        :class:`QuerySpec` (mode "probe" or "exact"). Invalid result slots
-        are ``ids == -1`` / ``dists == +inf``."""
+        :class:`QuerySpec` (mode "probe", "multiprobe" or "exact"). Invalid
+        result slots are ``ids == -1`` / ``dists == +inf``."""
         if isinstance(spec, QualitySpec):
             raise not_ported("Index.query(QualitySpec) — quality-first planning", "Queue A item 10")
         if not isinstance(spec, QuerySpec):
@@ -141,8 +173,10 @@ class Index:
         queries = torch.as_tensor(queries)
         weights = torch.as_tensor(weights)
         validate_query_args(self.config.d, queries, weights)
+        _check_probe_reach(self.config, spec)
         return engine.query(
-            self.state, None, None, queries, weights, self.config, k=spec.k, mode=spec.mode
+            self.state, None, None, queries, weights, self.config, k=spec.k, mode=spec.mode,
+            n_probes=spec.n_probes, max_flips=spec.max_flips, screen_alpha=spec.screen_alpha,
         )
 
     def shard(self, *args, **kwargs):

@@ -3,9 +3,8 @@
 The specs keep the reference's fields and validation, so a spec that is
 invalid there is invalid here with the same message. Fields this port does
 not execute yet raise ``NotImplementedError`` naming the ROADMAP.md item:
-``mode="multiprobe"``, ``early_exit``, ``screen_alpha``, and a non-"auto"
-``impl``; a :class:`QualitySpec` or a mutable :class:`UpdateSpec` raises
-where ``Index`` receives it.
+``early_exit`` and a non-"auto" ``impl``; a :class:`QualitySpec` or a
+mutable :class:`UpdateSpec` raises where ``Index`` receives it.
 """
 
 from __future__ import annotations
@@ -13,6 +12,7 @@ from __future__ import annotations
 import dataclasses
 
 from repro_torch import not_ported
+from repro_torch.core.multiprobe import MAX_FLIPS, N_PROBES
 
 MODES = ("exact", "probe", "multiprobe")
 IMPLS = ("auto", "gather", "onehot")
@@ -21,13 +21,16 @@ IMPLS = ("auto", "gather", "onehot")
 @dataclasses.dataclass(frozen=True)
 class QuerySpec:
     """How to execute a query: ``k`` neighbours; ``mode`` "probe" (the
-    paper's single-probe ALSH) or "exact" (streaming scan, the oracle).
-    The remaining fields mirror the reference and are not ported yet."""
+    paper's single-probe ALSH), "multiprobe" (``n_probes`` buckets per
+    table, flipping up to ``max_flips`` bits) or "exact" (streaming scan,
+    the oracle); ``screen_alpha`` >= 1 screens quantized storage down to
+    ``ceil(k·α)`` survivors before the exact rerank (0: off). The
+    remaining fields mirror the reference and are not ported yet."""
 
     k: int = 1
     mode: str = "probe"
-    n_probes: int = 8
-    max_flips: int = 3
+    n_probes: int = N_PROBES
+    max_flips: int = MAX_FLIPS
     impl: str = "auto"
     screen_alpha: float = 0.0
     early_exit: bool = False
@@ -77,12 +80,8 @@ class QuerySpec:
                 "streaming scan already visits every row exactly once)"
             )
         # valid in the reference, not executed by this port yet
-        if self.mode == "multiprobe":
-            raise not_ported("QuerySpec(mode='multiprobe')", "Queue A item 5")
         if self.early_exit:
             raise not_ported("QuerySpec(early_exit=True)", "Queue A item 8")
-        if self.screen_alpha != 0.0:
-            raise not_ported("QuerySpec(screen_alpha>0)", "Queue A item 6")
         if self.impl != "auto":
             raise not_ported(f"QuerySpec(impl={self.impl!r})", "Queue A item 10")
 

@@ -6,11 +6,14 @@
     combined by wrapping int32 multiply-add with odd mixers.
 
 Instances are stateless singletons. Query-directed multiprobe
-(``multiprobe_keys``, ``flip_subsets``) is not ported yet.
+(``multiprobe_keys``) is theta-only; ``flip_subsets`` enumerates its bit
+flips and ``n_flip_subsets`` counts them.
 """
 
 from __future__ import annotations
 
+import itertools
+import math
 from typing import TYPE_CHECKING
 
 import torch
@@ -18,7 +21,17 @@ import torch
 if TYPE_CHECKING:
     from repro_torch.core.index import IndexConfig
 
-__all__ = ["HashFamily", "ThetaFamily", "L2Family", "THETA", "L2", "FAMILIES", "get_family"]
+__all__ = [
+    "HashFamily",
+    "ThetaFamily",
+    "L2Family",
+    "THETA",
+    "L2",
+    "FAMILIES",
+    "get_family",
+    "flip_subsets",
+    "n_flip_subsets",
+]
 
 _U32 = 1 << 32
 
@@ -34,6 +47,7 @@ class HashFamily:
     """Protocol (with shared behavior) for one ALSH hash family."""
 
     name: str = "abstract"
+    supports_multiprobe: bool = False
 
     def validate(self, cfg: "IndexConfig") -> None:
         """Raise ValueError (naming the offending field) on bad geometry."""
@@ -54,11 +68,21 @@ class HashFamily:
         """(..., L, K) int codes -> (..., L) int32 table keys."""
         raise NotImplementedError
 
+    def multiprobe_keys(
+        self, proj_lk: torch.Tensor, n_probes: int, max_flips: int
+    ) -> torch.Tensor:
+        """(b, L, K) raw projections -> (b, L, P) probe keys, most-likely first."""
+        raise NotImplementedError(
+            f"family {self.name!r} does not support multiprobe querying; "
+            "use the 'theta' family or QuerySpec(mode='probe')"
+        )
+
 
 class ThetaFamily(HashFamily):
     """(d_w^l1, theta)-ALSH — Eq 5 SimHash sign bits, exact bit-packed keys."""
 
     name = "theta"
+    supports_multiprobe = True
 
     def validate(self, cfg: "IndexConfig") -> None:
         if cfg.K > 31:
@@ -80,6 +104,25 @@ class ThetaFamily(HashFamily):
             K, dtype=torch.int64, device=codes_lk.device
         )
         return torch.sum(codes_lk.to(torch.int64) * shifts, dim=-1).to(torch.int32)
+
+    def multiprobe_keys(self, proj_lk, n_probes, max_flips):
+        """Query-directed probing (Lv et al., VLDB'07): probe the buckets
+        whose keys flip the lowest-|margin| bits of the query's code, in
+        increasing total flipped margin. Ties go to the earlier subset in
+        ``flip_subsets`` order (a stable sort, as ``lax.top_k`` breaks them)."""
+        K = proj_lk.shape[-1]
+        dev = proj_lk.device
+        masks = flip_subsets(K, max_flips, device=dev)  # (S, K)
+        # score of a subset = total margin flipped (lower = more likely)
+        scores = torch.einsum("blk,sk->bls", proj_lk.abs(), masks.to(proj_lk.dtype))
+        n_probes = min(n_probes, masks.shape[0])
+        probe_idx = torch.sort(scores, dim=-1, stable=True).indices[..., :n_probes]  # (b, L, P)
+        shifts = torch.ones((), dtype=torch.int64, device=dev) << torch.arange(
+            K, dtype=torch.int64, device=dev
+        )
+        base_key = torch.sum((proj_lk >= 0).to(torch.int64) * shifts, dim=-1)  # (b, L)
+        flip_key = torch.sum(masks.to(torch.int64) * shifts, dim=-1)  # (S,) xor masks
+        return torch.bitwise_xor(base_key[..., None], flip_key[probe_idx]).to(torch.int32)
 
 
 class L2Family(HashFamily):
@@ -105,6 +148,25 @@ class L2Family(HashFamily):
         # sum mod 2**32 explicitly (|product| < 2**62, K * 2**32 fits int64).
         prod = torch.remainder(codes_lk.to(torch.int64) * mixers.to(torch.int64), _U32)
         return _wrap_int32(torch.sum(prod, dim=-1))
+
+
+def n_flip_subsets(K: int, max_flips: int) -> int:
+    """How many distinct probe keys ``flip_subsets`` can reach: the number
+    of bit-flip subsets of size <= max_flips, INCLUDING the empty subset
+    (the query's own bucket)."""
+    return sum(math.comb(K, r) for r in range(0, min(max_flips, K) + 1))
+
+
+def flip_subsets(K: int, max_flips: int, device=None) -> torch.Tensor:
+    """Static enumeration of bit-flip subsets as (n_subsets, K) bool masks,
+    ordered by size, then lexicographically (``itertools.combinations``)."""
+    subsets = [()]
+    for r in range(1, max_flips + 1):
+        subsets.extend(itertools.combinations(range(K), r))
+    masks = torch.zeros((len(subsets), K), dtype=torch.bool)
+    for i, s in enumerate(subsets):
+        masks[i, list(s)] = True
+    return masks.to(device)
 
 
 THETA = ThetaFamily()

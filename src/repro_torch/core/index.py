@@ -8,8 +8,9 @@ Each of the L tables is a sorted key column:
 This module owns the data structure (``IndexConfig``, ``ALSHIndex``,
 ``build_index``) and the probe primitives (``_probe_one_table``,
 ``_dedupe_candidates``, ``table_window_sizes``); query execution lives in
-:mod:`repro_torch.engine`. Only the sealed f32 segment is ported: the delta
-segment, tombstones and quantized storage are ROADMAP.md Queue A items 6-7.
+:mod:`repro_torch.engine`. The sealed segment is ported with every storage
+codec (f32, bf16, int8; ``repro_torch.quant``); the delta segment and
+tombstones are ROADMAP.md Queue A item 7.
 
 ``index_from_numpy`` carries an index the JAX package built (its
 ``ALSHIndex`` leaves as numpy arrays) into this package, which is how the
@@ -24,19 +25,18 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch import not_ported
 from repro_torch.core import hash_families as hf
 from repro_torch.core import transforms
 from repro_torch.core.families import HashFamily, get_family
+from repro_torch.quant.codecs import STORAGE_KINDS, get_codec, storage_dtype
 
-STORAGE_KINDS = ("f32", "bf16", "int8")  # the reference's codecs; only f32 is ported
 INT32_MAX = 2**31 - 1
 
 
 @dataclasses.dataclass(frozen=True)
 class IndexConfig:
     """Static geometry of an ALSH index (same fields and validation as the
-    reference). ``storage`` other than "f32" is not ported yet."""
+    reference). ``storage`` names the row codec of the table payload."""
 
     d: int
     M: int
@@ -67,8 +67,6 @@ class IndexConfig:
                 f"(hi-lo)*t <= M"
             )
         get_family(self.family).validate(self)
-        if self.storage != "f32":
-            raise not_ported(f"IndexConfig(storage={self.storage!r})", "Queue A item 6")
 
     @property
     def n_hashes(self) -> int:
@@ -87,8 +85,9 @@ class ALSHIndex:
     mixers: torch.Tensor  # (L, K) int32 key combiners
     sorted_keys: torch.Tensor  # (L, n) int32 per-table sorted bucket keys
     perm: torch.Tensor  # (L, n + C) int32 point ids by key order, padded with n
-    data: torch.Tensor  # (n, d) f32 rows
+    data: torch.Tensor  # (n, d) ENCODED rows in the cfg.storage dtype
     levels: torch.Tensor  # (n, d) int32 lattice points
+    scales: torch.Tensor | None = None  # (d,) f32 decode scales (int8 storage only)
 
     @property
     def n(self) -> int:
@@ -106,6 +105,7 @@ class ALSHIndex:
             perm=self.perm.to(device),
             data=self.data.to(device),
             levels=self.levels.to(device),
+            scales=None if self.scales is None else self.scales.to(device),
         )
 
 
@@ -144,6 +144,9 @@ def build_index(
 ) -> ALSHIndex:
     """Hash every row and sort each table by key, on ``data``'s device.
 
+    Hashing and discretization see the RAW rows; the payload is encoded with
+    the ``cfg.storage`` codec as the LAST step, so candidate generation is
+    identical across codecs and only the rerank tail sees the compression.
     The tables and mixers are drawn from ``generator`` (a CPU generator
     gives the same state on every device) unless pre-drawn ``tables`` and
     ``mixers`` are passed, as the parity tests do with the reference's.
@@ -169,32 +172,56 @@ def build_index(
     n = data.shape[0]
     pad = torch.full((cfg.L, cfg.max_candidates), n, dtype=torch.int64, device=dev)
     perm = torch.cat([perm, pad], dim=1).to(torch.int32)  # (L, n + C)
+    payload, scales = get_codec(cfg.storage).encode(data)
     return ALSHIndex(
-        tables=tables, mixers=mixers, sorted_keys=sorted_keys, perm=perm, data=data, levels=levels
+        tables=tables, mixers=mixers, sorted_keys=sorted_keys, perm=perm, data=payload,
+        levels=levels, scales=scales,
     )
+
+
+def _payload_tensor(arr, storage: str, device) -> torch.Tensor:
+    """The table payload in its stored dtype. A bf16 payload comes as the
+    JAX package hands it over, with numpy dtype ``bfloat16`` (from
+    ``ml_dtypes``), which torch cannot read: its 16-bit pattern is
+    reinterpreted bit for bit."""
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":
+        t = torch.tensor(np.ascontiguousarray(arr).view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.tensor(arr)
+    want = storage_dtype(storage)
+    if t.dtype != want:
+        raise ValueError(
+            f"data payload is {t.dtype}, but IndexConfig.storage={storage!r} stores {want}"
+        )
+    return t.to(device)
 
 
 def index_from_numpy(arrays: dict, cfg: IndexConfig, device) -> ALSHIndex:
     """The port's ``ALSHIndex`` from the reference's leaves as numpy arrays.
 
     ``arrays`` holds ``folded`` (H, d, M+1), ``offsets`` (H,), ``mixers``
-    (L, K), ``sorted_keys`` (L, n), ``perm`` (L, n+C), ``data`` (n, d),
-    ``levels`` (n, d) and optionally ``scales``, which must be None (f32
-    storage).
+    (L, K), ``sorted_keys`` (L, n), ``perm`` (L, n+C), ``data`` (n, d) — the
+    payload in the ``cfg.storage`` dtype —, ``levels`` (n, d) and
+    ``scales`` ((d,) f32, present exactly when the codec stores scales).
     """
-    if arrays.get("scales") is not None:
-        raise not_ported("an index with storage scales (int8 storage)", "Queue A item 6")
 
     def t(name, dtype):
         return torch.tensor(np.asarray(arrays[name])).to(device=device, dtype=dtype)
 
+    scaled = get_codec(cfg.storage).scaled
+    if (arrays.get("scales") is not None) != scaled:
+        raise ValueError(
+            f"IndexConfig.storage={cfg.storage!r} {'needs' if scaled else 'takes no'} scales"
+        )
     idx = ALSHIndex(
         tables=hf.PrefixTables(t("folded", torch.float32), t("offsets", torch.float32)),
         mixers=t("mixers", torch.int32),
         sorted_keys=t("sorted_keys", torch.int32),
         perm=t("perm", torch.int32),
-        data=t("data", torch.float32),
+        data=_payload_tensor(arrays["data"], cfg.storage, device),
         levels=t("levels", torch.int32),
+        scales=t("scales", torch.float32) if scaled else None,
     )
     H, d, m1 = idx.tables.folded.shape
     n = idx.n
@@ -204,6 +231,8 @@ def index_from_numpy(arrays: dict, cfg: IndexConfig, device) -> ALSHIndex:
         cfg.L, n + cfg.max_candidates,
     ):
         raise ValueError("sorted_keys/perm shapes do not match the config and data")
+    if idx.scales is not None and tuple(idx.scales.shape) != (d,):
+        raise ValueError(f"scales is {tuple(idx.scales.shape)}, config needs {(d,)}")
     return idx
 
 

@@ -139,6 +139,11 @@ GATHER_RERANK = Kernel(
     "gather_rerank.cu",
     {"gather_rerank_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]},
 )
+GATHER_RERANK_BLOCKED = Kernel(
+    "gather_rerank_topk_blocked",
+    "gather_rerank_blocked.cu",
+    {"gather_rerank_blocked_launch": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]},
+)
 WL1_SCAN_TOPK = Kernel(
     "wl1_scan_topk",
     "wl1_topk.cu",
@@ -147,7 +152,9 @@ WL1_SCAN_TOPK = Kernel(
         "wl1_scan_topk_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     },
 )
-KERNELS = {k.name: k for k in (ALSH_PROJECT, GATHER_RERANK, WL1_SCAN_TOPK)}
+KERNELS = {
+    k.name: k for k in (ALSH_PROJECT, GATHER_RERANK, GATHER_RERANK_BLOCKED, WL1_SCAN_TOPK)
+}
 
 
 def build_all() -> dict[str, Kernel]:

@@ -1,10 +1,16 @@
-"""CUDA wrapper of the fused probe tail (``csrc/gather_rerank.cu``):
-gather candidate rows by id, exact d_w^l1 re-rank, top-k.
+"""CUDA wrappers of the fused probe tail: gather candidate rows by id,
+exact d_w^l1 re-rank, top-k.
 
-Counterpart of ``repro.kernels.gather_rerank.gather_rerank_topk_pallas``
-(single segment, f32 rows). The two-segment and quantized schedules are not
-ported yet (ROADMAP.md Queue B). The plain version is
-``repro_torch.kernels.ref.gather_rerank_topk``.
+  * ``gather_rerank_topk_cuda`` (``csrc/gather_rerank.cu``): f32 rows —
+    counterpart of ``repro.kernels.gather_rerank.gather_rerank_topk_pallas``
+    (single segment);
+  * ``gather_rerank_topk_blocked_cuda`` (``csrc/gather_rerank_blocked.cu``):
+    rows in their stored dtype (bf16, int8, or f32 with scales), decoded in
+    registers — counterpart of ``gather_rerank_topk_pallas_blocked``
+    (single segment).
+
+The two-segment schedules are not ported yet (ROADMAP.md Queue B). The
+plain version of both is ``repro_torch.kernels.ref.gather_rerank_topk``.
 """
 
 from __future__ import annotations
@@ -12,10 +18,32 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels._build import GATHER_RERANK as KERNEL
+from repro_torch.kernels._build import GATHER_RERANK_BLOCKED as BLOCKED_KERNEL
 from repro_torch.kernels._build import require, stream_of
 
 SMEM_LIMIT = 227 * 1024
 WARPS = 4  # queries per block, as in the CUDA source
+STORED_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}  # codes of the C launch
+
+
+def _check_args(data, ids, queries, weights, k, n_vectors: int) -> None:
+    """Device, dtype, shape and shared-memory checks common to both kernels;
+    ``n_vectors`` is the per-warp d-length vectors the kernel stages."""
+    dev = data.device
+    require(ids, "ids", torch.int32, 2, dev)
+    require(queries, "queries", torch.float32, 2, dev)
+    require(weights, "weights", torch.float32, 2, dev)
+    d = data.shape[1]
+    b = ids.shape[0]
+    if tuple(queries.shape) != (b, d) or tuple(weights.shape) != (b, d):
+        raise ValueError(
+            f"queries/weights must be {(b, d)}, got {tuple(queries.shape)}/{tuple(weights.shape)}"
+        )
+    if not isinstance(k, int) or k <= 0:
+        raise ValueError(f"k must be a positive int, got {k!r}")
+    dpad = -(-d // 4) * 4
+    if 4 * WARPS * (n_vectors * dpad + 2 * k) > SMEM_LIMIT:
+        raise ValueError(f"gather_rerank: d={d}, k={k} exceed one block's shared memory")
 
 
 def gather_rerank_topk_cuda(
@@ -32,20 +60,9 @@ def gather_rerank_topk_cuda(
     if dev.type != "cuda":
         raise ValueError(f"gather_rerank_topk_cuda needs CUDA tensors, got {dev}")
     require(data, "data", torch.float32, 2, dev)
-    require(ids, "ids", torch.int32, 2, dev)
-    require(queries, "queries", torch.float32, 2, dev)
-    require(weights, "weights", torch.float32, 2, dev)
+    _check_args(data, ids, queries, weights, k, n_vectors=2)
     n, d = data.shape
     b, P = ids.shape
-    if tuple(queries.shape) != (b, d) or tuple(weights.shape) != (b, d):
-        raise ValueError(
-            f"queries/weights must be {(b, d)}, got {tuple(queries.shape)}/{tuple(weights.shape)}"
-        )
-    if not isinstance(k, int) or k <= 0:
-        raise ValueError(f"k must be a positive int, got {k!r}")
-    dpad = -(-d // 4) * 4
-    if 4 * WARPS * (2 * dpad + 2 * k) > SMEM_LIMIT:
-        raise ValueError(f"gather_rerank_topk_cuda: d={d}, k={k} exceed one block's shared memory")
     out_d = torch.empty((b, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
     if b == 0:
@@ -60,4 +77,49 @@ def gather_rerank_topk_cuda(
             stream_of(data),
         )
     KERNEL.check(err, "gather_rerank launch")
+    return out_d, out_i
+
+
+def gather_rerank_topk_blocked_cuda(
+    data: torch.Tensor,
+    ids: torch.Tensor,
+    queries: torch.Tensor,
+    weights: torch.Tensor,
+    k: int,
+    scales: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """data (n, d) in its stored dtype (bf16, int8 or f32), scales (d,) f32
+    or None, ids (b, P) int32 (>= n or < 0 ⇒ invalid), queries/weights
+    (b, d) f32 -> ((b, k) ascending dists, (b, k) int32 ids), (+inf, -1)
+    where invalid. Each gathered row is decoded as ``row.float() * scales``
+    (the plain widening without scales); ties go to the earlier slot."""
+    dev = data.device
+    if dev.type != "cuda":
+        raise ValueError(f"gather_rerank_topk_blocked_cuda needs CUDA tensors, got {dev}")
+    if data.dtype not in STORED_DTYPES:
+        raise TypeError(f"data must be one of {list(STORED_DTYPES)}, got {data.dtype}")
+    require(data, "data", data.dtype, 2, dev)
+    n, d = data.shape
+    if scales is not None:
+        require(scales, "scales", torch.float32, 1, dev)
+        if scales.shape[0] != d:
+            raise ValueError(f"scales must be ({d},), got {tuple(scales.shape)}")
+    _check_args(data, ids, queries, weights, k, n_vectors=2 if scales is None else 3)
+    b, P = ids.shape
+    out_d = torch.empty((b, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
+    if b == 0:
+        return out_d, out_i
+    lib = BLOCKED_KERNEL.lib()
+    with torch.cuda.device(dev):
+        BLOCKED_KERNEL.launches += 1
+        err = lib.gather_rerank_blocked_launch(
+            data.data_ptr(), STORED_DTYPES[data.dtype],
+            None if scales is None else scales.data_ptr(),
+            ids.data_ptr(), queries.data_ptr(), weights.data_ptr(),
+            out_d.data_ptr(), out_i.data_ptr(),
+            n, d, b, P, k,
+            stream_of(data),
+        )
+    BLOCKED_KERNEL.check(err, "gather_rerank_blocked launch")
     return out_d, out_i

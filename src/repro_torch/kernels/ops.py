@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import not_ported
 from repro_torch.kernels import ref
 
 FORCES = (None, "plain")
@@ -71,12 +72,27 @@ def gather_rerank_topk(
     queries: torch.Tensor,
     weights: torch.Tensor,
     k: int,
+    scales: torch.Tensor | None = None,
+    delta: torch.Tensor | None = None,
     force: str | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused ALSH probe tail: (n, d) table + (b, P) candidate ids (>= n ⇒
-    invalid) -> top-k ((b, k) dists, (b, k) ids), no (b, P, d) gather."""
-    if _use_kernel(data, force):
-        from repro_torch.kernels.gather_rerank import gather_rerank_topk_cuda
+    invalid) -> top-k ((b, k) dists, (b, k) ids), no (b, P, d) gather.
 
-        return gather_rerank_topk_cuda(data, ids, queries, weights, k)
-    return ref.gather_rerank_topk(data, ids, queries, weights, k)
+    ``data`` is f32 or a quantized payload (bf16/int8) with optional (d,)
+    ``scales``; rows are decoded per gathered row. On the card an f32 table
+    without scales launches the f32 kernel and any other table the
+    quantized kernel (the reference's routing). ``delta`` (the two-segment
+    table) is not ported."""
+    if delta is not None:
+        raise not_ported("gather_rerank_topk(delta=...) — the two-segment gather",
+                         "Queue A item 7")
+    if _use_kernel(data, force):
+        from repro_torch.kernels import gather_rerank
+
+        if data.dtype == torch.float32 and scales is None:
+            return gather_rerank.gather_rerank_topk_cuda(data, ids, queries, weights, k)
+        return gather_rerank.gather_rerank_topk_blocked_cuda(
+            data, ids, queries, weights, k, scales=scales
+        )
+    return ref.gather_rerank_topk(data, ids, queries, weights, k, scales=scales)

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the three CUDA kernels of the main path.
+"""Plain PyTorch versions of the CUDA kernels of the port.
 
 Counterpart of ``repro.kernels.ref`` (and of the chunked jnp schedules). The
 CPU path of :mod:`repro_torch.kernels.ops` runs these, the tests hold them
@@ -94,12 +94,19 @@ def gather_rerank_topk(
     queries: torch.Tensor,
     weights: torch.Tensor,
     k: int,
+    scales: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused candidate tail: gather + exact d_w^l1 re-rank + top-k.
 
-    data (n, d) f32; ids (b, P) int32 candidate ids, entries >= n (or < 0)
-    are invalid; queries/weights (b, d) -> ((b, k) ascending dists, (b, k)
-    ids; (+inf, -1) where invalid). Ties go to the earlier candidate slot.
+    data (n, d) f32, or a quantized payload (bf16/int8, see
+    ``repro_torch.quant``); ids (b, P) int32 candidate ids, entries >= n
+    (or < 0) are invalid; queries/weights (b, d); scales (d,) f32 or None
+    -> ((b, k) ascending dists, (b, k) ids; (+inf, -1) where invalid).
+    Ties go to the earlier candidate slot.
+
+    The ENCODED rows are gathered chunk by chunk and each gathered chunk is
+    decoded (widen to f32, then ``* scales`` when given); the stored table
+    is never decoded whole.
     """
     n, d = data.shape
     b, P = ids.shape
@@ -111,6 +118,8 @@ def gather_rerank_topk(
         cid = ids[:, s : s + step]
         valid = (cid >= 0) & (cid < n)
         rows = data[cid.clamp(0, max(n - 1, 0)).long()].float()  # (b, chunk, d)
+        if scales is not None:
+            rows = rows * scales
         dists = (w[:, None, :] * (rows - q[:, None, :]).abs()).sum(dim=-1)
         dists = torch.where(valid, dists, torch.full_like(dists, float("inf")))
         blk_i = torch.where(valid, cid, torch.full_like(cid, -1)).to(torch.int32)

@@ -1,17 +1,22 @@
 """Serving launcher — the ALSH vector-search service on the GPU.
 
 Counterpart of ``repro.launch.serve`` in ``--mode alsh`` on the explicit-knob
-path: build the index over n uniform rows, then serve query batches in
-single-probe mode and spot-check recall against the exact scan on the
-first 16 queries of each batch. The printed lines match the reference's.
+path: build the index over n uniform rows (stored as ``--storage``), then
+serve query batches in single-probe or ``--multiprobe`` mode — on a
+quantized table with the proxy screen at ``--screen-alpha`` — and
+spot-check recall against the exact scan on the first 16 queries of each
+batch. The printed lines match the reference's.
 
     python -m repro_torch.launch.serve --mode alsh [--n 262144 --d 128 --batches 3]
     python -m repro_torch.launch.serve --mode alsh --device cpu --n 4096 --d 16
+    python -m repro_torch.launch.serve --mode alsh --storage int8 --screen-alpha 2 \
+        --multiprobe --probes 8
 
 The data and queries come from a seeded ``torch.Generator`` (the reference
 draws them with ``jax.random``, so the two services see different data).
-The other modes and the flags of unported features raise
-``NotImplementedError`` naming their ROADMAP.md item.
+The other modes and the flags of unported features (``--stats``,
+``--early-exit``, ``--recall-target``) raise ``NotImplementedError`` naming
+their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -36,6 +41,8 @@ def _sync(device) -> None:
 
 
 def serve_alsh(args):
+    import dataclasses
+
     import torch
 
     from repro_torch.api import Index, QuerySpec
@@ -45,10 +52,6 @@ def serve_alsh(args):
 
     if args.recall_target is not None:
         raise not_ported("--recall-target (quality-first planning)", "Queue A item 10")
-    if args.multiprobe:
-        raise not_ported("--multiprobe", "Queue A item 5")
-    if args.storage != "f32":
-        raise not_ported(f"--storage {args.storage}", "Queue A item 6")
     if args.early_exit:
         raise not_ported("--early-exit", "Queue A item 8")
     if args.stats:
@@ -61,7 +64,7 @@ def serve_alsh(args):
     )
     gen = torch.Generator().manual_seed(0)
     data = torch.rand((svc.n_per_shard, svc.d), generator=gen).to(device)
-    cfg = svc.index_config
+    cfg = dataclasses.replace(svc.index_config, storage=args.storage)
     t0 = time.time()
     index = Index.build(2, data, cfg, device=device)
     _sync(device)
@@ -69,7 +72,15 @@ def serve_alsh(args):
           f"family={cfg.family} K={cfg.K} L={cfg.L} storage={cfg.storage} "
           f"in {time.time()-t0:.2f}s")
 
-    spec = QuerySpec(k=svc.topk)
+    # serving policy is a spec value, not a code path
+    if args.multiprobe:
+        spec = QuerySpec(k=svc.topk, mode="multiprobe", n_probes=args.probes)
+    else:
+        spec = QuerySpec(k=svc.topk)
+    if cfg.storage != "f32" and spec.mode != "exact" and spec.screen_alpha == 0.0:
+        # quantized tier: screen against compressed rows, exact-rerank the
+        # top k*alpha survivors
+        spec = dataclasses.replace(spec, screen_alpha=args.screen_alpha)
     exact = QuerySpec(k=svc.topk, mode="exact")
     print(f"[alsh] serving policy: {spec}")
 
@@ -104,10 +115,16 @@ def main(argv=None):
     ap.add_argument("--topk", type=int, default=10)
     ap.add_argument("--batches", type=int, default=3)
     ap.add_argument("--storage", choices=["f32", "bf16", "int8"], default="f32",
-                    help="not ported: only f32 tables")
+                    help="compressed table tier (quantized rows are screened then "
+                         "exact-reranked)")
+    ap.add_argument("--screen-alpha", type=float, default=2.0,
+                    help="keep k*alpha proxy-screen survivors for exact rerank "
+                         "(quantized storage only)")
     ap.add_argument("--stats", action="store_true", help="not ported")
     ap.add_argument("--early-exit", action="store_true", help="not ported")
-    ap.add_argument("--multiprobe", action="store_true", help="not ported")
+    ap.add_argument("--multiprobe", action="store_true",
+                    help="serve with QuerySpec(mode='multiprobe')")
+    ap.add_argument("--probes", type=int, default=8, help="multiprobe buckets per table")
     ap.add_argument("--recall-target", type=float, default=None, help="not ported")
     args = ap.parse_args(argv)
     if args.mode != "alsh":

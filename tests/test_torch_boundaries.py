@@ -79,14 +79,10 @@ def test_query_runs_on_the_index_device():
 @pytest.mark.parametrize(
     "make",
     [
-        lambda: tapi.QuerySpec(k=5, mode="multiprobe"),
         lambda: tapi.QuerySpec(k=5, early_exit=True),
-        lambda: tapi.QuerySpec(k=5, screen_alpha=2.0),
         lambda: tapi.QuerySpec(k=5, impl="onehot"),
-        lambda: _cfg(storage="int8"),
-        lambda: _cfg(storage="bf16"),
     ],
-    ids=["multiprobe", "early_exit", "screen_alpha", "impl", "int8", "bf16"],
+    ids=["early_exit", "impl"],
 )
 def test_unported_specs_raise(make):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
@@ -108,13 +104,10 @@ def test_unported_index_modes_raise():
         idx.shard(None)
     w = torch.ones((2, 4))
     qt = torch.as_tensor(q, dtype=torch.float32)
-    for kw in ({"screen_alpha": 2.0}, {"early_exit": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            pipeline.query(idx.state, None, None, qt, w, idx.config, k=2, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        pipeline.query(idx.state, None, None, qt, w, idx.config, k=2, early_exit=True)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         pipeline.query(idx.state, object(), None, qt, w, idx.config, k=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        pipeline.probe_keys(idx.state, qt, w, idx.config, mode="multiprobe")
 
 
 @pytest.mark.parametrize("mode", ["stream", "broker", "lm"])
@@ -134,6 +127,33 @@ def test_serve_alsh_runs_on_cpu(capsys):
     assert "[alsh] built index over n=512 d=8" in out and "[alsh] batch 0:" in out
 
 
+def test_serve_alsh_quantized_runs_on_cpu(capsys):
+    from repro_torch.launch import serve
+
+    serve.main(["--mode", "alsh", "--device", "cpu", "--n", "512", "--d", "8", "--K", "4",
+                "--L", "4", "--query-batch", "16", "--batches", "1", "--storage", "int8",
+                "--screen-alpha", "2", "--multiprobe", "--probes", "4"])
+    out = capsys.readouterr().out
+    assert "storage=int8" in out and "[alsh] batch 0:" in out
+    assert "mode='multiprobe', n_probes=4" in out and "screen_alpha=2.0" in out
+
+
+def test_serve_stats_stays_refused():
+    from repro_torch.launch import serve
+
+    with pytest.raises(NotImplementedError, match="Queue A item 9"):
+        serve.main(["--mode", "alsh", "--device", "cpu", "--storage", "int8", "--stats"])
+
+
+def test_serve_quantized_without_a_card_raises(monkeypatch):
+    """Without --device cpu the service asks for the card, quantized or not."""
+    from repro_torch.launch import serve
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        serve.main(["--mode", "alsh", "--n", "512", "--d", "8", "--storage", "int8"])
+
+
 def test_query_validation_matches_reference_messages():
     rs = np.random.default_rng(3)
     idx = tapi.Index.build(0, rs.uniform(0, 1, (16, 4)).astype(np.float32), _cfg(), device="cpu")
@@ -150,7 +170,10 @@ def test_kernel_dispatch_never_quietly_falls_back():
     the CUDA wrappers refuse CPU tensors instead of computing on them."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.alsh_project import alsh_project_cuda
-    from repro_torch.kernels.gather_rerank import gather_rerank_topk_cuda
+    from repro_torch.kernels.gather_rerank import (
+        gather_rerank_topk_blocked_cuda,
+        gather_rerank_topk_cuda,
+    )
     from repro_torch.kernels.wl1_topk import wl1_scan_topk_cuda
 
     lv = torch.zeros((2, 3), dtype=torch.int32)
@@ -165,3 +188,8 @@ def test_kernel_dispatch_never_quietly_falls_back():
         wl1_scan_topk_cuda(x, x[:2], x[:2], 1)
     with pytest.raises(ValueError, match="CUDA"):
         gather_rerank_topk_cuda(x, lv, x[:2], x[:2], 1)
+    with pytest.raises(ValueError, match="CUDA"):
+        gather_rerank_topk_blocked_cuda(x.to(torch.int8), lv, x[:2], x[:2], 1)
+    # the two-segment gather is not ported: refused on every device
+    with pytest.raises(NotImplementedError, match="Queue A item 7"):
+        ops.gather_rerank_topk(x, lv, x[:2], x[:2], 1, delta=x)

@@ -132,6 +132,98 @@ def test_gather_rerank_kernel_packed_and_all_invalid(dev):
     assert torch.all(got[1][0] == -1) and torch.all(torch.isinf(got[0][0]))
 
 
+def _quantized(x, case, dev):
+    """(payload, scales) of rows ``x`` for a blocked-kernel case."""
+    from repro_torch import quant
+
+    codec = {"int8": "int8", "int8-scaled": "int8", "bf16": "bf16"}[case]
+    payload, scales = quant.get_codec(codec).encode(x)
+    return payload.contiguous(), (scales if case == "int8-scaled" else None)
+
+
+@pytest.mark.parametrize("case", ["int8", "int8-scaled", "bf16"])
+@pytest.mark.parametrize("n,b,P,d,k", GATHER_SHAPES)
+def test_gather_rerank_blocked_kernel_matches_plain(dev, n, b, P, d, k, case):
+    """The quantized kernel against its plain version, and bit for bit
+    against the f32 kernel over the decoded table (same decode, same sum
+    order)."""
+    from repro_torch import quant
+    from repro_torch.kernels._build import GATHER_RERANK_BLOCKED
+
+    rs = np.random.default_rng(n + P * 13 + d + k + len(case))
+    x = _t(rs.uniform(-1, 1, (n, d)).astype(np.float32), dev)
+    q = _t(rs.uniform(-1, 1, (b, d)).astype(np.float32), dev)
+    w = _t(rs.normal(size=(b, d)).astype(np.float32), dev)
+    ids = _t(np.minimum(rs.integers(0, n + max(2, n // 3), (b, P)), n).astype(np.int32), dev)
+    payload, scales = _quantized(x, case, dev)
+    if case == "int8":  # the screen pass: integer levels and w·s, no scales
+        q, w = quant.proxy_query(q, w, payload.dtype, quant.get_codec("int8").fit_scales(x))
+    before = GATHER_RERANK_BLOCKED.launches
+    got = ops.gather_rerank_topk(payload, ids, q, w, k, scales=scales)
+    torch.cuda.synchronize()
+    assert GATHER_RERANK_BLOCKED.launches == before + 1
+    decoded = quant.decode_table(payload, scales)
+    _check_topk(got, ops.gather_rerank_topk(payload, ids, q, w, k, scales=scales, force="plain"),
+                decoded, q, w)
+    f32 = ops.gather_rerank_topk(decoded.contiguous(), ids, q, w, k)
+    assert torch.equal(got[0], f32[0]) and torch.equal(got[1], f32[1])
+
+
+@pytest.mark.parametrize("case", ["int8", "int8-scaled", "bf16"])
+def test_gather_rerank_blocked_kernel_packed_and_all_invalid(dev, case):
+    from repro_torch.core.index import _dedupe_candidates
+
+    rs = np.random.default_rng(6)
+    n, b, P, d, k = 500, 6, 256, 128, 20
+    x = _t(rs.uniform(0, 1, (n, d)).astype(np.float32), dev)
+    q = _t(rs.uniform(0, 1, (b, d)).astype(np.float32), dev)
+    w = _t(np.abs(rs.normal(size=(b, d))).astype(np.float32), dev)
+    cand = _t(rs.integers(0, n + 50, (b, P)).astype(np.int32), dev)
+    cand[0] = n  # every slot a sentinel
+    packed, _ = _dedupe_candidates(cand, n)
+    payload, scales = _quantized(x, case, dev)
+    from repro_torch import quant
+
+    got = ops.gather_rerank_topk(payload, packed, q, w, k, scales=scales)
+    want = ops.gather_rerank_topk(payload, packed, q, w, k, scales=scales, force="plain")
+    decoded = quant.decode_table(payload, scales)
+    _check_topk(got, want, decoded, q, w)
+    assert torch.all(got[1][0] == -1) and torch.all(torch.isinf(got[0][0]))
+
+
+@pytest.mark.parametrize("storage", ["bf16", "int8"])
+def test_quantized_engine_on_the_card_matches_the_cpu_path(dev, storage):
+    """Screened (α=2) and unscreened queries of one quantized index state on
+    the card and on the CPU; n_candidates equal the f32 index's."""
+    import repro_torch.api as tapi
+    from repro_torch import quant
+    from repro_torch.kernels._build import GATHER_RERANK_BLOCKED
+
+    rs = np.random.default_rng(7)
+    cfg = tapi.IndexConfig(d=32, M=32, K=8, L=16, max_candidates=64, storage=storage,
+                           space=tapi.BoundedSpace(0.0, 1.0, 32.0))
+    data = rs.uniform(0, 1, (8192, 32)).astype(np.float32)
+    q = rs.uniform(0, 1, (64, 32)).astype(np.float32)
+    w = (np.abs(rs.normal(size=(64, 32))) + 0.1).astype(np.float32)
+    gpu = tapi.Index.build(11, data, cfg)
+    f32 = tapi.Index.build(11, data, tapi.IndexConfig(
+        d=32, M=32, K=8, L=16, max_candidates=64, space=tapi.BoundedSpace(0.0, 1.0, 32.0)))
+    cpu = tapi.Index(state=gpu.state.to("cpu"), config=cfg)
+    decoded = quant.decode_table(cpu.state.data, cpu.state.scales)
+    for alpha, launches in ((0.0, 1), (2.0, 2)):
+        spec = tapi.QuerySpec(k=10, screen_alpha=alpha)
+        before = GATHER_RERANK_BLOCKED.launches
+        g = gpu.query(q, w, spec)
+        assert GATHER_RERANK_BLOCKED.launches == before + launches
+        c = cpu.query(q, w, spec)
+        ref_f32 = f32.query(q, w, tapi.QuerySpec(k=10))
+        assert torch.equal(g.n_candidates, ref_f32.n_candidates)
+        rows = g.n_candidates.cpu() == c.n_candidates
+        assert rows.float().mean() >= 0.9
+        _check_topk((g.dists.cpu()[rows], g.ids.cpu()[rows]), (c.dists[rows], c.ids[rows]),
+                    decoded, torch.from_numpy(q)[rows], torch.from_numpy(w)[rows])
+
+
 @pytest.mark.parametrize("family", ["theta", "l2"])
 def test_engine_on_the_card_matches_the_cpu_path(dev, family):
     """The same index state queried on the card (kernels) and on the CPU
@@ -157,3 +249,18 @@ def test_engine_on_the_card_matches_the_cpu_path(dev, family):
     same = (pr_g.n_candidates.cpu() == pr_c.n_candidates).float().mean()
     assert same >= 0.9
     assert torch.all(pr_g.dists.cpu() >= ex_c.dists - 1e-4)
+
+
+def test_multiprobe_on_the_card_sees_a_superset_of_probe(dev):
+    import repro_torch.api as tapi
+
+    rs = np.random.default_rng(8)
+    cfg = tapi.IndexConfig(d=32, M=32, K=8, L=16, max_candidates=64,
+                           space=tapi.BoundedSpace(0.0, 1.0, 32.0))
+    idx = tapi.Index.build(12, rs.uniform(0, 1, (8192, 32)).astype(np.float32), cfg)
+    q = rs.uniform(0, 1, (64, 32)).astype(np.float32)
+    w = (np.abs(rs.normal(size=(64, 32))) + 0.1).astype(np.float32)
+    pr = idx.query(q, w, tapi.QuerySpec(k=10))
+    mp = idx.query(q, w, tapi.QuerySpec(k=10, mode="multiprobe", n_probes=8, max_flips=3))
+    assert torch.all(mp.n_candidates >= pr.n_candidates)
+    assert torch.all(mp.dists <= pr.dists + 1e-6)
