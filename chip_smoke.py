@@ -25,7 +25,12 @@ Phases, each of which fails the run (exit code 1) when it fails:
      The quantized gather runs three cases over the service candidates —
      int8 with scales (the exact pass), int8 with the proxy query (the
      screen pass) and bf16 — and each must also equal, bit for bit, the f32
-     kernel over the decoded table;
+     kernel over the decoded table. The two two-segment gathers (f32, and
+     int8 with scales and with the proxy query) run over the SERVICE main
+     table plus a delta of 8192 near-duplicate rows, on a stream batch's
+     deduped candidates from the main windows and the delta match; each
+     must also equal, bit for bit, its single-segment kernel over
+     ``torch.cat([main, delta])``;
   5. main paths, each with every launch counter zeroed just before its
      queries and read just after; a kernel of the path that was never
      launched fails the run:
@@ -42,6 +47,22 @@ Phases, each of which fails the run (exit code 1) when it fails:
      c. multiprobe: theta, 8 probes per table, up to 3 flipped bits, on
         the f32 index and batch of a probe batch; its j-th distance is
         never worse than the probe batch's;
+     d. stream, in the order of ``serve --mode stream``: the f32 theta
+        index built with ``UpdateSpec(delta_capacity=8192,
+        compact_threshold=0.75)`` must answer the service batch as the
+        sealed index does, bit for bit; then 13 ticks, each inserting 512
+        rows (16 jittered copies of 32 new centres), retiring the 128
+        oldest main rows, serving a batch of 1024 whose first 32 queries
+        sit on the new centres, and checking recall@10 against the mutable
+        index's exact mode on the first 64 queries. Every tick: no deleted
+        id in a result, a delta id in at least 90% of the first 32
+        queries' results, recall over the floor. After tick 12 (fill
+        6144) ``needs_compact`` must hold; the compacted index must equal
+        ``Index.build`` over the survivors (sorted keys, permutation,
+        answers). Then an int8 and an f32 mutable index take two ticks of
+        the same operations: equal ``n_candidates``, and the quantized
+        two-segment kernel launched twice per screened (α=2) and once per
+        unscreened batch;
   6. check: on a small input, the card's answers agree with the plain
      PyTorch path on the CPU over the same index state (f32 probe and
      exact, int8 screened probe).
@@ -88,7 +109,20 @@ KERNEL_META = {
                                    "src/repro/kernels/gather_rerank.py:288"),
     "wl1_scan_topk": ("src/repro_torch/kernels/csrc/wl1_topk.cu",
                       "src/repro/kernels/wl1_topk.py:132"),
+    "gather_rerank_topk_two_seg": ("src/repro_torch/kernels/csrc/gather_rerank.cu",
+                                   "src/repro/kernels/gather_rerank.py:111"),
+    "gather_rerank_topk_blocked_two_seg": ("src/repro_torch/kernels/csrc/gather_rerank_blocked.cu",
+                                           "src/repro/kernels/gather_rerank.py:187"),
 }
+PATHS = ("f32", "quantized", "multiprobe", "stream")
+# The stream path: the reference service's defaults (serve --mode stream)
+STREAM_CAP = 8192  # --delta-capacity
+STREAM_THRESHOLD = 0.75  # --compact-threshold
+STREAM_INGEST = 512  # --ingest: 32 new centres x CLUSTER copies per tick
+STREAM_RETIRE = 128  # --retire
+STREAM_TICKS = 13  # the 12th reaches the threshold; the 13th runs after the compact
+STREAM_ON_NEW = 32  # queries of a stream batch that sit on the tick's new centres
+STREAM_HIT_FLOOR = 0.9  # share of those that must return a delta id
 
 
 def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
@@ -160,7 +194,11 @@ def phase_build():
     t0 = time.perf_counter()
     kernels = _build.build_all()
     print(f"nvcc {' '.join(_build.NVCC_FLAGS)}: all sources in {time.perf_counter() - t0:.1f} s")
+    shown = set()
     for k in kernels.values():
+        if k.source in shown:  # a source's two-segment entries share its build
+            continue
+        shown.add(k.source)
         secs = "cached" if k.build_seconds is None else f"{k.build_seconds:.1f} s"
         print(f"  {k.source}: {secs}")
         for line in k.build_log.splitlines():
@@ -216,12 +254,71 @@ class Service:
               f"L={cfg.L} C={cfg.max_candidates} on {self.index.device} in "
               f"{time.perf_counter() - t0:.3f} s")
         keys = probe_keys(self.index.state, self.q, self.w, cfg)
-        cand = sources_for(self.index.state, cfg, keys)[0].emit(self.q, self.w)
+        cand = sources_for(self.index.state, None, None, cfg, keys)[0].emit(self.q, self.w)
         self.cand, n_cand = _dedupe_candidates(cand, self.index.n)
         self.valid = int(n_cand.sum())
         self.distinct = distinct_rows(self.cand, self.index.n)
         print(f"  candidates: ids {tuple(self.cand.shape)}, {self.valid} valid "
               f"({self.valid / self.cand.shape[0]:.1f} per query), {self.distinct} distinct rows")
+
+
+def stream_rows(seed: int, n_centres: int, d: int):
+    """``n_centres`` new centres uniform in [0.1, 0.9]^d and CLUSTER copies
+    of each jittered by SIGMA (the ``Workload`` recipe), drawn on the card."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    centres = torch.rand((n_centres, d), generator=gen, device="cuda") * 0.8 + 0.1
+    jitter = SIGMA * torch.randn((n_centres, CLUSTER, d), generator=gen, device="cuda")
+    return centres, (centres[:, None, :] + jitter).reshape(-1, d).contiguous()
+
+
+def stream_batch(wl, centres, seed: int):
+    """A service batch whose first ``len(centres)`` queries sit on the given
+    (new) centres, jittered as ``Workload.batch`` jitters its queries."""
+    import torch
+
+    from repro_torch.configs.paper_alsh import SERVICE
+
+    q, w = wl.batch(SERVICE.query_batch, seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    m = centres.shape[0]
+    q[:m] = centres + SIGMA * torch.randn(centres.shape, generator=gen, device="cuda")
+    return q.contiguous(), w
+
+
+class TwoSegment:
+    """The two-segment kernels' inputs: the SERVICE main table, a full delta
+    of STREAM_CAP rows (near-duplicates of 512 new centres) inserted into
+    the service index with ``delta_insert``, and a stream batch's deduped
+    candidates from the main windows plus the delta match."""
+
+    def __init__(self, svc):
+        import torch
+
+        from repro_torch.configs.paper_alsh import SERVICE
+        from repro_torch.core.index import DeltaSegment, _dedupe_candidates, delta_insert
+        from repro_torch.engine.pipeline import probe_keys, sources_for
+
+        cfg = SERVICE.index_config
+        state = svc.index.state
+        n, d = state.data.shape
+        self.n_tot = n + STREAM_CAP
+        centres, rows = stream_rows(SEED + 50, STREAM_CAP // CLUSTER, d)
+        delta = DeltaSegment.empty(cfg, STREAM_CAP, torch.float32, state.device)
+        self.delta, _ = delta_insert(state, delta, rows, cfg)
+        self.q, self.w = stream_batch(svc.wl, centres[:STREAM_ON_NEW], SEED + 51)
+        tomb = torch.zeros((self.n_tot,), dtype=torch.bool, device=state.device)
+        keys = probe_keys(state, self.q, self.w, cfg)
+        srcs = sources_for(state, self.delta, tomb, cfg, keys)
+        cand = torch.cat([s.emit(self.q, self.w) for s in srcs], dim=1)
+        self.cand, n_cand = _dedupe_candidates(cand, self.n_tot)
+        self.valid = int(n_cand.sum())
+        in_delta = int(((self.cand >= n) & (self.cand < self.n_tot)).sum())
+        print(f"  two-segment candidates: ids {tuple(self.cand.shape)} over main n={n} + delta "
+              f"cap={STREAM_CAP}, {self.valid} valid ({self.valid / self.cand.shape[0]:.1f} per "
+              f"query, {in_delta} in the delta), "
+              f"{distinct_rows(self.cand, self.n_tot)} distinct rows")
 
 
 def distinct_rows(ids, n: int) -> int:
@@ -425,6 +522,109 @@ def phase_gather_rerank_blocked(run, svc):
     run.record("gather_rerank_topk_blocked", max_abs_err=main["max_abs_err"], ms=main["ms"],
                plain_ms=main["plain_ms"], bound_ms=main["bound_ms"], bound_by=main["bound_by"],
                library_ms=None, cases=out)
+
+
+def phase_gather_rerank_two_seg(run, svc, seg):
+    """The f32 two-segment kernel over the SERVICE main table and a full
+    delta, against its plain version and against the single-segment kernel
+    over the concatenated table (bit for bit)."""
+    import torch
+
+    from repro_torch.configs.paper_alsh import SERVICE
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.gather_rerank import gather_rerank_topk_cuda
+
+    main, delta, q, w, cand = svc.wl.data, seg.delta.data, seg.q, seg.w, seg.cand
+    d, k = main.shape[1], SERVICE.topk
+    cat = torch.cat([main, delta])
+
+    def kernel():
+        return ops.gather_rerank_topk(main, cand, q, w, k, delta=delta)
+
+    got = kernel()
+    want = ops.gather_rerank_topk(main, cand, q, w, k, delta=delta, force="plain")
+    torch.cuda.synchronize()
+    err = _check_topk("gather_rerank_topk_two_seg", got, want, cat, q, w)
+    single = gather_rerank_topk_cuda(cat, cand, q, w, k)
+    bitwise = torch.equal(got[0], single[0]) and torch.equal(got[1], single[1])
+    print(f"  bit-equal to the single-segment kernel over torch.cat([main, delta]): {bitwise}")
+    if not bitwise:
+        raise AssertionError("two-segment kernel differs from the concatenated-table kernel")
+    ms = time_ms(kernel, iters=10, warmup=2)
+    plain_ms = time_ms(lambda: ops.gather_rerank_topk(main, cand, q, w, k, delta=delta,
+                                                      force="plain"), iters=1)
+    single_ms = time_ms(lambda: gather_rerank_topk_cuda(cat, cand, q, w, k), iters=10, warmup=1)
+    profile("gather_rerank_topk_two_seg", kernel, top=2)
+    b_ms, b_by, nbytes, flops, l2_bytes = gather_bound(cand, seg.n_tot, d, k, 4, scaled=False)
+    print(f"  kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, single-segment kernel over the "
+          f"concatenated table {single_ms:.4f} ms, library: none; bound {b_ms * 1e3:.1f} us by "
+          f"{b_by} ({nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP); rows gathered per query, "
+          f"served by HBM or L2: {l2_bytes / 1e6:.1f} MB")
+    run.record("gather_rerank_topk_two_seg", max_abs_err=err, ms=ms, plain_ms=plain_ms,
+               bound_ms=b_ms, bound_by=b_by, library_ms=None, single_segment_ms=single_ms)
+
+
+def phase_gather_rerank_blocked_two_seg(run, svc, seg):
+    """The quantized two-segment kernel: int8 with scales (the exact pass)
+    and int8 with the proxy query (the screen pass) over the int8 main
+    table and the delta encoded with its scales; against the plain version
+    and, bit for bit, the single-segment kernel over the concatenated
+    payload."""
+    import torch
+
+    from repro_torch import quant
+    from repro_torch.configs.paper_alsh import SERVICE
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.gather_rerank import gather_rerank_topk_blocked_cuda
+
+    main, q, w, cand = svc.wl.data, seg.q, seg.w, seg.cand
+    d, P, k = main.shape[1], cand.shape[1], SERVICE.topk
+    codec = quant.get_codec("int8")
+    p8, s8 = codec.encode(main)
+    d8 = codec.encode_rows(seg.delta.data, s8)  # the delta keeps the sealed scales
+    cat8 = torch.cat([p8, d8])
+    qp, wp = quant.proxy_query(q, w, p8.dtype, s8)
+    keep = quant.screen_keep(k, SCREEN_ALPHA, P)
+    out = {}
+    for label, scales, qq, ww, kk in (
+        ("int8, scales: exact pass over all candidates", s8, q, w, k),
+        (f"int8, proxy q/w: screen pass keeping {keep}", None, qp, wp, keep),
+    ):
+        def kernel():
+            return ops.gather_rerank_topk(p8, cand, qq, ww, kk, scales=scales, delta=d8)
+
+        got = kernel()
+        want = ops.gather_rerank_topk(p8, cand, qq, ww, kk, scales=scales, delta=d8,
+                                      force="plain")
+        torch.cuda.synchronize()
+        err = _check_topk(label, got, want, quant.decode_table(cat8, scales), qq, ww)
+        single = gather_rerank_topk_blocked_cuda(cat8, cand, qq, ww, kk, scales=scales)
+        bitwise = torch.equal(got[0], single[0]) and torch.equal(got[1], single[1])
+        print(f"  {label}: bit-equal to the single-segment kernel over torch.cat([main, delta]): "
+              f"{bitwise}")
+        if not bitwise:
+            raise AssertionError(f"{label}: differs from the concatenated-table kernel")
+        ms = time_ms(kernel, iters=10, warmup=2)
+        plain_ms = time_ms(lambda: ops.gather_rerank_topk(p8, cand, qq, ww, kk, scales=scales,
+                                                          delta=d8, force="plain"), iters=1)
+        single_ms = time_ms(lambda: gather_rerank_topk_blocked_cuda(cat8, cand, qq, ww, kk,
+                                                                    scales=scales),
+                            iters=10, warmup=1)
+        b_ms, b_by, nbytes, flops, l2_bytes = gather_bound(cand, seg.n_tot, d, kk, 1,
+                                                           scaled=scales is not None)
+        print(f"  {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, single-segment kernel "
+              f"over the concatenated payload {single_ms:.4f} ms, library: none; bound "
+              f"{b_ms * 1e3:.1f} us by {b_by} ({nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP); "
+              f"rows gathered per query, served by HBM or L2: {l2_bytes / 1e6:.1f} MB")
+        out[label] = {"k": kk, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                      "single_segment_ms": single_ms, "bound_ms": b_ms, "bound_by": b_by}
+    profile("gather_rerank_topk_blocked_two_seg (int8 screen pass)",
+            lambda: ops.gather_rerank_topk(p8, cand, qp, wp, keep, delta=d8), top=2)
+    main_case = next(iter(out.values()))
+    run.record("gather_rerank_topk_blocked_two_seg", max_abs_err=main_case["max_abs_err"],
+               ms=main_case["ms"], plain_ms=main_case["plain_ms"],
+               bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"], library_ms=None,
+               cases=out)
 
 
 def phase_scan(run, svc):
@@ -707,6 +907,150 @@ def phase_multiprobe_path(svc):
     return counts, {"ms": ms, "cand_frac": cand_frac, "recall": rec, "recall_probe": rec_probe}
 
 
+def _no_dead_ids(label, res, tombstones):
+    """Fails when a result holds an id the tombstones mark deleted."""
+    ids = res.ids[res.ids >= 0].long()
+    if bool(tombstones[ids].any()):
+        raise AssertionError(f"{label}: a deleted id reached a result")
+
+
+def phase_stream_path(svc):
+    """The mutable index on the card in the order of ``serve --mode
+    stream``: insert, FIFO retire, query the batch, exact spot-check,
+    compact at the threshold; then int8 beside f32 for two ticks."""
+    import dataclasses
+
+    import torch
+
+    import repro_torch.api as tapi
+    from repro_torch.configs.paper_alsh import SERVICE
+    from repro_torch.distance import recall_at_k
+    from repro_torch.kernels import _build
+
+    wl, cfg = svc.wl, svc.index.config
+    k, b, d = SERVICE.topk, SERVICE.query_batch, cfg.d
+    spec = tapi.QuerySpec(k=k)
+    exact = tapi.QuerySpec(k=k, mode="exact")
+    update = tapi.UpdateSpec(delta_capacity=STREAM_CAP, compact_threshold=STREAM_THRESHOLD)
+    sealed = svc.index.query(svc.q, svc.w, spec)  # before the counters are zeroed
+    _build.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    index = tapi.Index.build(SEED + 2, wl.data, cfg, update=update)
+    torch.cuda.synchronize()
+    print(f"  [stream] built the mutable f32 index n={index.n} delta_capacity={STREAM_CAP} in "
+          f"{time.perf_counter() - t0:.3f} s; table_bytes {index.table_bytes}")
+    empty = index.query(svc.q, svc.w, spec)
+    same = all(torch.equal(getattr(empty, f), getattr(sealed, f))
+               for f in ("ids", "dists", "n_candidates"))
+    print(f"  [stream] empty delta: answers equal the sealed index's bit for bit: {same}")
+    if not same:
+        raise AssertionError("a mutable index with an empty delta must answer as the sealed one")
+
+    ticks, next_retire = [], 0
+    for t in range(1, STREAM_TICKS + 1):
+        centres, rows = stream_rows(SEED + 1000 + t, STREAM_INGEST // CLUSTER, d)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        index, ids = index.insert(rows)
+        torch.cuda.synchronize()
+        ins_ms = (time.perf_counter() - t0) * 1e3
+        retire = torch.arange(next_retire, next_retire + STREAM_RETIRE, dtype=torch.int32,
+                              device="cuda")
+        next_retire += STREAM_RETIRE
+        t0 = time.perf_counter()
+        index = index.delete(retire)
+        torch.cuda.synchronize()
+        del_ms = (time.perf_counter() - t0) * 1e3
+        q, w = stream_batch(wl, centres, SEED + 2000 + t)
+        res, ms = _timed_query(index, q, w, spec)
+        ex, ex_ms = _timed_query(index, q[:64], w[:64], exact)
+        _check_result(res, b, k)
+        _check_result(ex, 64, k)
+        for label, r in (("batch", res), ("exact check", ex)):
+            _no_dead_ids(f"tick {t} {label}", r, index.tombstones)
+        if not bool((ids >= index.n).all()):
+            raise AssertionError(f"tick {t}: an insert was refused below the capacity")
+        rec = recall_at_k(res.ids[:64], ex.ids, k)
+        hit = float((res.ids[:STREAM_ON_NEW] >= index.n).any(dim=1).float().mean())
+        print(f"  [stream] tick {t}: +{STREAM_INGEST} rows in {ins_ms:.2f} ms "
+              f"({STREAM_INGEST / ins_ms * 1e3:,.0f} rows/s), -{STREAM_RETIRE} in {del_ms:.2f} ms, "
+              f"{b} queries in {ms:.2f} ms ({ms / b * 1e3:.2f} us/query), exact check of 64 in "
+              f"{ex_ms:.2f} ms, delta={index.delta_fill}/{STREAM_CAP}, cand_frac="
+              f"{float(res.n_candidates.float().mean()) / index.n:.5f}, recall@{k}={rec:.3f}, "
+              f"delta hits {hit:.3f} of the {STREAM_ON_NEW} queries on new centres")
+        if rec < THETA_RECALL_FLOOR:
+            raise AssertionError(f"tick {t}: recall@{k} {rec:.3f} under {THETA_RECALL_FLOOR}")
+        if hit < STREAM_HIT_FLOOR:
+            raise AssertionError(f"tick {t}: only {hit:.3f} of the queries on new centres "
+                                 f"found a delta row (floor {STREAM_HIT_FLOOR})")
+        row = {"insert_ms": ins_ms, "delete_ms": del_ms, "batch_ms": ms, "exact_ms": ex_ms,
+               "fill": index.delta_fill, "recall": rec, "delta_hits": hit}
+        if index.needs_compact != (t == 12):
+            raise AssertionError(f"tick {t}: needs_compact is {index.needs_compact} at fill "
+                                 f"{index.delta_fill}")
+        if index.needs_compact:
+            profile(f"of one stream batch (tick {t}, fill {index.delta_fill})",
+                    lambda: index.query(q, w, spec), unprofiled_wall=True)
+            live = torch.from_numpy(index.live_ids()).to("cuda")
+            survivors = torch.cat([index.state.data, index.delta.data])[live]  # f32: raw rows
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            compacted = index.compact()
+            torch.cuda.synchronize()
+            row["compact_ms"] = (time.perf_counter() - t0) * 1e3
+            fresh = tapi.Index.build(SEED + 2, survivors, cfg, update=update)
+            same_state = all(torch.equal(getattr(compacted.state, f), getattr(fresh.state, f))
+                             for f in ("sorted_keys", "perm", "data", "levels"))
+            a, f_ = compacted.query(q, w, spec), fresh.query(q, w, spec)
+            same_ans = all(torch.equal(getattr(a, f), getattr(f_, f))
+                           for f in ("ids", "dists", "n_candidates"))
+            print(f"  [stream] compacted to n={compacted.n} in {row['compact_ms']:.2f} ms; "
+                  f"sorted_keys/perm/data/levels equal Index.build over the survivors: "
+                  f"{same_state}; answers equal: {same_ans}")
+            if not (same_state and same_ans):
+                raise AssertionError("compact() differs from a fresh build over the survivors")
+            index, next_retire = compacted, 0
+        ticks.append(row)
+
+    # int8 beside f32, two ticks of the same operations
+    twin = {s: tapi.Index.build(SEED + 2, wl.data, dataclasses.replace(cfg, storage=s),
+                                update=update) for s in ("f32", "int8")}
+    quant_rows = []
+    for t in range(1, 3):
+        centres, rows = stream_rows(SEED + 3000 + t, STREAM_INGEST // CLUSTER, d)
+        retire = torch.arange((t - 1) * STREAM_RETIRE, t * STREAM_RETIRE, dtype=torch.int32,
+                              device="cuda")
+        for s_ in twin:
+            twin[s_] = twin[s_].insert(rows)[0].delete(retire)
+        q, w = stream_batch(wl, centres, SEED + 4000 + t)
+        ref32 = twin["f32"].query(q, w, spec)
+        own = twin["int8"].query(q[:64], w[:64], exact)
+        for alpha in (SCREEN_ALPHA, 0.0):
+            qspec = tapi.QuerySpec(k=k, screen_alpha=alpha)
+            before = _build.launch_counts()["gather_rerank_topk_blocked_two_seg"]
+            res, ms = _timed_query(twin["int8"], q, w, qspec)
+            launched = _build.launch_counts()["gather_rerank_topk_blocked_two_seg"] - before
+            _check_result(res, b, k)
+            _no_dead_ids(f"int8 tick {t} alpha={alpha}", res, twin["int8"].tombstones)
+            same_cand = torch.equal(res.n_candidates, ref32.n_candidates)
+            rec = recall_at_k(res.ids[:64], own.ids, k)
+            print(f"  [stream int8] tick {t} alpha={alpha}: {b} queries in {ms:.2f} ms "
+                  f"({ms / b * 1e3:.2f} us/query), n_candidates equal to f32's: {same_cand}, "
+                  f"recall@{k} vs own exact {rec:.3f}, quantized two-segment launches {launched}")
+            if not same_cand:
+                raise AssertionError("int8 mutable index: n_candidates differ from f32's")
+            if launched != (2 if alpha else 1):
+                raise AssertionError(f"int8 alpha={alpha}: {launched} launches of the quantized "
+                                     f"two-segment kernel, expected {2 if alpha else 1}")
+            if rec < QUANT_RECALL_FLOOR:
+                raise AssertionError(f"int8 alpha={alpha}: recall@{k} {rec:.3f} under its floor")
+            quant_rows.append({"tick": t, "alpha": alpha, "ms": ms, "recall_own": rec})
+    counts = _path_counts("stream", ("alsh_project", "gather_rerank_topk_two_seg",
+                                     "gather_rerank_topk_blocked_two_seg"))
+    return counts, {"ticks": ticks, "int8": quant_rows}
+
+
 def phase_small_check():
     """The card's answers against the plain PyTorch path on the CPU, over
     one index state (built on the card, copied to the CPU)."""
@@ -775,11 +1119,20 @@ def main() -> int:
     run.phase("kernel gather_rerank_topk", phase_gather_rerank, run, svc)
     run.phase("kernel gather_rerank_topk_blocked", phase_gather_rerank_blocked, run, svc)
     run.phase("kernel wl1_scan_topk", phase_scan, run, svc)
+    seg = run.phase("two-segment set-up (a full delta, a stream batch's candidates)",
+                    TwoSegment, svc)
+    if seg is not None:
+        run.phase("kernel gather_rerank_topk_two_seg", phase_gather_rerank_two_seg, run, svc, seg)
+        run.phase("kernel gather_rerank_topk_blocked_two_seg",
+                  phase_gather_rerank_blocked_two_seg, run, svc, seg)
+        del seg
     paths = [
         run.phase("main path (SERVICE, theta + l2)", phase_main_path, svc),
         run.phase("main path (SERVICE, int8 and bf16 storage, screen alpha 2 and 0)",
                   phase_quant_path, svc),
         run.phase("main path (SERVICE, theta multiprobe)", phase_multiprobe_path, svc),
+        run.phase("main path (SERVICE, stream: insert, delete, two-segment query, compact)",
+                  phase_stream_path, svc),
     ]
     run.phase("check against the CPU path", phase_small_check)
     if run.failures or any(p is None for p in paths):
@@ -792,8 +1145,7 @@ def main() -> int:
     rows = []
     for name, entry in run.kernels.items():
         entry["launches"] = counts[name]
-        entry["launches_by_path"] = dict(zip(("f32", "quantized", "multiprobe"),
-                                             (p[0][name] for p in paths)))
+        entry["launches_by_path"] = dict(zip(PATHS, (p[0][name] for p in paths)))
         rows.append({k: entry[k] for k in keys} | {
             k: v for k, v in entry.items() if k not in keys
         })

@@ -7,7 +7,8 @@ The JAX package ``repro`` is the reference; this package mirrors its layout
 
 Ported so far: the sealed index — build, single-probe and multiprobe query
 and the exact scan — with f32, bf16 or int8 row storage and the quantized
-proxy screen (``quant/``); its four kernels are hand-written in CUDA for
+proxy screen (``quant/``), and the mutable index (insert, delete, the
+two-segment query, compact); its six kernels are hand-written in CUDA for
 Hopper (``kernels/csrc``). Entry points run on the CUDA card unless the caller asks
 for ``device="cpu"``; on CPU tensors the kernels' plain PyTorch versions run.
 Modes that are not ported yet raise :class:`NotImplementedError` naming the

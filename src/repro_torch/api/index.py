@@ -8,18 +8,27 @@
 A config with ``storage="int8"`` or ``"bf16"`` keeps the table payload
 encoded; ``QuerySpec(screen_alpha=α)`` screens it before the exact rerank.
 
+An index built with ``UpdateSpec(delta_capacity=C)`` is mutable:
+
+    index = Index.build(seed, data, cfg, update=UpdateSpec(delta_capacity=C))
+    index, ids = index.insert(rows)     # functional; ids are stable
+    index = index.delete(ids[:16])      # tombstones, never re-sorts
+    res = index.query(q, w, spec)       # two-segment query, same contract
+    if index.needs_compact: index = index.compact()   # the only sort
+
 ``Index.build`` runs on ``device="cuda"`` unless the caller passes
 ``device="cpu"``; without a card it raises rather than carry on on the CPU.
 ``Index.query`` runs on the index's device. ``Index.from_numpy`` carries an
 index built by the JAX package across (the parity tests' entry point).
-Mutable indexes, quality-first planning, persistence and sharding are not
-ported yet and raise ``NotImplementedError``.
+Quality-first planning, persistence and sharding are not ported yet and
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from repro_torch import engine, not_ported
@@ -27,11 +36,16 @@ from repro_torch.api.spec import QualitySpec, QuerySpec, UpdateSpec
 from repro_torch.core.families import n_flip_subsets
 from repro_torch.core.index import (
     ALSHIndex,
+    DeltaSegment,
     IndexConfig,
     QueryResult,
     build_index,
+    delta_from_numpy,
+    delta_insert,
     index_from_numpy,
+    tombstone_ids,
 )
+from repro_torch.quant import decode_table, get_codec
 
 
 def resolve_device(device) -> torch.device:
@@ -106,10 +120,32 @@ def _check_probe_reach(cfg: IndexConfig, spec: QuerySpec) -> None:
 
 @dataclasses.dataclass
 class Index:
-    """A built sealed ALSH index that owns its static configuration."""
+    """A built ALSH index that owns its static configuration and lifecycle.
+
+    ``state`` is the sealed main segment (only ``compact`` replaces it);
+    ``update`` the mutability policy; ``delta`` the fixed-capacity segment of
+    post-build inserts (capacity 0 for a sealed index); ``tombstones``
+    (n_main + capacity,) bool marks deleted rows of either segment. Row ids
+    are stable across mutation: main rows keep their build ids, the i-th
+    inserted row gets ``n_main + i``; only ``compact`` renumbers, per
+    ``live_ids``. The lifecycle methods are functional: each returns a new
+    ``Index`` and leaves this one as it was.
+    """
 
     state: ALSHIndex
     config: IndexConfig
+    update: UpdateSpec = UpdateSpec()
+    delta: DeltaSegment | None = None
+    tombstones: torch.Tensor | None = None
+
+    def __post_init__(self):
+        # empty mutation state when constructed without it (sealed indexes)
+        if self.delta is None:
+            self.delta = DeltaSegment.empty(self.config, self.update.delta_capacity,
+                                            dtype=self.state.data.dtype, device=self.device)
+        if self.tombstones is None:
+            self.tombstones = torch.zeros((self.state.n + self.delta.capacity,),
+                                          dtype=torch.bool, device=self.device)
 
     @classmethod
     def build(
@@ -123,11 +159,10 @@ class Index:
         """Hash every row and sort each table (Theorem 1 preprocessing) on
         ``device`` (default: the CUDA card). The tables are drawn from the
         seed or generator on the CPU, so a seed gives the same index on
-        every device."""
+        every device. ``update=UpdateSpec(delta_capacity=C)`` reserves C
+        delta slots and makes the index mutable."""
         if isinstance(config, QualitySpec):
             raise not_ported("Index.build(QualitySpec) — quality-first planning", "Queue A item 10")
-        if update.mutable:
-            raise not_ported("UpdateSpec(delta_capacity>0) — the mutable index", "Queue A item 7")
         dev = resolve_device(device)
         gen = as_generator(seed_or_generator)
         data = torch.as_tensor(data).to(device=dev, dtype=torch.float32)
@@ -135,17 +170,23 @@ class Index:
             raise ValueError(
                 f"data must be (n, d) with d=config.d={config.d}, got {tuple(data.shape)}"
             )
-        return cls(state=build_index(gen, data, config), config=config)
+        return cls(state=build_index(gen, data, config), config=config, update=update)
 
     @classmethod
-    def from_numpy(cls, arrays: dict, config: IndexConfig, device=None) -> "Index":
-        """An index from the reference's ``ALSHIndex`` leaves as numpy
-        arrays (see ``repro_torch.core.index.index_from_numpy``)."""
+    def from_numpy(cls, arrays: dict, config: IndexConfig, update: UpdateSpec = UpdateSpec(),
+                   device=None) -> "Index":
+        """An index from the reference's leaves as numpy arrays: the
+        ``ALSHIndex`` leaves (see ``repro_torch.core.index.index_from_numpy``)
+        and, for a mutable index, its delta leaves and tombstones (see
+        ``delta_from_numpy``) under the reference's ``update``."""
         dev = resolve_device(device)
-        return cls(state=index_from_numpy(arrays, config, dev), config=config)
+        state = index_from_numpy(arrays, config, dev)
+        delta, tomb = delta_from_numpy(arrays, config, update.delta_capacity, state.n, dev)
+        return cls(state=state, config=config, update=update, delta=delta, tombstones=tomb)
 
     @property
     def n(self) -> int:
+        """Main-segment (sealed) rows."""
         return self.state.n
 
     @property
@@ -153,19 +194,48 @@ class Index:
         return self.state.device
 
     @property
+    def mutable(self) -> bool:
+        return self.update.mutable
+
+    @property
+    def capacity(self) -> int:
+        """Total addressable rows: main + delta slots."""
+        return self.state.n + self.delta.capacity
+
+    @property
+    def delta_fill(self) -> int:
+        """Delta slots used (a host int: no device sync)."""
+        return self.delta.fill
+
+    @property
+    def n_live(self) -> int:
+        """Surviving rows: filled, not tombstoned."""
+        return int(self.live_ids().size)
+
+    @property
+    def needs_compact(self) -> bool:
+        """Advisory: the delta fill reached ``update.compact_threshold``."""
+        cap = self.delta.capacity
+        if cap == 0:
+            return False
+        return self.delta_fill >= self.update.compact_threshold * cap
+
+    @property
     def table_bytes(self) -> int:
-        """Resident bytes of the row table (payload + decode scales) — the
-        memory the storage codec compresses. Hash tables and permutations
-        are excluded: they are storage-invariant."""
-        total = self.state.data.nbytes
+        """Resident bytes of the row tables (main payload + delta payload +
+        decode scales) — the memory the storage codec compresses. Hash
+        tables and permutations are excluded: they are storage-invariant."""
+        total = self.state.data.nbytes + self.delta.data.nbytes
         if self.state.scales is not None:
             total += self.state.scales.nbytes
         return int(total)
 
     def query(self, queries, weights, spec=QuerySpec()) -> QueryResult:
         """Batched k-NN under d_w^l1 on the index's device. ``spec`` is a
-        :class:`QuerySpec` (mode "probe", "multiprobe" or "exact"). Invalid
-        result slots are ``ids == -1`` / ``dists == +inf``."""
+        :class:`QuerySpec` (mode "probe", "multiprobe" or "exact"). A mutable
+        index adds the delta key match and the tombstone mask to the sealed
+        window source. Invalid result slots are ``ids == -1`` /
+        ``dists == +inf``."""
         if isinstance(spec, QualitySpec):
             raise not_ported("Index.query(QualitySpec) — quality-first planning", "Queue A item 10")
         if not isinstance(spec, QuerySpec):
@@ -175,9 +245,100 @@ class Index:
         validate_query_args(self.config.d, queries, weights)
         _check_probe_reach(self.config, spec)
         return engine.query(
-            self.state, None, None, queries, weights, self.config, k=spec.k, mode=spec.mode,
+            self.state,
+            self.delta if self.mutable else None,
+            self.tombstones if self.mutable else None,
+            queries, weights, self.config, k=spec.k, mode=spec.mode,
             n_probes=spec.n_probes, max_flips=spec.max_flips, screen_alpha=spec.screen_alpha,
         )
+
+    # -- mutation (functional: every method returns a new Index) ------------
+    def _require_mutable(self, op: str) -> None:
+        if not self.mutable:
+            raise ValueError(
+                f"Index.{op}() requires a mutable index — build with "
+                f"update=UpdateSpec(delta_capacity=...) (this index was built "
+                f"with delta_capacity=0)"
+            )
+
+    def insert(self, rows) -> tuple["Index", torch.Tensor]:
+        """Append (m, d) rows to the delta segment, hashed with the index's
+        own tables. Returns (new index, (m,) int32 assigned ids); ids are
+        stable until the next ``compact``, and -1 marks rows that did not fit
+        (delta at capacity: compact and retry)."""
+        self._require_mutable("insert")
+        rows = torch.as_tensor(rows)
+        if rows.ndim != 2 or rows.shape[-1] != self.config.d:
+            raise ValueError(
+                f"insert rows must be (m, d) with trailing dim "
+                f"config.d={self.config.d}; got rows.shape={tuple(rows.shape)}"
+            )
+        rows = rows.to(device=self.device, dtype=torch.float32).contiguous()
+        delta, ids = delta_insert(self.state, self.delta, rows, self.config)
+        return dataclasses.replace(self, delta=delta), ids
+
+    def delete(self, ids) -> "Index":
+        """Tombstone rows by id (either segment). Unknown ids — negative or
+        not yet assigned by any insert — are ignored; deleted ids never
+        appear in query results. Space is reclaimed by ``compact``."""
+        self._require_mutable("delete")
+        ts = tombstone_ids(self.tombstones, ids, self.state.n, self.delta.fill)
+        return dataclasses.replace(self, tombstones=ts)
+
+    def live_ids(self) -> np.ndarray:
+        """(n_live,) int64 numpy array: surviving row ids in compaction
+        order — ``live_ids()[new_id] == old_id`` after ``compact()``."""
+        tomb = self.tombstones.cpu().numpy()
+        n_main = self.state.n
+        main_keep = np.nonzero(~tomb[:n_main])[0]
+        delta_keep = n_main + np.nonzero(~tomb[n_main : n_main + self.delta.fill])[0]
+        return np.concatenate([main_keep, delta_keep])
+
+    def compact(self) -> "Index":
+        """Merge the surviving main rows and delta rows into a fresh sealed
+        segment; the only lifecycle operation that sorts.
+
+        Hashes are not recomputed: main-row keys are recovered by inverting
+        each table's permutation (over ``perm[:, :n_main]``, whose padding
+        holds n) and delta-row keys were computed at insert time, so the
+        merge is a gather plus L stable argsorts — equal to ``Index.build``
+        over the surviving rows with the same tables and mixers. Survivors
+        are decoded and re-encoded as a new segment (int8 scales are refit).
+        Returns a new index with an empty delta and no tombstones; ids are
+        renumbered per ``live_ids()``."""
+        self._require_mutable("compact")
+        state, cfg = self.state, self.config
+        n_main, fill = state.n, self.delta.fill
+        tomb = self.tombstones
+        main_keep = torch.nonzero(~tomb[:n_main]).flatten()
+        delta_keep = torch.nonzero(~tomb[n_main : n_main + fill]).flatten()
+
+        # keys of the main rows at their build positions: keys[l, perm[l, i]] = sorted_keys[l, i]
+        keys_main = torch.zeros((cfg.L, n_main), dtype=torch.int32, device=self.device)
+        keys_main.scatter_(1, state.perm[:, :n_main].long(), state.sorted_keys)
+
+        # f32: decode and encode are the identity; int8: decoded with the old
+        # scales, re-encoded with scales refit to the survivors
+        data = torch.cat([
+            decode_table(state.data[main_keep], state.scales),
+            decode_table(self.delta.data[delta_keep].to(state.data.dtype), state.scales),
+        ])
+        levels = torch.cat([state.levels[main_keep], self.delta.levels[delta_keep]])
+        keys_ln = torch.cat([keys_main[:, main_keep], self.delta.keys[:, delta_keep]], dim=1)
+
+        # build_index's tail over the survivors: the stable sort, the padding
+        n_new = data.shape[0]
+        perm = torch.argsort(keys_ln, dim=1, stable=True)
+        sorted_keys = torch.gather(keys_ln, 1, perm)
+        pad = torch.full((cfg.L, cfg.max_candidates), n_new, dtype=torch.int64,
+                         device=self.device)
+        perm = torch.cat([perm, pad], dim=1).to(torch.int32)
+        payload, scales = get_codec(cfg.storage).encode(data)
+        new_state = ALSHIndex(
+            tables=state.tables, mixers=state.mixers, sorted_keys=sorted_keys, perm=perm,
+            data=payload, levels=levels, scales=scales,
+        )
+        return Index(state=new_state, config=cfg, update=self.update)
 
     def shard(self, *args, **kwargs):
         raise not_ported("Index.shard — the sharded service", "Queue A item 12")

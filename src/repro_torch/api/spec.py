@@ -3,8 +3,8 @@
 The specs keep the reference's fields and validation, so a spec that is
 invalid there is invalid here with the same message. Fields this port does
 not execute yet raise ``NotImplementedError`` naming the ROADMAP.md item:
-``early_exit`` and a non-"auto" ``impl``; a :class:`QualitySpec` or a
-mutable :class:`UpdateSpec` raises where ``Index`` receives it.
+``early_exit`` and a non-"auto" ``impl``; a :class:`QualitySpec` raises
+where ``Index`` receives it.
 """
 
 from __future__ import annotations
@@ -127,8 +127,11 @@ class QualitySpec:
 
 @dataclasses.dataclass(frozen=True)
 class UpdateSpec:
-    """Build-time mutability policy. ``delta_capacity=0`` (the default) is
-    the immutable index this port builds; a delta segment is not ported."""
+    """Build-time mutability policy. ``delta_capacity=C`` > 0 reserves C
+    delta slots and makes the index mutable (``Index.insert``/``delete``/
+    ``compact``); ``delta_capacity=0`` (the default) is a sealed index.
+    ``compact_threshold`` is the delta fill share at which
+    ``Index.needs_compact`` turns true (advisory: the caller compacts)."""
 
     delta_capacity: int = 0
     compact_threshold: float = 0.75

@@ -4,6 +4,7 @@ the sealed index)."""
 from repro_torch.core.hash_families import LSHParams, PrefixTables, make_prefix_tables
 from repro_torch.core.index import (
     ALSHIndex,
+    DeltaSegment,
     IndexConfig,
     QueryResult,
     build_index,
@@ -14,6 +15,7 @@ from repro_torch.core.transforms import BoundedSpace, discretize
 __all__ = [
     "ALSHIndex",
     "BoundedSpace",
+    "DeltaSegment",
     "IndexConfig",
     "LSHParams",
     "PrefixTables",

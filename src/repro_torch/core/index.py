@@ -5,16 +5,19 @@ Each of the L tables is a sorted key column:
   build:  codes (n, K) --combine--> keys (n,) --stable argsort--> (sorted_keys, perm)
   query:  key --searchsorted--> [start, end) --bounded window--> candidate ids
 
-This module owns the data structure (``IndexConfig``, ``ALSHIndex``,
-``build_index``) and the probe primitives (``_probe_one_table``,
-``_dedupe_candidates``, ``table_window_sizes``); query execution lives in
-:mod:`repro_torch.engine`. The sealed segment is ported with every storage
-codec (f32, bf16, int8; ``repro_torch.quant``); the delta segment and
-tombstones are ROADMAP.md Queue A item 7.
+This module owns the data structures (``IndexConfig``, ``ALSHIndex``,
+``DeltaSegment``, ``build_index``), the probe primitives
+(``_probe_one_table``, ``_dedupe_candidates``, ``table_window_sizes``) and
+the mutable lifecycle's primitives (``hash_rows``, ``delta_insert``,
+``tombstone_ids``, the chunked delta key match ``_delta_candidates``,
+``_mask_dead``, ``delta_live_mask``); query execution lives in
+:mod:`repro_torch.engine`. Both segments are ported with every storage codec
+(f32, bf16, int8; ``repro_torch.quant``).
 
-``index_from_numpy`` carries an index the JAX package built (its
-``ALSHIndex`` leaves as numpy arrays) into this package, which is how the
-parity tests hold both packages to the same random tables.
+``index_from_numpy`` and ``delta_from_numpy`` carry an index the JAX package
+built (its ``ALSHIndex`` leaves, and a mutable index's delta leaves and
+tombstones, as numpy arrays) into this package, which is how the parity
+tests hold both packages to the same random tables.
 """
 
 from __future__ import annotations
@@ -118,6 +121,46 @@ class QueryResult(NamedTuple):
     n_candidates: torch.Tensor  # (b,) int32 unique candidates examined
 
 
+@dataclasses.dataclass
+class DeltaSegment:
+    """Fixed-capacity unsealed segment: rows inserted after the main build.
+
+    Rows are hashed at insert time with the main segment's tables and
+    mixers, so a query's per-table keys are valid against both segments.
+    The delta is never sorted: it is probed by a chunked key match over its
+    filled slots. Slots are append-only: deletes tombstone, only a compaction
+    reclaims space.
+
+    ``fill`` is a host ``int``. The reference keeps it as a device scalar so
+    that ``jit`` does not retrace as it moves; this port has no jit, and a
+    host int spares a device sync on every insert and lets the key match
+    skip the unfilled blocks.
+    """
+
+    data: torch.Tensor  # (cap, d) ENCODED inserted rows in the main segment's dtype
+    levels: torch.Tensor  # (cap, d) int32 lattice points of the inserted rows
+    keys: torch.Tensor  # (L, cap) int32 per-table bucket keys of the inserted rows
+    fill: int = 0  # slots used (append-only)
+
+    @property
+    def capacity(self) -> int:
+        return self.data.shape[0]
+
+    @classmethod
+    def empty(cls, cfg: IndexConfig, capacity: int, dtype=torch.float32,
+              device=None) -> "DeltaSegment":
+        return cls(
+            data=torch.zeros((capacity, cfg.d), dtype=dtype, device=device),
+            levels=torch.zeros((capacity, cfg.d), dtype=torch.int32, device=device),
+            keys=torch.zeros((cfg.L, capacity), dtype=torch.int32, device=device),
+            fill=0,
+        )
+
+    def to(self, device) -> "DeltaSegment":
+        return DeltaSegment(self.data.to(device), self.levels.to(device), self.keys.to(device),
+                            self.fill)
+
+
 def _keys_for(
     levels: torch.Tensor,
     weights: torch.Tensor | None,
@@ -179,6 +222,109 @@ def build_index(
     )
 
 
+def hash_rows(
+    index: ALSHIndex, rows: torch.Tensor, cfg: IndexConfig
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Hash new rows with the index's own tables: (m, d) f32 ->
+    ((L, m) int32 keys, (m, d) int32 levels). This is what makes delta rows
+    query-compatible with the sealed main segment."""
+    levels = transforms.discretize(rows, cfg.space)
+    keys = _keys_for(levels, None, index.tables, cfg, index.mixers).T
+    return keys, levels
+
+
+def delta_insert(
+    index: ALSHIndex, delta: DeltaSegment, rows: torch.Tensor, cfg: IndexConfig
+) -> tuple[DeltaSegment, torch.Tensor]:
+    """Append rows to the delta segment (functional: ``delta`` is left as it
+    was). rows (m, d) f32 on the index's device -> (new delta, (m,) int32
+    assigned ids): ``n_main + slot``, and -1 for rows that did not fit
+    (delta full: compact and retry); the fill clamps to the capacity."""
+    m = rows.shape[0]
+    cap = delta.capacity
+    keys, levels = hash_rows(index, rows, cfg)  # the RAW rows
+    # encode AFTER hashing, under the SEALED segment's scales, so a delta row
+    # decodes as a main row does (int8 values outside its range saturate)
+    enc = get_codec(cfg.storage).encode_rows(rows, index.scales).to(delta.data.dtype)
+    fit = max(0, min(m, cap - delta.fill))
+    lo, hi = delta.fill, delta.fill + fit
+    data, lv, ks = delta.data.clone(), delta.levels.clone(), delta.keys.clone()
+    data[lo:hi] = enc[:fit]
+    lv[lo:hi] = levels[:fit]
+    ks[:, lo:hi] = keys[:, :fit]
+    slots = torch.arange(delta.fill, delta.fill + m, dtype=torch.int64, device=rows.device)
+    ids = torch.where(slots < cap, index.n + slots, torch.full_like(slots, -1))
+    return DeltaSegment(data, lv, ks, min(cap, delta.fill + m)), ids.to(torch.int32)
+
+
+def tombstone_ids(
+    tombstones: torch.Tensor, ids: torch.Tensor, n_main: int, fill: int
+) -> torch.Tensor:
+    """Set tombstone bits for ``ids`` (functional). Ids that name no row —
+    negative, past the capacity, or in the UNFILLED delta range
+    ``[n_main + fill, n_main + cap)`` — are ignored: tombstoning an
+    unassigned slot would kill the row a future insert places there."""
+    n_tot = tombstones.shape[0]
+    ids = torch.as_tensor(ids, device=tombstones.device).reshape(-1).long()
+    assigned = (ids >= 0) & (ids < n_main + fill) & (ids < n_tot)
+    # unassigned ids land on one spare slot past the end, dropped after
+    out = torch.cat([tombstones, tombstones.new_zeros(1)])
+    out[torch.where(assigned, ids, torch.full_like(ids, n_tot))] = True
+    return out[:n_tot]
+
+
+# Delta-slot block size of the chunked key match: the per-step working set
+# is (b, L, P, block) bools, whatever the delta capacity.
+DELTA_MATCH_BLOCK = 1024
+
+
+def _delta_candidates(
+    probe_keys: torch.Tensor,
+    delta: DeltaSegment,
+    live: torch.Tensor,
+    n_main: int,
+    sentinel: int,
+    block: int = DELTA_MATCH_BLOCK,
+) -> torch.Tensor:
+    """Delta probe: which delta slots collide with the query's keys.
+
+    probe_keys (b, L) or (b, L, P); live (cap,) bool (slot filled and not
+    tombstoned) -> (b, cap) int32 ids ``n_main + slot``, ``sentinel`` where
+    the slot does not collide or is not live. A slot is a candidate iff its
+    key equals one of the probe keys IN THE SAME TABLE — the predicate the
+    sorted window applies to the main segment. The match runs over
+    ``block``-slot chunks, never materializing (b, L, P, cap); chunks past
+    the fill hold no live slot and are skipped (the output is the same).
+    """
+    cap = delta.capacity
+    b = probe_keys.shape[0]
+    out = torch.full((b, cap), sentinel, dtype=torch.int32, device=probe_keys.device)
+    pk = probe_keys if probe_keys.ndim == 3 else probe_keys[:, :, None]  # (b, L, P)
+    for s in range(0, min(delta.fill, cap), block):
+        e = min(s + block, cap)
+        kblk = delta.keys[:, s:e]  # (L, blk)
+        match = (pk[:, :, :, None] == kblk[None, :, None, :]).flatten(1, 2).any(dim=1)
+        ids = torch.arange(n_main + s, n_main + e, dtype=torch.int32, device=out.device)
+        out[:, s:e] = torch.where(match & live[None, s:e], ids[None, :],
+                                  torch.full_like(ids, sentinel)[None, :])
+    return out
+
+
+def _mask_dead(cand: torch.Tensor, tombstones: torch.Tensor, n_main: int,
+               sentinel: int) -> torch.Tensor:
+    """Zap probe-window padding (ids >= n_main) and tombstoned main ids to
+    ``sentinel`` BEFORE the re-rank, so deleted rows never reach a result."""
+    n_tot = tombstones.shape[0]
+    dead = tombstones[torch.clamp(cand, max=n_tot - 1).long()]
+    return torch.where((cand < n_main) & ~dead, cand, torch.full_like(cand, sentinel))
+
+
+def delta_live_mask(delta: DeltaSegment, tombstones: torch.Tensor, n_main: int) -> torch.Tensor:
+    """(cap,) bool: slot filled and not tombstoned."""
+    slots = torch.arange(delta.capacity, device=tombstones.device)
+    return (slots < delta.fill) & ~tombstones[n_main:]
+
+
 def _payload_tensor(arr, storage: str, device) -> torch.Tensor:
     """The table payload in its stored dtype. A bf16 payload comes as the
     JAX package hands it over, with numpy dtype ``bfloat16`` (from
@@ -234,6 +380,36 @@ def index_from_numpy(arrays: dict, cfg: IndexConfig, device) -> ALSHIndex:
     if idx.scales is not None and tuple(idx.scales.shape) != (d,):
         raise ValueError(f"scales is {tuple(idx.scales.shape)}, config needs {(d,)}")
     return idx
+
+
+def delta_from_numpy(
+    arrays: dict, cfg: IndexConfig, capacity: int, n_main: int, device
+) -> tuple[DeltaSegment, torch.Tensor]:
+    """A mutable index's delta segment and tombstones from the reference's
+    leaves as numpy arrays: ``delta_data`` (cap, d) in the ``cfg.storage``
+    dtype, ``delta_levels`` (cap, d), ``delta_keys`` (L, cap), ``delta_fill``
+    (a scalar) and ``tombstones`` (n_main + cap,) bool. Missing leaves give
+    an empty delta of ``capacity`` slots and no tombstone."""
+    if "delta_data" not in arrays:
+        delta = DeltaSegment.empty(cfg, capacity, storage_dtype(cfg.storage), device)
+    else:
+        delta = DeltaSegment(
+            data=_payload_tensor(arrays["delta_data"], cfg.storage, device),
+            levels=torch.tensor(np.asarray(arrays["delta_levels"]), dtype=torch.int32,
+                                device=device),
+            keys=torch.tensor(np.asarray(arrays["delta_keys"]), dtype=torch.int32,
+                              device=device),
+            fill=int(np.asarray(arrays["delta_fill"]).reshape(-1)[0]),
+        )
+    if delta.capacity != capacity or tuple(delta.keys.shape) != (cfg.L, capacity):
+        raise ValueError(f"delta leaves hold {delta.capacity} slots, UpdateSpec says {capacity}")
+    if "tombstones" in arrays:
+        tomb = torch.tensor(np.asarray(arrays["tombstones"]), dtype=torch.bool, device=device)
+    else:
+        tomb = torch.zeros((n_main + capacity,), dtype=torch.bool, device=device)
+    if tuple(tomb.shape) != (n_main + capacity,):
+        raise ValueError(f"tombstones is {tuple(tomb.shape)}, needs {(n_main + capacity,)}")
+    return delta, tomb
 
 
 def _searchsorted(sorted_keys: torch.Tensor, keys_lb: torch.Tensor, right: bool) -> torch.Tensor:

@@ -1,20 +1,24 @@
 """The execution pipeline: key enumeration → sources → one tail.
 
-Counterpart of ``repro.engine.pipeline`` for the sealed index:
+Counterpart of ``repro.engine.pipeline``:
 
   1. ``probe_keys`` — the (b, L, P) probing sequence: each table's own
      bucket key (mode "probe", P = 1) or the query-directed multiprobe
      sequence (mode "multiprobe");
-  2. ``sources_for`` — the sealed sorted-table window source;
+  2. ``sources_for`` — the sealed sorted-table window source, plus the
+     delta key match when the index has a delta segment; tombstones are
+     masked inside the sources, before the merge;
   3. ``execute`` — merge the blocks, dedupe by sort (unique ids packed
      first; the unique count is the paper's sublinearity metric), then,
      for a quantized table with ``screen_alpha`` > 0, a proxy screen over
      the encoded rows that keeps ``ceil(k·α)`` survivors, then the fused
-     gather/rerank/top-k kernel over the decoded rows.
+     gather/rerank/top-k kernel over the decoded rows of BOTH segments
+     (the two-segment kernels; no concatenated table).
 
-``dispatch``/``query`` wire the stages for modes "probe" and "multiprobe",
-and run the streaming scan kernel for mode "exact" (over the decoded table
-for quantized storage). Early exit and the mutable segments raise
+``dispatch``/``query`` wire the stages for modes "probe" and "multiprobe".
+Mode "exact" runs the streaming scan kernel over a sealed index (over the
+decoded table for quantized storage) and, for a mutable index, the gather
+tail over every live row (``ExhaustiveSource``). Early exit raises
 ``NotImplementedError``.
 """
 
@@ -26,13 +30,20 @@ from repro_torch import not_ported, quant
 from repro_torch.core import transforms
 from repro_torch.core.index import (
     ALSHIndex,
+    DeltaSegment,
     IndexConfig,
     QueryResult,
     _dedupe_candidates,
     _keys_for,
+    delta_live_mask,
 )
 from repro_torch.core.multiprobe import MAX_FLIPS, N_PROBES, multiprobe_keys_for
-from repro_torch.engine.sources import CandidateSource, SortedTableSource
+from repro_torch.engine.sources import (
+    CandidateSource,
+    DeltaMatchSource,
+    ExhaustiveSource,
+    SortedTableSource,
+)
 from repro_torch.kernels import ops
 
 
@@ -58,14 +69,36 @@ def probe_keys(
     return keys[:, :, None]
 
 
-def sources_for(state: ALSHIndex, cfg: IndexConfig, keys: torch.Tensor) -> list[CandidateSource]:
-    """The candidate sources of a sealed index view: its table windows."""
-    return [SortedTableSource(state, cfg, keys)]
+def sources_for(
+    state: ALSHIndex,
+    delta: DeltaSegment | None,
+    tombstones: torch.Tensor | None,
+    cfg: IndexConfig,
+    keys: torch.Tensor,
+) -> list[CandidateSource]:
+    """The candidate sources of one index view: the sealed table windows,
+    plus the delta key match when a delta segment is present. One key
+    enumeration feeds every source."""
+    n_main = state.n
+    cap = delta.capacity if delta is not None else 0
+    n_tot = n_main + cap
+    segmented = tombstones is not None or delta is not None
+    if segmented and tombstones is None:
+        tombstones = torch.zeros((n_tot,), dtype=torch.bool, device=state.device)
+    srcs: list[CandidateSource] = [
+        SortedTableSource(state, cfg, keys, tombstones=tombstones if segmented else None,
+                          sentinel=n_tot)
+    ]
+    if cap:
+        live = delta_live_mask(delta, tombstones, n_main)
+        srcs.append(DeltaMatchSource(delta, keys, live, n_main, n_tot))
+    return srcs
 
 
 def execute(
     sources: list[CandidateSource],
-    data: torch.Tensor,
+    main_data: torch.Tensor,
+    delta_data: torch.Tensor | None,
     queries: torch.Tensor,
     weights: torch.Tensor,
     k: int,
@@ -74,29 +107,39 @@ def execute(
     screen_alpha: float = 0.0,
 ) -> QueryResult:
     """Merge source blocks → dedupe → [quantized screen →] fused
-    gather/rerank/top-k over ``data`` (f32 or an encoded payload).
+    gather/rerank/top-k over ``main_data`` (f32 or an encoded payload) and,
+    when given, ``delta_data`` (the two-segment kernels).
 
-    With ``screen_alpha`` > 0 the same fused kernel first ranks every
-    candidate by the compressed-domain proxy distance (``quant.proxy_query``:
-    no decode, the gather moves encoded bytes) and only the top
-    ``ceil(k·α)`` survivors reach the exact rerank. The caller passes α = 0
-    for f32 storage and exact mode (``query`` folds it)."""
+    ``n_valid`` is the addressable row count (main plus delta capacity); an
+    id >= n_valid is padding. A single ``pre_deduped`` source skips the
+    dedupe sort and counts its valid entries. With ``screen_alpha`` > 0 the
+    same fused kernel first ranks every candidate by the compressed-domain
+    proxy distance (``quant.proxy_query``: no decode, the gather moves
+    encoded bytes) and only the top ``ceil(k·α)`` survivors reach the exact
+    rerank. The caller passes α = 0 for f32 storage and exact mode
+    (``query`` folds it)."""
     blocks = [s.emit(queries, weights) for s in sources]
     cand = blocks[0] if len(blocks) == 1 else torch.cat(blocks, dim=1)
-    cand, n_candidates = _dedupe_candidates(cand, n_valid)
+    if len(sources) == 1 and sources[0].pre_deduped:
+        n_candidates = (cand < n_valid).sum(dim=1).to(torch.int32)
+    else:
+        cand, n_candidates = _dedupe_candidates(cand, n_valid)
     keep = quant.screen_keep(k, screen_alpha, cand.shape[1])
     if keep:
-        qp, wp = quant.proxy_query(queries, weights, data.dtype, scales)
-        _, surv = ops.gather_rerank_topk(data, cand, qp, wp, keep)
+        qp, wp = quant.proxy_query(queries, weights, main_data.dtype, scales)
+        _, surv = ops.gather_rerank_topk(main_data, cand, qp, wp, keep, delta=delta_data)
         # survivors come back -1-padded; map them to the candidate sentinel
         # so invalid slots stay invalid (never row 0)
         cand = torch.where(surv >= 0, surv, torch.full_like(surv, n_valid))
-    dists, ids = ops.gather_rerank_topk(data, cand, queries, weights, k, scales=scales)
+    dists, ids = ops.gather_rerank_topk(main_data, cand, queries, weights, k, scales=scales,
+                                        delta=delta_data)
     return QueryResult(dists=dists, ids=ids, n_candidates=n_candidates)
 
 
 def dispatch(
     state: ALSHIndex,
+    delta: DeltaSegment | None,
+    tombstones: torch.Tensor | None,
     queries: torch.Tensor,
     weights: torch.Tensor,
     cfg: IndexConfig | None,
@@ -106,26 +149,38 @@ def dispatch(
     max_flips: int = MAX_FLIPS,
     screen_alpha: float = 0.0,
 ) -> QueryResult:
-    """One query over a sealed index: ``mode`` "probe", "multiprobe" (ALSH)
-    or "exact" (streaming scan over the decoded table; ``cfg`` may be
-    None). Runs on ``state``'s device."""
+    """One query over one index view: ``mode`` "probe", "multiprobe" (ALSH)
+    or "exact". ``delta``/``tombstones`` are None for a sealed index; then
+    exact mode is the streaming scan over the decoded table (``cfg`` may be
+    None), and otherwise the gather tail over every live row of both
+    segments. Runs on ``state``'s device."""
+    n_main = state.n
+    cap = delta.capacity if delta is not None else 0
+    segmented = tombstones is not None or delta is not None
+    delta_data = delta.data if cap else None
     if mode == "exact":
-        table = quant.decode_table(state.data, state.scales)  # f32: the same tensor
-        dists, ids = ops.wl1_scan_topk(table, queries, weights, k)
-        n_candidates = torch.full((queries.shape[0],), state.n, dtype=torch.int32,
-                                  device=queries.device)
-        return QueryResult(dists=dists, ids=ids, n_candidates=n_candidates)
+        if not segmented:
+            table = quant.decode_table(state.data, state.scales)  # f32: the same tensor
+            dists, ids = ops.wl1_scan_topk(table, queries, weights, k)
+            n_candidates = torch.full((queries.shape[0],), n_main, dtype=torch.int32,
+                                      device=queries.device)
+            return QueryResult(dists=dists, ids=ids, n_candidates=n_candidates)
+        if tombstones is None:
+            tombstones = torch.zeros((n_main + cap,), dtype=torch.bool, device=state.device)
+        src = ExhaustiveSource(state, delta, tombstones)
+        return execute([src], state.data, delta_data, queries, weights, k,
+                       n_valid=n_main + cap, scales=state.scales)
     keys = probe_keys(state, queries, weights, cfg, mode=mode, n_probes=n_probes,
                       max_flips=max_flips)
-    srcs = sources_for(state, cfg, keys)
-    return execute(srcs, state.data, queries, weights, k, n_valid=state.n,
+    srcs = sources_for(state, delta, tombstones, cfg, keys)
+    return execute(srcs, state.data, delta_data, queries, weights, k, n_valid=n_main + cap,
                    scales=state.scales, screen_alpha=screen_alpha)
 
 
 def query(
     state: ALSHIndex,
-    delta,
-    tombstones,
+    delta: DeltaSegment | None,
+    tombstones: torch.Tensor | None,
     queries: torch.Tensor,
     weights: torch.Tensor,
     cfg: IndexConfig | None,
@@ -140,8 +195,6 @@ def query(
     reference). Queries move to the index's device as contiguous f32. The
     screen is off for exact mode and f32 storage, as the reference's
     ``normalize_static_args`` folds it."""
-    if delta is not None or tombstones is not None:
-        raise not_ported("a mutable index (delta segment / tombstones)", "Queue A item 7")
     if early_exit:
         raise not_ported("early_exit (streamed adaptive probing)", "Queue A item 8")
     if mode == "exact" or state.data.dtype == torch.float32:
@@ -149,5 +202,5 @@ def query(
     dev = state.device
     queries = queries.to(device=dev, dtype=torch.float32).contiguous()
     weights = weights.to(device=dev, dtype=torch.float32).contiguous()
-    return dispatch(state, queries, weights, cfg, k=k, mode=mode, n_probes=n_probes,
-                    max_flips=max_flips, screen_alpha=screen_alpha)
+    return dispatch(state, delta, tombstones, queries, weights, cfg, k=k, mode=mode,
+                    n_probes=n_probes, max_flips=max_flips, screen_alpha=screen_alpha)

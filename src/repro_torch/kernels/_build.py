@@ -5,7 +5,10 @@ a shared library with a plain C interface and loaded with ``ctypes`` — no
 PyTorch headers, so a build takes seconds. Libraries land in
 ``csrc/build/`` (listed in ``.gitignore``) under a name that hashes the
 sources and flags, so an edited source is rebuilt and an unchanged one is
-reused. :func:`build_all` starts one ``nvcc`` per source, all at once.
+reused. :func:`build_all` starts one ``nvcc`` per source, all at once. A
+source may export several entry points, each a :class:`Kernel` of its own
+with its own launch count (the single- and two-segment gathers share their
+sources and build once).
 
 Nothing here runs at import time: the CPU tests import every module of the
 package on machines without ``nvcc``.
@@ -54,7 +57,7 @@ def nvcc_path() -> str:
 
 @dataclasses.dataclass
 class Kernel:
-    """One CUDA source, its C entry points, and its launch count.
+    """One CUDA kernel: its source, its C entry points, and its launch count.
 
     ``functions`` maps each exported C function to its ctypes argtypes
     (every function returns ``int``). ``launches`` counts the wrapper's
@@ -144,6 +147,16 @@ GATHER_RERANK_BLOCKED = Kernel(
     "gather_rerank_blocked.cu",
     {"gather_rerank_blocked_launch": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]},
 )
+GATHER_RERANK_TWO_SEG = Kernel(
+    "gather_rerank_topk_two_seg",
+    "gather_rerank.cu",
+    {"gather_rerank2_launch": [_P] * 7 + [_I] * 6 + [_P]},
+)
+GATHER_RERANK_BLOCKED_TWO_SEG = Kernel(
+    "gather_rerank_topk_blocked_two_seg",
+    "gather_rerank_blocked.cu",
+    {"gather_rerank_blocked2_launch": [_P, _P, _I] + [_P] * 6 + [_I] * 6 + [_P]},
+)
 WL1_SCAN_TOPK = Kernel(
     "wl1_scan_topk",
     "wl1_topk.cu",
@@ -153,16 +166,25 @@ WL1_SCAN_TOPK = Kernel(
     },
 )
 KERNELS = {
-    k.name: k for k in (ALSH_PROJECT, GATHER_RERANK, GATHER_RERANK_BLOCKED, WL1_SCAN_TOPK)
+    k.name: k
+    for k in (ALSH_PROJECT, GATHER_RERANK, GATHER_RERANK_BLOCKED, WL1_SCAN_TOPK,
+              GATHER_RERANK_TWO_SEG, GATHER_RERANK_BLOCKED_TWO_SEG)
 }
 
 
 def build_all() -> dict[str, Kernel]:
-    """Compile every kernel source in parallel (one nvcc each) and load it."""
-    procs = {name: k.start_build() for name, k in KERNELS.items()}
-    for name, proc in procs.items():
+    """Compile every kernel source in parallel (one nvcc per source) and
+    load every kernel; kernels that share a source share its build log."""
+    by_source: dict[str, list[Kernel]] = {}
+    for k in KERNELS.values():
+        by_source.setdefault(k.source, []).append(k)
+    procs = {src: ks[0].start_build() for src, ks in by_source.items()}
+    for src, proc in procs.items():
+        first, *rest = by_source[src]
         if proc is not None:
-            KERNELS[name].finish_build(proc)
+            first.finish_build(proc)
+        for k in rest:
+            k.build_seconds, k.build_log = first.build_seconds, first.build_log
     for k in KERNELS.values():
         k.lib()
     return KERNELS

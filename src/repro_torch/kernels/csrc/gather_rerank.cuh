@@ -1,8 +1,9 @@
-// The fused probe tail for Hopper, shared by the f32 kernel
-// (gather_rerank.cu) and the quantized-storage kernel
-// (gather_rerank_blocked.cu): gather each candidate row by id, decode it in
-// registers, exact weighted-L1 re-rank against the query, running top-k —
-// without ever materializing the (b, P, d) candidate tensor.
+// The fused probe tail for Hopper, shared by the f32 kernels
+// (gather_rerank.cu) and the quantized-storage kernels
+// (gather_rerank_blocked.cu), each in a single-segment and a two-segment
+// form: gather each candidate row by id, decode it in registers, exact
+// weighted-L1 re-rank against the query, running top-k — without ever
+// materializing the (b, P, d) candidate tensor.
 //
 // What bounds it on this card: HBM bytes of the gathered rows (d values of
 // the stored width per valid candidate, random rows) and the latency of
@@ -33,6 +34,16 @@
 //     sentinels last) the row traffic is that of the unique candidates.
 // Nothing in the kernel assumes a range of q: the proxy screen feeds integer
 // levels (|q| <= 127) as f32 queries.
+//
+// Two segments (TWO_SEG, a mutable index): ids address the virtual
+// [data; delta] table of n_tot = n_main + cap rows, which is never
+// concatenated. A candidate's row is data + cid*d when cid < n_main, else
+// delta + (cid - n_main)*d; it is valid iff 0 <= cid < n_tot. Everything
+// else — the group skip, the rows in flight, the lane->coordinate mapping,
+// the decode and the insertion order — is the single-segment body's, so a
+// two-segment launch returns bit for bit what the single-segment kernel
+// returns over cat([data, delta]). With TWO_SEG false the delta pointer is
+// never read and n_main == n_tot.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -85,12 +96,29 @@ struct Stored<int8_t> {
   }
 };
 
-template <typename T, bool SCALED, bool VEC4>
+// The row of candidate cid. A delta row is addressed from the main base
+// plus a per-launch byte shift, (delta - data) - n_main*d*sizeof(T), so
+// choosing the segment is an integer select on the offset, not a choice
+// between two pointers. With two segments an empty slot (cid < 0) reads
+// main row 0 and its sum is dropped: the row loads are then unconditional
+// and all U stay in flight (conditional loads behind the segment select
+// compiled to a schedule that kept fewer in flight).
+template <typename T, bool TWO_SEG>
+__device__ __forceinline__ const T* row_of(const T* data, long long delta_shift, int cid,
+                                           int n_main, int d) {
+  if (!TWO_SEG) return data + (size_t)cid * d;
+  const long long c = cid < 0 ? 0 : cid;
+  const long long off = c * d * (long long)sizeof(T) + (c >= n_main ? delta_shift : 0);
+  return reinterpret_cast<const T*>(reinterpret_cast<const char*>(data) + off);
+}
+
+template <typename T, bool SCALED, bool VEC4, bool TWO_SEG>
 __global__ void __launch_bounds__(WARPS * 32)
-    gather_rerank_kernel(const T* __restrict__ data, const float* __restrict__ scales,
-                         const int* __restrict__ ids, const float* __restrict__ queries,
-                         const float* __restrict__ weights, float* __restrict__ out_d,
-                         int* __restrict__ out_i, int n, int d, int b, int P, int k) {
+    gather_rerank_kernel(const T* __restrict__ data, const T* __restrict__ delta,
+                         const float* __restrict__ scales, const int* __restrict__ ids,
+                         const float* __restrict__ queries, const float* __restrict__ weights,
+                         float* __restrict__ out_d, int* __restrict__ out_i, int n_main,
+                         int n_tot, int d, int b, int P, int k) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int NV = SCALED ? 3 : 2;  // per-warp vectors: q, w[, scales]
   const int lane = threadIdx.x & 31;
@@ -104,6 +132,11 @@ __global__ void __launch_bounds__(WARPS * 32)
   int* ti = reinterpret_cast<int*>(reinterpret_cast<float*>(smem_raw) + WARPS * (NV * dpad + k)) +
             warp * k;
   if (qi >= b) return;  // only warp-level synchronisation below
+  const long long delta_shift =
+      TWO_SEG ? (long long)(reinterpret_cast<uintptr_t>(delta) -
+                            reinterpret_cast<uintptr_t>(data)) -
+                    (long long)n_main * d * (long long)sizeof(T)
+              : 0;
 
   for (int j = lane; j < d; j += 32) {
     qs[j] = queries[(size_t)qi * d + j];
@@ -116,7 +149,7 @@ __global__ void __launch_bounds__(WARPS * 32)
   const int* idrow = ids + (size_t)qi * P;
   for (int c = 0; c < P; c += 32) {
     const int my = (c + lane < P) ? idrow[c + lane] : -1;
-    const unsigned mask = __ballot_sync(FULL_MASK, my >= 0 && my < n);
+    const unsigned mask = __ballot_sync(FULL_MASK, my >= 0 && my < n_tot);
     if (mask == 0) continue;
     const int nv = 32 - __clz(mask);  // one past the last valid slot
     for (int u0 = 0; u0 < nv; u0 += U) {
@@ -138,8 +171,9 @@ __global__ void __launch_bounds__(WARPS * 32)
           float4 rv[U];
 #pragma unroll
           for (int u = 0; u < U; ++u)
-            rv[u] = cid[u] >= 0 ? Stored<T>::load4(data + (size_t)cid[u] * d, j)
-                                : make_float4(0.f, 0.f, 0.f, 0.f);
+            rv[u] = (TWO_SEG || cid[u] >= 0)
+                        ? Stored<T>::load4(row_of<T, TWO_SEG>(data, delta_shift, cid[u], n_main, d), j)
+                        : make_float4(0.f, 0.f, 0.f, 0.f);
           const float4 qv = qs4[j];
           const float4 wv = ws4[j];
           if (SCALED) {
@@ -167,7 +201,9 @@ __global__ void __launch_bounds__(WARPS * 32)
           float rv[U];
 #pragma unroll
           for (int u = 0; u < U; ++u)
-            rv[u] = cid[u] >= 0 ? Stored<T>::load1(data + (size_t)cid[u] * d + j) : 0.f;
+            rv[u] = (TWO_SEG || cid[u] >= 0)
+                        ? Stored<T>::load1(row_of<T, TWO_SEG>(data, delta_shift, cid[u], n_main, d) + j)
+                        : 0.f;
           const float qv = qs[j];
           const float wv = ws[j];
           if (SCALED) {
@@ -206,27 +242,33 @@ inline size_t smem_bytes(int d, int k) {
   return sizeof(float) * (size_t)WARPS * ((SCALED ? 3 : 2) * dpad + 2 * k);
 }
 
-// Launches one instantiation; the 4-wide path needs d % 4 == 0 and a base
-// aligned to 4 stored values (every row then is). Returns the CUDA error.
-template <typename T, bool SCALED>
-cudaError_t launch(const T* data, const float* scales, const int* ids, const float* queries,
-                   const float* weights, float* out_d, int* out_i, int n, int d, int b, int P,
-                   int k, cudaStream_t s) {
+template <typename T>
+inline bool aligned4(const T* p) {
+  return reinterpret_cast<size_t>(p) % (4 * sizeof(T)) == 0;
+}
+
+// Launches one instantiation; the 4-wide path needs d % 4 == 0 and every
+// segment base aligned to 4 stored values (every row then is). With
+// TWO_SEG false, delta is ignored and n_main == n_tot. Returns the CUDA error.
+template <typename T, bool SCALED, bool TWO_SEG>
+cudaError_t launch(const T* data, const T* delta, const float* scales, const int* ids,
+                   const float* queries, const float* weights, float* out_d, int* out_i,
+                   int n_main, int n_tot, int d, int b, int P, int k, cudaStream_t s) {
   const size_t smem = smem_bytes<SCALED>(d, k);
   const dim3 grid((b + WARPS - 1) / WARPS);
   cudaError_t err;
-  if (d % 4 == 0 && reinterpret_cast<size_t>(data) % (4 * sizeof(T)) == 0) {
-    err = cudaFuncSetAttribute(gather_rerank_kernel<T, SCALED, true>,
+  if (d % 4 == 0 && aligned4(data) && (!TWO_SEG || aligned4(delta))) {
+    err = cudaFuncSetAttribute(gather_rerank_kernel<T, SCALED, true, TWO_SEG>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    gather_rerank_kernel<T, SCALED, true><<<grid, WARPS * 32, smem, s>>>(
-        data, scales, ids, queries, weights, out_d, out_i, n, d, b, P, k);
+    gather_rerank_kernel<T, SCALED, true, TWO_SEG><<<grid, WARPS * 32, smem, s>>>(
+        data, delta, scales, ids, queries, weights, out_d, out_i, n_main, n_tot, d, b, P, k);
   } else {
-    err = cudaFuncSetAttribute(gather_rerank_kernel<T, SCALED, false>,
+    err = cudaFuncSetAttribute(gather_rerank_kernel<T, SCALED, false, TWO_SEG>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    gather_rerank_kernel<T, SCALED, false><<<grid, WARPS * 32, smem, s>>>(
-        data, scales, ids, queries, weights, out_d, out_i, n, d, b, P, k);
+    gather_rerank_kernel<T, SCALED, false, TWO_SEG><<<grid, WARPS * 32, smem, s>>>(
+        data, delta, scales, ids, queries, weights, out_d, out_i, n_main, n_tot, d, b, P, k);
   }
   return cudaGetLastError();
 }

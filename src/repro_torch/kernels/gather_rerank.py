@@ -2,15 +2,16 @@
 exact d_w^l1 re-rank, top-k.
 
   * ``gather_rerank_topk_cuda`` (``csrc/gather_rerank.cu``): f32 rows —
-    counterpart of ``repro.kernels.gather_rerank.gather_rerank_topk_pallas``
-    (single segment);
+    counterpart of ``repro.kernels.gather_rerank.gather_rerank_topk_pallas``;
   * ``gather_rerank_topk_blocked_cuda`` (``csrc/gather_rerank_blocked.cu``):
     rows in their stored dtype (bf16, int8, or f32 with scales), decoded in
-    registers — counterpart of ``gather_rerank_topk_pallas_blocked``
-    (single segment).
+    registers — counterpart of ``gather_rerank_topk_pallas_blocked``.
 
-The two-segment schedules are not ported yet (ROADMAP.md Queue B). The
-plain version of both is ``repro_torch.kernels.ref.gather_rerank_topk``.
+With ``delta=`` (a mutable index's delta segment) each launches its
+two-segment entry, whose ids address the virtual ``[data; delta]`` table;
+the two-segment entries count their launches apart. The plain versions are
+``repro_torch.kernels.ref.gather_rerank_topk`` and, with a delta,
+``gather_rerank_topk_segmented``.
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ import torch
 
 from repro_torch.kernels._build import GATHER_RERANK as KERNEL
 from repro_torch.kernels._build import GATHER_RERANK_BLOCKED as BLOCKED_KERNEL
+from repro_torch.kernels._build import GATHER_RERANK_BLOCKED_TWO_SEG as BLOCKED_TWO_SEG_KERNEL
+from repro_torch.kernels._build import GATHER_RERANK_TWO_SEG as TWO_SEG_KERNEL
 from repro_torch.kernels._build import require, stream_of
 
 SMEM_LIMIT = 227 * 1024
@@ -46,20 +49,40 @@ def _check_args(data, ids, queries, weights, k, n_vectors: int) -> None:
         raise ValueError(f"gather_rerank: d={d}, k={k} exceed one block's shared memory")
 
 
+def _delta_arg(data: torch.Tensor, delta: torch.Tensor | None) -> torch.Tensor | None:
+    """The delta table cast through the main table's dtype (no copy when it
+    already has it), checked like the main table; ids must fit int32."""
+    if delta is None:
+        return None
+    if not isinstance(delta, torch.Tensor):
+        raise TypeError(f"delta must be a torch.Tensor, got {type(delta).__name__}")
+    delta = delta.to(data.dtype)
+    require(delta, "delta", data.dtype, 2, data.device)
+    if delta.shape[1] != data.shape[1]:
+        raise ValueError(f"delta must be (cap, {data.shape[1]}), got {tuple(delta.shape)}")
+    if data.shape[0] + delta.shape[0] >= 2**31:
+        raise ValueError("n_main + cap must fit int32 ids")
+    return delta
+
+
 def gather_rerank_topk_cuda(
     data: torch.Tensor,
     ids: torch.Tensor,
     queries: torch.Tensor,
     weights: torch.Tensor,
     k: int,
+    delta: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """data (n, d) f32, ids (b, P) int32 (>= n or < 0 ⇒ invalid),
     queries/weights (b, d) f32 -> ((b, k) ascending dists, (b, k) int32 ids),
-    (+inf, -1) where invalid; ties go to the earlier candidate slot."""
+    (+inf, -1) where invalid; ties go to the earlier candidate slot. With
+    ``delta`` (cap, d) the ids address ``[data; delta]`` (>= n + cap ⇒
+    invalid) and the two-segment entry launches."""
     dev = data.device
     if dev.type != "cuda":
         raise ValueError(f"gather_rerank_topk_cuda needs CUDA tensors, got {dev}")
     require(data, "data", torch.float32, 2, dev)
+    delta = _delta_arg(data, delta)
     _check_args(data, ids, queries, weights, k, n_vectors=2)
     n, d = data.shape
     b, P = ids.shape
@@ -67,16 +90,25 @@ def gather_rerank_topk_cuda(
     out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
     if b == 0:
         return out_d, out_i
-    lib = KERNEL.lib()
+    kernel = KERNEL if delta is None else TWO_SEG_KERNEL
+    lib = kernel.lib()
     with torch.cuda.device(dev):
-        KERNEL.launches += 1
-        err = lib.gather_rerank_launch(
-            data.data_ptr(), ids.data_ptr(), queries.data_ptr(), weights.data_ptr(),
-            out_d.data_ptr(), out_i.data_ptr(),
-            n, d, b, P, k,
-            stream_of(data),
-        )
-    KERNEL.check(err, "gather_rerank launch")
+        kernel.launches += 1
+        if delta is None:
+            err = lib.gather_rerank_launch(
+                data.data_ptr(), ids.data_ptr(), queries.data_ptr(), weights.data_ptr(),
+                out_d.data_ptr(), out_i.data_ptr(),
+                n, d, b, P, k,
+                stream_of(data),
+            )
+        else:
+            err = lib.gather_rerank2_launch(
+                data.data_ptr(), delta.data_ptr(), ids.data_ptr(), queries.data_ptr(),
+                weights.data_ptr(), out_d.data_ptr(), out_i.data_ptr(),
+                n, delta.shape[0], d, b, P, k,
+                stream_of(data),
+            )
+    kernel.check(err, f"{kernel.name} launch")
     return out_d, out_i
 
 
@@ -87,18 +119,23 @@ def gather_rerank_topk_blocked_cuda(
     weights: torch.Tensor,
     k: int,
     scales: torch.Tensor | None = None,
+    delta: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """data (n, d) in its stored dtype (bf16, int8 or f32), scales (d,) f32
     or None, ids (b, P) int32 (>= n or < 0 ⇒ invalid), queries/weights
     (b, d) f32 -> ((b, k) ascending dists, (b, k) int32 ids), (+inf, -1)
     where invalid. Each gathered row is decoded as ``row.float() * scales``
-    (the plain widening without scales); ties go to the earlier slot."""
+    (the plain widening without scales); ties go to the earlier slot. With
+    ``delta`` (cap, d), cast to ``data``'s dtype, the ids address
+    ``[data; delta]`` (>= n + cap ⇒ invalid), one ``scales`` decodes both,
+    and the two-segment entry launches."""
     dev = data.device
     if dev.type != "cuda":
         raise ValueError(f"gather_rerank_topk_blocked_cuda needs CUDA tensors, got {dev}")
     if data.dtype not in STORED_DTYPES:
         raise TypeError(f"data must be one of {list(STORED_DTYPES)}, got {data.dtype}")
     require(data, "data", data.dtype, 2, dev)
+    delta = _delta_arg(data, delta)
     n, d = data.shape
     if scales is not None:
         require(scales, "scales", torch.float32, 1, dev)
@@ -110,16 +147,26 @@ def gather_rerank_topk_blocked_cuda(
     out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
     if b == 0:
         return out_d, out_i
-    lib = BLOCKED_KERNEL.lib()
+    kernel = BLOCKED_KERNEL if delta is None else BLOCKED_TWO_SEG_KERNEL
+    lib = kernel.lib()
+    scales_ptr = None if scales is None else scales.data_ptr()
     with torch.cuda.device(dev):
-        BLOCKED_KERNEL.launches += 1
-        err = lib.gather_rerank_blocked_launch(
-            data.data_ptr(), STORED_DTYPES[data.dtype],
-            None if scales is None else scales.data_ptr(),
-            ids.data_ptr(), queries.data_ptr(), weights.data_ptr(),
-            out_d.data_ptr(), out_i.data_ptr(),
-            n, d, b, P, k,
-            stream_of(data),
-        )
-    BLOCKED_KERNEL.check(err, "gather_rerank_blocked launch")
+        kernel.launches += 1
+        if delta is None:
+            err = lib.gather_rerank_blocked_launch(
+                data.data_ptr(), STORED_DTYPES[data.dtype], scales_ptr,
+                ids.data_ptr(), queries.data_ptr(), weights.data_ptr(),
+                out_d.data_ptr(), out_i.data_ptr(),
+                n, d, b, P, k,
+                stream_of(data),
+            )
+        else:
+            err = lib.gather_rerank_blocked2_launch(
+                data.data_ptr(), delta.data_ptr(), STORED_DTYPES[data.dtype], scales_ptr,
+                ids.data_ptr(), queries.data_ptr(), weights.data_ptr(),
+                out_d.data_ptr(), out_i.data_ptr(),
+                n, delta.shape[0], d, b, P, k,
+                stream_of(data),
+            )
+    kernel.check(err, f"{kernel.name} launch")
     return out_d, out_i

@@ -18,7 +18,6 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch import not_ported
 from repro_torch.kernels import ref
 
 FORCES = (None, "plain")
@@ -80,19 +79,23 @@ def gather_rerank_topk(
     invalid) -> top-k ((b, k) dists, (b, k) ids), no (b, P, d) gather.
 
     ``data`` is f32 or a quantized payload (bf16/int8) with optional (d,)
-    ``scales``; rows are decoded per gathered row. On the card an f32 table
-    without scales launches the f32 kernel and any other table the
-    quantized kernel (the reference's routing). ``delta`` (the two-segment
-    table) is not ported."""
-    if delta is not None:
-        raise not_ported("gather_rerank_topk(delta=...) — the two-segment gather",
-                         "Queue A item 7")
+    ``scales``; rows are decoded per gathered row. With ``delta`` (cap, d)
+    — a mutable index's delta segment, cast to ``data``'s dtype — ids
+    address the virtual ``[data; delta]`` table (>= n + cap ⇒ invalid),
+    which is never concatenated. On the card an f32 table without scales
+    launches the f32 kernel and any other table the quantized kernel, each
+    in its two-segment form when ``delta`` is given (the reference's
+    routing)."""
     if _use_kernel(data, force):
         from repro_torch.kernels import gather_rerank
 
         if data.dtype == torch.float32 and scales is None:
-            return gather_rerank.gather_rerank_topk_cuda(data, ids, queries, weights, k)
+            return gather_rerank.gather_rerank_topk_cuda(data, ids, queries, weights, k,
+                                                         delta=delta)
         return gather_rerank.gather_rerank_topk_blocked_cuda(
-            data, ids, queries, weights, k, scales=scales
+            data, ids, queries, weights, k, scales=scales, delta=delta
         )
+    if delta is not None:
+        return ref.gather_rerank_topk_segmented(data, delta, ids, queries, weights, k,
+                                                scales=scales)
     return ref.gather_rerank_topk(data, ids, queries, weights, k, scales=scales)

@@ -127,6 +127,51 @@ def gather_rerank_topk(
     return _finish(top_d, top_i)
 
 
+def gather_rerank_topk_segmented(
+    data: torch.Tensor,
+    delta: torch.Tensor,
+    ids: torch.Tensor,
+    queries: torch.Tensor,
+    weights: torch.Tensor,
+    k: int,
+    scales: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Two-segment candidate tail over the virtual ``[data; delta]`` table,
+    never concatenated: id < n_main is a main row, id in [n_main, n_main +
+    cap) is delta slot id − n_main, ids >= n_main + cap and ids < 0 are
+    invalid. Delta rows are cast through the main table's dtype and decoded
+    with the same ``scales`` (delta rows are encoded with the sealed
+    segment's scales). The plain version of both two-segment kernels; it
+    returns what ``gather_rerank_topk`` returns over ``cat([data, delta])``.
+    """
+    n_main, d = data.shape
+    cap = delta.shape[0]
+    n_tot = n_main + cap
+    b, P = ids.shape
+    delta = delta.to(data.dtype)
+    # a segment with no rows still needs one readable row for the clamped gather
+    main_t = data if n_main else data.new_zeros((1, d))
+    delta_t = delta if cap else data.new_zeros((1, d))
+    q = queries.float()
+    w = weights.float()
+    top_d, top_i = _init_topk(b, k, data.device)
+    step = max(1, CHUNK_ELEMS // max(1, b * d))
+    for s in range(0, P, step):
+        cid = ids[:, s : s + step]
+        valid = (cid >= 0) & (cid < n_tot)
+        in_main = (cid < n_main)[..., None]
+        rows_m = main_t[cid.clamp(0, max(n_main - 1, 0)).long()]
+        rows_d = delta_t[(cid - n_main).clamp(0, max(cap - 1, 0)).long()]
+        rows = torch.where(in_main, rows_m, rows_d).float()  # (b, chunk, d)
+        if scales is not None:
+            rows = rows * scales
+        dists = (w[:, None, :] * (rows - q[:, None, :]).abs()).sum(dim=-1)
+        dists = torch.where(valid, dists, torch.full_like(dists, float("inf")))
+        blk_i = torch.where(valid, cid, torch.full_like(cid, -1)).to(torch.int32)
+        top_d, top_i = _merge_topk(top_d, top_i, dists, blk_i)
+    return _finish(top_d, top_i)
+
+
 def unexplained_id_mismatches(
     got_i: torch.Tensor,
     want_d: torch.Tensor,

@@ -1,16 +1,26 @@
 """Serving launcher — the ALSH vector-search service on the GPU.
 
-Counterpart of ``repro.launch.serve`` in ``--mode alsh`` on the explicit-knob
-path: build the index over n uniform rows (stored as ``--storage``), then
-serve query batches in single-probe or ``--multiprobe`` mode — on a
-quantized table with the proxy screen at ``--screen-alpha`` — and
-spot-check recall against the exact scan on the first 16 queries of each
-batch. The printed lines match the reference's.
+Counterpart of ``repro.launch.serve`` on the explicit-knob path:
+
+  * ``--mode alsh``: build the index over n uniform rows (stored as
+    ``--storage``), then serve query batches in single-probe or
+    ``--multiprobe`` mode — on a quantized table with the proxy screen at
+    ``--screen-alpha`` — and spot-check recall against the exact scan on the
+    first 16 queries of each batch;
+  * ``--mode stream``: the mutable-index service. Build the f32 index with
+    ``UpdateSpec(delta_capacity=--delta-capacity,
+    compact_threshold=--compact-threshold)``, then per tick insert
+    ``--ingest`` rows, retire the ``--retire`` oldest main rows (FIFO),
+    serve one query batch over both segments, spot-check recall against
+    exact mode on 16 queries, and compact when ``needs_compact``.
+
+The printed lines match the reference's.
 
     python -m repro_torch.launch.serve --mode alsh [--n 262144 --d 128 --batches 3]
     python -m repro_torch.launch.serve --mode alsh --device cpu --n 4096 --d 16
     python -m repro_torch.launch.serve --mode alsh --storage int8 --screen-alpha 2 \
         --multiprobe --probes 8
+    python -m repro_torch.launch.serve --mode stream --n 262144 --d 128 --query-batch 1024
 
 The data and queries come from a seeded ``torch.Generator`` (the reference
 draws them with ``jax.random``, so the two services see different data).
@@ -27,7 +37,6 @@ import time
 from repro_torch import not_ported
 
 UNPORTED_MODES = {
-    "stream": "Queue A item 7",
     "broker": "Queue A item 11",
     "lm": "Queue A item 14",
 }
@@ -101,6 +110,71 @@ def serve_alsh(args):
               f"recall@{svc.topk}~{rec:.2f}")
 
 
+def serve_alsh_stream(args):
+    """Mutable-index service: rows arrive and retire while queries flow."""
+    import torch
+
+    from repro_torch.api import Index, QuerySpec, UpdateSpec
+    from repro_torch.api.index import resolve_device
+    from repro_torch.configs.paper_alsh import ALSHServiceConfig
+    from repro_torch.distance import recall_at_k
+
+    device = resolve_device(args.device)
+    svc = ALSHServiceConfig(
+        n_per_shard=args.n, d=args.d, K=args.K, L=args.L,
+        query_batch=args.query_batch, topk=args.topk,
+    )
+    gen = torch.Generator().manual_seed(0)
+    data = torch.rand((svc.n_per_shard, svc.d), generator=gen).to(device)
+    update = UpdateSpec(delta_capacity=args.delta_capacity,
+                        compact_threshold=args.compact_threshold)
+    t0 = time.time()
+    index = Index.build(2, data, svc.index_config, update=update, device=device)
+    _sync(device)
+    print(f"[stream] built mutable index n={svc.n_per_shard} d={svc.d} "
+          f"delta_capacity={args.delta_capacity} in {time.time()-t0:.2f}s")
+
+    spec = QuerySpec(k=svc.topk)
+    exact = QuerySpec(k=svc.topk, mode="exact")
+    next_retire = 0  # retire oldest main rows first (FIFO churn)
+    for b in range(args.batches):
+        # ingest: new rows enter the delta segment
+        rows = torch.rand((args.ingest, svc.d), generator=gen).to(device)
+        t0 = time.time()
+        index, ids = index.insert(rows)
+        _sync(device)
+        t_ins = time.time() - t0
+        # retire: the oldest rows tombstone out
+        retire = torch.arange(next_retire, next_retire + args.retire, dtype=torch.int32,
+                              device=device)
+        next_retire += args.retire
+        index = index.delete(retire)
+        # serve queries against the live two-segment view
+        q = torch.rand((svc.query_batch, svc.d), generator=gen).to(device)
+        w = (torch.randn((svc.query_batch, svc.d), generator=gen).abs() + 0.1).to(device)
+        t0 = time.time()
+        res = index.query(q, w, spec)
+        _sync(device)
+        t_q = time.time() - t0
+        ref = index.query(q[:16], w[:16], exact)
+        rec = recall_at_k(res.ids[:16], ref.ids, svc.topk)
+        fill = index.delta_fill
+        print(f"[stream] tick {b}: +{args.ingest} rows in {t_ins*1e3:.1f} ms "
+              f"({args.ingest/max(t_ins,1e-9):,.0f} rows/s), -{args.retire} retired, "
+              f"{svc.query_batch} queries in {t_q*1e3:.1f} ms "
+              f"({t_q/svc.query_batch*1e6:.1f} us/query) "
+              f"delta={fill}/{args.delta_capacity} recall@{svc.topk}~{rec:.2f}")
+        if index.needs_compact:
+            t0 = time.time()
+            index = index.compact()
+            _sync(device)
+            # compact renumbers survivors to [0, n_live); everything below
+            # next_retire was tombstoned, so the oldest surviving row is 0
+            next_retire = 0
+            print(f"[stream] compacted to n={index.n} (delta emptied) "
+                  f"in {time.time()-t0:.2f}s")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--mode", choices=["alsh", "stream", "broker", "lm"], default="alsh")
@@ -126,10 +200,21 @@ def main(argv=None):
                     help="serve with QuerySpec(mode='multiprobe')")
     ap.add_argument("--probes", type=int, default=8, help="multiprobe buckets per table")
     ap.add_argument("--recall-target", type=float, default=None, help="not ported")
+    ap.add_argument("--ingest", type=int, default=512,
+                    help="stream mode: rows inserted per tick")
+    ap.add_argument("--retire", type=int, default=128,
+                    help="stream mode: oldest rows deleted per tick")
+    ap.add_argument("--delta-capacity", type=int, default=8192,
+                    help="stream mode: delta segment slots (UpdateSpec.delta_capacity)")
+    ap.add_argument("--compact-threshold", type=float, default=0.75,
+                    help="stream mode: delta fill fraction that triggers compact()")
     args = ap.parse_args(argv)
-    if args.mode != "alsh":
+    if args.mode == "stream":
+        serve_alsh_stream(args)
+    elif args.mode == "alsh":
+        serve_alsh(args)
+    else:
         raise not_ported(f"--mode {args.mode}", UNPORTED_MODES[args.mode])
-    serve_alsh(args)
 
 
 if __name__ == "__main__":

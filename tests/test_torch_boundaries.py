@@ -94,8 +94,6 @@ def test_unported_index_modes_raise():
     data = rs.uniform(0, 1, (16, 4)).astype(np.float32)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tapi.Index.build(0, data, tapi.QualitySpec(k=3), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tapi.Index.build(0, data, _cfg(), update=tapi.UpdateSpec(delta_capacity=8), device="cpu")
     idx = tapi.Index.build(0, data, _cfg(), device="cpu")
     q = rs.uniform(0, 1, (2, 4))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
@@ -106,11 +104,14 @@ def test_unported_index_modes_raise():
     qt = torch.as_tensor(q, dtype=torch.float32)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         pipeline.query(idx.state, None, None, qt, w, idx.config, k=2, early_exit=True)
+    mut = tapi.Index.build(0, data, _cfg(), update=tapi.UpdateSpec(delta_capacity=8),
+                           device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        pipeline.query(idx.state, object(), None, qt, w, idx.config, k=2)
+        pipeline.query(mut.state, mut.delta, mut.tombstones, qt, w, mut.config, k=2,
+                       early_exit=True)
 
 
-@pytest.mark.parametrize("mode", ["stream", "broker", "lm"])
+@pytest.mark.parametrize("mode", ["broker", "lm"])
 def test_serve_unported_modes_raise(mode):
     from repro_torch.launch import serve
 
@@ -190,6 +191,13 @@ def test_kernel_dispatch_never_quietly_falls_back():
         gather_rerank_topk_cuda(x, lv, x[:2], x[:2], 1)
     with pytest.raises(ValueError, match="CUDA"):
         gather_rerank_topk_blocked_cuda(x.to(torch.int8), lv, x[:2], x[:2], 1)
-    # the two-segment gather is not ported: refused on every device
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
-        ops.gather_rerank_topk(x, lv, x[:2], x[:2], 1, delta=x)
+    with pytest.raises(ValueError, match="CUDA"):
+        gather_rerank_topk_cuda(x, lv, x[:2], x[:2], 1, delta=x)
+    with pytest.raises(ValueError, match="CUDA"):
+        gather_rerank_topk_blocked_cuda(x.to(torch.int8), lv, x[:2], x[:2], 1,
+                                        delta=x.to(torch.int8))
+    # the two-segment gather on CPU tensors: the plain version over [data; delta]
+    d2 = torch.arange(15.0).reshape(5, 3)
+    ids = torch.tensor([[9, 2, 7], [10, 11, -1]], dtype=torch.int32)
+    got = ops.gather_rerank_topk(x, ids, x[:2], torch.ones((2, 3)), 2, delta=d2)
+    assert got[1].tolist() == [[2, 7], [-1, -1]]

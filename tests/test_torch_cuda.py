@@ -264,3 +264,140 @@ def test_multiprobe_on_the_card_sees_a_superset_of_probe(dev):
     mp = idx.query(q, w, tapi.QuerySpec(k=10, mode="multiprobe", n_probes=8, max_flips=3))
     assert torch.all(mp.n_candidates >= pr.n_candidates)
     assert torch.all(mp.dists <= pr.dists + 1e-6)
+
+
+# (n_main, cap, b, P, d, k): odd d, cap = 1, a delta larger than main
+TWO_SEG_SHAPES = [
+    (50, 20, 3, 17, 7, 5),
+    (200, 64, 2, 64, 128, 10),
+    (300, 1, 2, 40, 5, 3),
+    (10, 300, 2, 16, 33, 4),
+    (3000, 800, 37, 700, 128, 10),
+]
+
+
+def _two_seg_ids(rs, n_main, cap, b, P, dev):
+    """Ids over both segments with ~25% invalid (negative or >= n_main + cap);
+    row 0 wholly in the delta, row 1 (when there is one) all invalid."""
+    n_tot = n_main + cap
+    ids = rs.integers(-3, n_tot + max(2, n_tot // 3), (b, P)).astype(np.int32)
+    ids[0] = rs.integers(n_main, n_tot, P)
+    if b > 1:
+        ids[1] = n_tot
+    return _t(ids, dev)
+
+
+@pytest.mark.parametrize("case", ["f32", "int8", "int8-scaled", "bf16"])
+@pytest.mark.parametrize("n_main,cap,b,P,d,k", TWO_SEG_SHAPES)
+def test_two_segment_kernels_match_plain_and_concatenated_table(dev, n_main, cap, b, P, d, k,
+                                                                case):
+    """Both two-segment kernels against the plain two-segment tail, and bit
+    for bit against the single-segment kernel over cat([main, delta]); each
+    launch counts on its own counter."""
+    from repro_torch import quant
+    from repro_torch.kernels._build import (
+        GATHER_RERANK,
+        GATHER_RERANK_BLOCKED,
+        GATHER_RERANK_BLOCKED_TWO_SEG,
+        GATHER_RERANK_TWO_SEG,
+    )
+
+    rs = np.random.default_rng(n_main + cap + P + d + len(case))
+    x = _t(rs.uniform(-1, 1, (n_main, d)).astype(np.float32), dev)
+    xd = _t(rs.uniform(-1, 1, (cap, d)).astype(np.float32), dev)
+    q = _t(rs.uniform(-1, 1, (b, d)).astype(np.float32), dev)
+    w = _t(rs.normal(size=(b, d)).astype(np.float32), dev)
+    ids = _two_seg_ids(rs, n_main, cap, b, P, dev)
+    if case == "f32":
+        main, delta, scales = x, xd, None
+    else:
+        main, scales = _quantized(x, case, dev)
+        delta = quant.get_codec(case[:4]).encode_rows(
+            xd, quant.get_codec("int8").fit_scales(x) if case.startswith("int8") else None)
+        if case == "int8":  # the screen pass: integer levels and w·s, no scales
+            q, w = quant.proxy_query(q, w, main.dtype, quant.get_codec("int8").fit_scales(x))
+    two, one = ((GATHER_RERANK_TWO_SEG, GATHER_RERANK) if case == "f32"
+                else (GATHER_RERANK_BLOCKED_TWO_SEG, GATHER_RERANK_BLOCKED))
+    before = (two.launches, one.launches)
+    got = ops.gather_rerank_topk(main, ids, q, w, k, scales=scales, delta=delta)
+    torch.cuda.synchronize()
+    assert (two.launches, one.launches) == (before[0] + 1, before[1])
+    want = ops.gather_rerank_topk(main, ids, q, w, k, scales=scales, delta=delta, force="plain")
+    decoded = quant.decode_table(torch.cat([main, delta]), scales)
+    _check_topk(got, want, decoded, q, w)
+    single = ops.gather_rerank_topk(torch.cat([main, delta]), ids, q, w, k, scales=scales)
+    assert torch.equal(got[0], single[0]) and torch.equal(got[1], single[1])
+    if b > 1:
+        assert torch.all(got[1][1] == -1) and torch.all(torch.isinf(got[0][1]))
+    assert bool((got[1][0][got[1][0] >= 0] >= n_main).all())
+
+
+def _misaligned(t):
+    """A contiguous copy of ``t`` whose base sits one value past a 16-byte
+    boundary, so the kernels take their scalar (one value per lane) path."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def test_two_segment_kernel_checks_both_alignments(dev):
+    """A delta that starts off the 4-value alignment sends the two-segment
+    kernel down its scalar path even with an aligned main table: it then
+    equals, bit for bit, the single-segment kernel's scalar path over the
+    concatenated table (the 4-wide path sums in another order), and agrees
+    with the plain version."""
+    rs = np.random.default_rng(9)
+    n_main, cap, b, P, d, k = 100, 40, 4, 64, 128, 10
+    main = _t(rs.uniform(0, 1, (n_main, d)).astype(np.float32), dev)
+    delta = _misaligned(_t(rs.uniform(0, 1, (cap, d)).astype(np.float32), dev))
+    q = _t(rs.uniform(0, 1, (b, d)).astype(np.float32), dev)
+    w = _t(np.abs(rs.normal(size=(b, d))).astype(np.float32), dev)
+    ids = _two_seg_ids(rs, n_main, cap, b, P, dev)
+    got = ops.gather_rerank_topk(main, ids, q, w, k, delta=delta)
+    cat = torch.cat([main, delta])
+    _check_topk(got, ops.gather_rerank_topk(main, ids, q, w, k, delta=delta, force="plain"),
+                cat, q, w)
+    scalar = ops.gather_rerank_topk(_misaligned(cat), ids, q, w, k)
+    assert torch.equal(got[0], scalar[0]) and torch.equal(got[1], scalar[1])
+
+
+@pytest.mark.parametrize("storage", ["f32", "int8"])
+def test_mutable_engine_on_the_card_matches_the_cpu_path(dev, storage):
+    """A mutable index (inserts, deletes in both segments) on the card and
+    the same state on the CPU: probe and exact queries agree, no deleted id
+    comes back, and the two-segment kernels launch on the card."""
+    import repro_torch.api as tapi
+    from repro_torch import quant
+    from repro_torch.kernels._build import launch_counts, reset_launch_counts
+
+    rs = np.random.default_rng(10)
+    cfg = tapi.IndexConfig(d=32, M=32, K=8, L=16, max_candidates=64, storage=storage,
+                           space=tapi.BoundedSpace(0.0, 1.0, 32.0))
+    data = rs.uniform(0, 1, (8192, 32)).astype(np.float32)
+    extra = rs.uniform(0, 1, (600, 32)).astype(np.float32)
+    q = np.concatenate([extra[:32], rs.uniform(0, 1, (32, 32))]).astype(np.float32)
+    w = (np.abs(rs.normal(size=(64, 32))) + 0.1).astype(np.float32)
+    gpu = tapi.Index.build(13, data, cfg, update=tapi.UpdateSpec(delta_capacity=1024))
+    gpu, ids = gpu.insert(extra)
+    dead = torch.cat([torch.arange(0, 3000, 5, dtype=torch.int32, device="cuda"), ids[1::4]])
+    gpu = gpu.delete(dead)
+    cpu = tapi.Index(state=gpu.state.to("cpu"), config=cfg, update=gpu.update,
+                     delta=gpu.delta.to("cpu"), tombstones=gpu.tombstones.cpu())
+    decoded = quant.decode_table(torch.cat([cpu.state.data, cpu.delta.data]), cpu.state.scales)
+    name = "gather_rerank_topk_two_seg" if storage == "f32" else \
+        "gather_rerank_topk_blocked_two_seg"
+    exact = gpu.query(q, w, tapi.QuerySpec(k=10, mode="exact"))
+    alive = torch.arange(32) % 4 != 1  # ids[1::4] were deleted
+    assert torch.equal(exact.ids.cpu()[:32, 0][alive], ids.cpu()[:32][alive])
+    for spec in (tapi.QuerySpec(k=10, mode="exact"), tapi.QuerySpec(k=10),
+                 tapi.QuerySpec(k=10, screen_alpha=2.0)):
+        reset_launch_counts()
+        g = gpu.query(q, w, spec)
+        assert launch_counts()[name] >= 1
+        c = cpu.query(q, w, spec)
+        assert not torch.isin(g.ids.cpu(), dead.cpu()).any()
+        rows = g.n_candidates.cpu() == c.n_candidates
+        assert rows.float().mean() >= 0.9
+        _check_topk((g.dists.cpu()[rows], g.ids.cpu()[rows]), (c.dists[rows], c.ids[rows]),
+                    decoded, torch.from_numpy(q)[rows], torch.from_numpy(w)[rows])
