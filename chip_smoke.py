@@ -30,7 +30,10 @@ Phases, each of which fails the run (exit code 1) when it fails:
      table plus a delta of 8192 near-duplicate rows, on a stream batch's
      deduped candidates from the main windows and the delta match; each
      must also equal, bit for bit, its single-segment kernel over
-     ``torch.cat([main, delta])``;
+     ``torch.cat([main, delta])``. The materializing scan ``wl1_scan`` runs
+     at n=65,536 and 262,144 (b=64, d=128) and the re-rank ``wl1_rerank``
+     at b=64, d=128, C=512 and 4096, each also on a ragged shape, against
+     their plain versions at rtol/atol 1e-4;
   5. main paths, each with every launch counter zeroed just before its
      queries and read just after; a kernel of the path that was never
      launched fails the run:
@@ -63,6 +66,16 @@ Phases, each of which fails the run (exit code 1) when it fails:
         the same operations: equal ``n_candidates``, and the quantized
         two-segment kernel launched twice per screened (α=2) and once per
         unscreened batch;
+     e. unfused baseline (``benchmarks/kernels_bench.py``'s): ``wl1_scan``
+        then ``torch.topk`` beside ``wl1_scan_topk``, and ``data[ids]``
+        then ``wl1_rerank`` then ``torch.topk`` beside
+        ``gather_rerank_topk`` on real probe candidates, P=512…4096; the
+        two sides must agree (see ``phase_unfused_path``);
+     f. early exit (see ``phase_early_exit_path``): the streamed query at
+        slack 0 equals the monolithic one (sealed f32, mutable, int8 with
+        the screen off); at slack 0.1, probe and multiprobe, its batch
+        time, windows probed, stop reasons and recall@10 (held to the
+        floor); ``Index.explain`` and ``serve --early-exit --stats``;
   6. check: on a small input, the card's answers agree with the plain
      PyTorch path on the CPU over the same index state (f32 probe and
      exact, int8 screened probe).
@@ -113,8 +126,12 @@ KERNEL_META = {
                                    "src/repro/kernels/gather_rerank.py:111"),
     "gather_rerank_topk_blocked_two_seg": ("src/repro_torch/kernels/csrc/gather_rerank_blocked.cu",
                                            "src/repro/kernels/gather_rerank.py:187"),
+    "wl1_scan": ("src/repro_torch/kernels/csrc/wl1_distance.cu",
+                 "src/repro/kernels/wl1_distance.py:66"),
+    "wl1_rerank": ("src/repro_torch/kernels/csrc/wl1_distance.cu",
+                   "src/repro/kernels/wl1_distance.py:112"),
 }
-PATHS = ("f32", "quantized", "multiprobe", "stream")
+PATHS = ("f32", "quantized", "multiprobe", "stream", "unfused", "early_exit")
 # The stream path: the reference service's defaults (serve --mode stream)
 STREAM_CAP = 8192  # --delta-capacity
 STREAM_THRESHOLD = 0.75  # --compact-threshold
@@ -123,6 +140,15 @@ STREAM_RETIRE = 128  # --retire
 STREAM_TICKS = 13  # the 12th reaches the threshold; the 13th runs after the compact
 STREAM_ON_NEW = 32  # queries of a stream batch that sit on the tick's new centres
 STREAM_HIT_FLOOR = 0.9  # share of those that must return a delta id
+# The materializing scan and re-rank: the reference's own bar
+# (tests/test_kernels_wl1.py); both sum in another order than the plain version
+WL1_RTOL = WL1_ATOL = 1e-4
+# The unfused baseline of benchmarks/kernels_bench.py (its shapes)
+BASELINE_N, BASELINE_B, BASELINE_K = 65536, 64, 10
+BASELINE_P = (512, 1024, 2048, 4096)
+# Early exit: serve's --exit-group and --exit-slack defaults
+EXIT_GROUP = 8
+EXIT_SLACK = 0.1
 
 
 def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
@@ -663,6 +689,89 @@ def phase_scan(run, svc):
             }
 
 
+def _wl1_check(label, got, want):
+    """Elementwise agreement of a materializing kernel with its plain version."""
+    import torch
+
+    diff = (got - want).abs()
+    err = float(diff.max())
+    ok = bool((diff <= WL1_ATOL + WL1_RTOL * want.abs()).all()) and bool(torch.isfinite(got).all())
+    print(f"  {label}: max_abs_err={err:.3g} (rtol/atol {WL1_RTOL})")
+    if not ok:
+        raise AssertionError(f"{label}: kernel disagrees with the plain version")
+    return err
+
+
+def phase_wl1_scan(run):
+    """The materializing scan against its plain version: the recorded shape
+    of benchmarks/kernels_bench.py (n=65,536, b=64, d=128; normal data,
+    queries and weights, so weights are negative too), the service width
+    (n=262,144) and a ragged shape (n, b and d not multiples of 32)."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 60)
+    for label, n, b, d in (("recorded", BASELINE_N, BASELINE_B, 128), ("service", 262144, 64, 128),
+                           ("ragged", 5003, 37, 130)):
+        data, q, w = (torch.randn(s, generator=gen, device="cuda") for s in ((n, d), (b, d), (b, d)))
+        got = ops.wl1_scan(data, q, w)
+        want = ops.wl1_scan(data, q, w, force="plain")
+        torch.cuda.synchronize()
+        err = _wl1_check(f"wl1_scan {label} n={n} b={b} d={d}", got, want)
+        if label == "ragged":
+            continue
+        ms = time_ms(lambda: ops.wl1_scan(data, q, w), iters=10, warmup=2)
+        plain_ms = time_ms(lambda: ops.wl1_scan(data, q, w, force="plain"), iters=1)
+        profile(f"wl1_scan {label}", lambda: ops.wl1_scan(data, q, w), top=2)
+        nbytes = 4 * (n * d + 2 * b * d + b * n)
+        flops = 3 * b * n * d
+        b_ms, b_by = bound(nbytes, flops)
+        print(f"  {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library: none; bound "
+              f"{b_ms * 1e3:.1f} us by {b_by} ({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+        numbers = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                       library_ms=None)
+        if label == "recorded":
+            run.record("wl1_scan", **numbers)
+        else:
+            run.kernels["wl1_scan"][f"{label}_shape"] = {"n": n, "b": b, **numbers}
+
+
+def phase_wl1_rerank(run):
+    """The candidate re-rank against its plain version at b=64, d=128 over
+    C=512 (the recorded shape) and C=4096 candidates per query, normal
+    points, queries and weights; and a ragged shape."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 61)
+    for label, b, C, d in (("recorded", BASELINE_B, 512, 128), ("C=4096", BASELINE_B, 4096, 128),
+                           ("ragged", 37, 515, 130)):
+        pts, q, w = (torch.randn(s, generator=gen, device="cuda")
+                     for s in ((b, C, d), (b, d), (b, d)))
+        got = ops.wl1_rerank(pts, q, w)
+        want = ops.wl1_rerank(pts, q, w, force="plain")
+        torch.cuda.synchronize()
+        err = _wl1_check(f"wl1_rerank {label} b={b} C={C} d={d}", got, want)
+        if label == "ragged":
+            continue
+        ms = time_ms(lambda: ops.wl1_rerank(pts, q, w), iters=10, warmup=2)
+        plain_ms = time_ms(lambda: ops.wl1_rerank(pts, q, w, force="plain"), iters=1)
+        profile(f"wl1_rerank {label}", lambda: ops.wl1_rerank(pts, q, w), top=2)
+        nbytes = 4 * (b * C * d + 2 * b * d + b * C)
+        flops = 3 * b * C * d
+        b_ms, b_by = bound(nbytes, flops)
+        print(f"  {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library: none; bound "
+              f"{b_ms * 1e3:.1f} us by {b_by} ({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+        numbers = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                       library_ms=None)
+        if label == "recorded":
+            run.record("wl1_rerank", **numbers)
+        else:
+            run.kernels["wl1_rerank"]["C4096_shape"] = {"C": C, **numbers}
+
+
 def _timed_query(index, q, w, spec):
     import torch
 
@@ -1051,6 +1160,205 @@ def phase_stream_path(svc):
     return counts, {"ticks": ticks, "int8": quant_rows}
 
 
+def phase_unfused_path():
+    """The unfused baseline of benchmarks/kernels_bench.py, which the fused
+    kernels are measured against, on the card: the materializing scan then
+    ``torch.topk`` against ``wl1_scan_topk`` (n=65,536, b=64, k=10, normal
+    data, queries and weights), and ``data[ids]`` then ``wl1_rerank`` then
+    ``torch.topk`` against ``gather_rerank_topk`` on real probe candidates
+    (b=64, d=128, k=10, P=512…4096: uniform rows, queries at 0.01 from a row,
+    weights |N(0,1)| + 0.1, an L=8, C=P/8, K=14, M=16 theta index). The two
+    sides must agree: dists within rtol/atol 1e-5, ids equal up to genuine
+    ties. The indexing and ``torch.topk`` are the baseline's plain XLA
+    stages, not ports of a kernel."""
+    import torch
+
+    import repro_torch.api as tapi
+    from repro_torch.core.index import _dedupe_candidates
+    from repro_torch.engine.pipeline import probe_keys, sources_for
+    from repro_torch.kernels import _build, ops
+
+    n, b, d, k = BASELINE_N, BASELINE_B, 128, BASELINE_K
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 70)
+    _build.reset_launch_counts()
+    data, q, w = (torch.randn(s, generator=gen, device="cuda") for s in ((n, d), (b, d), (b, d)))
+
+    def unfused_scan():
+        vals, sel = torch.topk(ops.wl1_scan(data, q, w), k, dim=1, largest=False)
+        return vals, sel.to(torch.int32)
+
+    err = _check_topk("scan: wl1_scan + torch.topk vs wl1_scan_topk", unfused_scan(),
+                      ops.wl1_scan_topk(data, q, w, k), data, q, w)
+    un_ms = time_ms(unfused_scan, iters=10, warmup=2)
+    f_ms = time_ms(lambda: ops.wl1_scan_topk(data, q, w, k), iters=10, warmup=2)
+    print(f"  scan n={n} b={b} k={k}: unfused {un_ms:.4f} ms, fused wl1_scan_topk {f_ms:.4f} ms "
+          f"(unfused / fused {un_ms / f_ms:.2f})")
+    rows = {"scan": {"unfused_ms": un_ms, "fused_ms": f_ms, "max_abs_err": err}}
+
+    data = torch.rand((n, d), generator=gen, device="cuda")
+    base = torch.randint(0, n, (b,), generator=gen, device="cuda")
+    q = (data[base] + 0.01 * torch.randn((b, d), generator=gen, device="cuda")).clamp(0, 1)
+    w = torch.randn((b, d), generator=gen, device="cuda").abs() + 0.1
+    for P in BASELINE_P:
+        cfg = tapi.IndexConfig(d=d, M=16, K=14, L=8, max_candidates=P // 8,
+                               space=tapi.BoundedSpace(0.0, 1.0, 16.0))
+        state = tapi.Index.build(SEED + P, data, cfg).state
+        cand = sources_for(state, None, None, cfg, probe_keys(state, q, w, cfg))[0].emit(q, w)
+        ids, n_cand = _dedupe_candidates(cand, n)
+
+        def unfused_tail():
+            pts = data[ids.clamp(max=n - 1).long()]  # the (b, P, d) gather
+            dists = ops.wl1_rerank(pts, q, w)
+            dists = torch.where(ids < n, dists, torch.full_like(dists, float("inf")))
+            vals, sel = torch.topk(dists, k, dim=1, largest=False)
+            out_i = torch.gather(ids, 1, sel)
+            return vals, torch.where(torch.isfinite(vals), out_i, torch.full_like(out_i, -1))
+
+        err = _check_topk(f"tail P={P}: data[ids] + wl1_rerank + torch.topk vs gather_rerank_topk",
+                          unfused_tail(), ops.gather_rerank_topk(data, ids, q, w, k), data, q, w)
+        un_ms = time_ms(unfused_tail, iters=10, warmup=2)
+        f_ms = time_ms(lambda: ops.gather_rerank_topk(data, ids, q, w, k), iters=10, warmup=2)
+        uniq = float(n_cand.float().mean())
+        print(f"  tail P={P} ({uniq:.0f} unique ids per query): unfused {un_ms:.4f} ms, fused "
+              f"gather_rerank_topk {f_ms:.4f} ms (unfused / fused {un_ms / f_ms:.2f})")
+        rows[f"tail_P{P}"] = {"unfused_ms": un_ms, "fused_ms": f_ms, "unique_ids": uniq,
+                              "max_abs_err": err}
+    counts = _path_counts("unfused baseline", ("wl1_scan", "wl1_rerank"))
+    return counts, rows
+
+
+def phase_early_exit_path(svc):
+    """The streamed early-exit query at the SERVICE width (serve's
+    --exit-group 8): at slack 0 it must equal the monolithic query on the
+    same batch — sealed f32, a mutable index after one stream tick, and int8
+    storage with the screen off: dists bit for bit, ids up to genuine ties,
+    equal n_candidates, every query exhausted after L·P windows. At slack
+    0.1 (serve's default), probe and multiprobe (8 probes, up to 3 flips:
+    256 windows in 32 groups) on the f32 index: batch ms beside the
+    monolithic batch's, tables_probed (mean, p99), the stop-reason mix, the
+    groups run, recall@10 against exact mode beside the monolithic recall,
+    held to the theta floor. Then ``Index.explain`` and ``serve --mode alsh
+    --early-exit --stats`` once each."""
+    import contextlib
+    import dataclasses
+    import io
+    import math
+
+    import torch
+
+    import repro_torch.api as tapi
+    from repro_torch import quant
+    from repro_torch.configs.paper_alsh import SERVICE
+    from repro_torch.core.families import n_flip_subsets
+    from repro_torch.distance import recall_at_k
+    from repro_torch.engine.stream import STOP_EXHAUSTED
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ref import unexplained_id_mismatches
+    from repro_torch.launch import serve
+
+    index, cfg = svc.index, svc.index.config
+    k, b = SERVICE.topk, SERVICE.query_batch
+    q, w = svc.wl.batch(b, SEED + 100)  # the f32 path's first batch
+    mp = tapi.QuerySpec(k=k, mode="multiprobe", n_probes=8, max_flips=3)
+    windows = {"probe": cfg.L, "multiprobe": cfg.L * min(8, n_flip_subsets(cfg.K, 3))}
+    rows = {}
+    _build.reset_launch_counts()
+
+    def slack0(label, idx, qq, ww, off_spec):
+        on_spec = dataclasses.replace(off_spec, early_exit=True, exit_group=EXIT_GROUP,
+                                      exit_slack=0.0)
+        on, on_ms = _timed_query(idx, qq, ww, on_spec)
+        off, off_ms = _timed_query(idx, qq, ww, off_spec)
+        _check_result(on, b, k)
+        table = quant.decode_table(torch.cat([idx.state.data, idx.delta.data]), idx.state.scales)
+        bits = torch.equal(on.dists, off.dists)
+        ties = int((on.ids != off.ids).sum())
+        bad = unexplained_id_mismatches(on.ids, off.dists, off.ids, table, qq, ww, DIST_RTOL,
+                                        DIST_ATOL)
+        cand = torch.equal(on.n_candidates, off.n_candidates)
+        exhausted = bool((on.stop_reason == STOP_EXHAUSTED).all())
+        full = bool((on.tables_probed == cfg.L).all())
+        print(f"  [{label}] slack 0: streamed {on_ms:.2f} ms, monolithic {off_ms:.2f} ms (one "
+              f"call each); dists bit-equal {bits}, id mismatches {ties} (not genuine ties "
+              f"{bad}), n_candidates equal {cand}, all exhausted {exhausted}, "
+              f"tables_probed == {cfg.L} for all {full}")
+        if not (bits and bad == 0 and cand and exhausted and full):
+            raise AssertionError(f"{label}: the streamed query at slack 0 differs from the "
+                                 f"monolithic query")
+        rows[f"{label}/slack0"] = {"ms": on_ms, "monolithic_ms": off_ms}
+
+    slack0("f32 probe", index, q, w, tapi.QuerySpec(k=k))
+    update = tapi.UpdateSpec(delta_capacity=STREAM_CAP, compact_threshold=STREAM_THRESHOLD)
+    mut = tapi.Index.build(SEED + 2, svc.wl.data, cfg, update=update)
+    centres, new_rows = stream_rows(SEED + 5000, STREAM_INGEST // CLUSTER, cfg.d)
+    mut = mut.insert(new_rows)[0].delete(torch.arange(0, STREAM_RETIRE, dtype=torch.int32,
+                                                      device="cuda"))
+    qs, ws = stream_batch(svc.wl, centres, SEED + 5001)
+    slack0(f"f32 mutable, delta fill {mut.delta_fill}", mut, qs, ws, tapi.QuerySpec(k=k))
+    del mut
+    int8 = tapi.Index.build(SEED + 2, svc.wl.data, dataclasses.replace(cfg, storage="int8"))
+    slack0("int8, screen off", int8, q, w, tapi.QuerySpec(k=k))
+    del int8
+
+    ex = index.query(q[:64], w[:64], tapi.QuerySpec(k=k, mode="exact"))
+    names = {0: "exhausted", 1: "geometric", 2: "confidence"}
+    for label, base in (("probe", tapi.QuerySpec(k=k)), ("multiprobe", mp)):
+        spec = dataclasses.replace(base, early_exit=True, exit_group=EXIT_GROUP,
+                                   exit_slack=EXIT_SLACK)
+        res, _ = _timed_query(index, q, w, spec)
+        mono, _ = _timed_query(index, q, w, base)
+        ms, mono_ms = _median_ms(index, q, w, spec), _median_ms(index, q, w, base)
+        _check_result(res, b, k)
+        tp = res.tables_probed.float()
+        n_win = windows[label]
+        groups_run = math.ceil(float(tp.max()) / EXIT_GROUP)
+        mix = {names[c]: int((res.stop_reason == c).sum()) for c in names}
+        rec, rec_mono = recall_at_k(res.ids[:64], ex.ids, k), recall_at_k(mono.ids[:64], ex.ids, k)
+        print(f"  [{label}] slack {EXIT_SLACK}: {b} queries in {ms:.2f} ms (median of 5 warm), "
+              f"monolithic {mono_ms:.2f} ms; tables_probed mean {float(tp.mean()):.2f} p99 "
+              f"{float(torch.quantile(tp, 0.99)):.1f} of {n_win}; groups run {groups_run} of "
+              f"{math.ceil(n_win / EXIT_GROUP)}; stop reasons {mix}; recall@{k} {rec:.3f} "
+              f"(monolithic {rec_mono:.3f}); cand_frac "
+              f"{float(res.n_candidates.float().mean()) / index.n:.5f} (monolithic "
+              f"{float(mono.n_candidates.float().mean()) / index.n:.5f})")
+        if rec < THETA_RECALL_FLOOR:
+            raise AssertionError(f"early exit {label}: recall@{k} {rec:.3f} is under its floor "
+                                 f"{THETA_RECALL_FLOOR}")
+        if not (bool((tp >= 1).all()) and bool((tp <= n_win).all())):
+            raise AssertionError(f"early exit {label}: tables_probed outside [1, {n_win}]")
+        profile(f"of one streamed {label} batch (slack {EXIT_SLACK})",
+                lambda: index.query(q, w, spec), top=6, unprofiled_wall=True)
+        rows[f"{label}/slack{EXIT_SLACK}"] = {
+            "ms": ms, "monolithic_ms": mono_ms, "tables_probed_mean": float(tp.mean()),
+            "tables_probed_p99": float(torch.quantile(tp, 0.99)), "groups_run": groups_run,
+            "stop_reasons": mix, "recall": rec, "recall_monolithic": rec_mono}
+
+    spec = tapi.QuerySpec(k=k, early_exit=True, exit_group=EXIT_GROUP, exit_slack=EXIT_SLACK)
+    rep = index.explain(q[:64], w[:64], spec)
+    ok = (rep.tables_probed is not None and rep.stop_reason is not None
+          and bool(((rep.tables_probed >= 1) & (rep.tables_probed <= cfg.L)).all())
+          and set(rep.stop_reason.tolist()) <= {0, 1, 2})
+    print(f"  Index.explain: {json.dumps(rep.to_dict())}")
+    if not ok:
+        raise AssertionError("Index.explain: tables_probed / stop_reason missing or out of range")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        serve.main(["--mode", "alsh", "--n", str(SERVICE.n_per_shard), "--d", str(SERVICE.d),
+                    "--query-batch", str(b), "--batches", "1", "--early-exit", "--stats"])
+    out = buf.getvalue()
+    print("\n".join(f"  {line}" for line in out.splitlines()))
+    stats = [line for line in out.splitlines() if "stats: tables_probed~" in line]
+    if len(stats) != 1:
+        raise AssertionError("serve --early-exit --stats printed no tables_probed line")
+    mean_tp, n_win = stats[0].split("tables_probed~")[1].split()[0].split("/")
+    if not 1.0 <= float(mean_tp) <= float(n_win):
+        raise AssertionError(f"serve --stats: tables_probed {mean_tp} outside [1, {n_win}]")
+    counts = _path_counts("early exit", ("alsh_project", "gather_rerank_topk",
+                                         "gather_rerank_topk_two_seg",
+                                         "gather_rerank_topk_blocked", "wl1_scan_topk"))
+    return counts, rows
+
+
 def phase_small_check():
     """The card's answers against the plain PyTorch path on the CPU, over
     one index state (built on the card, copied to the CPU)."""
@@ -1119,6 +1427,8 @@ def main() -> int:
     run.phase("kernel gather_rerank_topk", phase_gather_rerank, run, svc)
     run.phase("kernel gather_rerank_topk_blocked", phase_gather_rerank_blocked, run, svc)
     run.phase("kernel wl1_scan_topk", phase_scan, run, svc)
+    run.phase("kernel wl1_scan", phase_wl1_scan, run)
+    run.phase("kernel wl1_rerank", phase_wl1_rerank, run)
     seg = run.phase("two-segment set-up (a full delta, a stream batch's candidates)",
                     TwoSegment, svc)
     if seg is not None:
@@ -1133,6 +1443,10 @@ def main() -> int:
         run.phase("main path (SERVICE, theta multiprobe)", phase_multiprobe_path, svc),
         run.phase("main path (SERVICE, stream: insert, delete, two-segment query, compact)",
                   phase_stream_path, svc),
+        run.phase("main path (unfused baseline: wl1_scan / wl1_rerank beside the fused kernels)",
+                  phase_unfused_path),
+        run.phase("main path (SERVICE, early exit: streamed query, explain, serve --stats)",
+                  phase_early_exit_path, svc),
     ]
     run.phase("check against the CPU path", phase_small_check)
     if run.failures or any(p is None for p in paths):

@@ -7,10 +7,15 @@ The JAX package ``repro`` is the reference; this package mirrors its layout
 
 Ported so far: the sealed index — build, single-probe and multiprobe query
 and the exact scan — with f32, bf16 or int8 row storage and the quantized
-proxy screen (``quant/``), and the mutable index (insert, delete, the
-two-segment query, compact); its six kernels are hand-written in CUDA for
-Hopper (``kernels/csrc``). Entry points run on the CUDA card unless the caller asks
-for ``device="cpu"``; on CPU tensors the kernels' plain PyTorch versions run.
+proxy screen (``quant/``); the mutable index (insert, delete, the
+two-segment query, compact); the streamed early-exit query
+(``engine/stream.py``, with the paper's theory in ``core/theory.py``) and
+``Index.explain`` with its ``QueryReport``; and the materializing scan and
+re-rank (``ops.wl1_scan``/``ops.wl1_rerank``). Its eight kernels are
+hand-written in CUDA for Hopper (``kernels/csrc``): every Pallas kernel of
+the reference has a counterpart. Entry points run on the CUDA card unless
+the caller asks for ``device="cpu"``; on CPU tensors the kernels' plain
+PyTorch versions run.
 Modes that are not ported yet raise :class:`NotImplementedError` naming the
 ROADMAP item that ports them.
 """

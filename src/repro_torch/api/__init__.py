@@ -1,6 +1,7 @@
 """The public facade: ``Index`` and the specs."""
 
 from repro_torch.api.index import Index, validate_query_args
+from repro_torch.api.planner import QueryReport
 from repro_torch.api.spec import QualitySpec, QuerySpec, UpdateSpec
 from repro_torch.core.index import IndexConfig, QueryResult
 from repro_torch.core.transforms import BoundedSpace
@@ -10,6 +11,7 @@ __all__ = [
     "Index",
     "IndexConfig",
     "QualitySpec",
+    "QueryReport",
     "QueryResult",
     "QuerySpec",
     "UpdateSpec",

@@ -16,6 +16,11 @@ An index built with ``UpdateSpec(delta_capacity=C)`` is mutable:
     res = index.query(q, w, spec)       # two-segment query, same contract
     if index.needs_compact: index = index.compact()   # the only sort
 
+``QuerySpec(early_exit=True, exit_group=G, exit_slack=s)`` streams the
+probe windows G at a time and stops each query early;
+``index.explain(q, w, spec)`` runs the query and returns a
+:class:`~repro_torch.api.planner.QueryReport` of per-query diagnostics.
+
 ``Index.build`` runs on ``device="cuda"`` unless the caller passes
 ``device="cpu"``; without a card it raises rather than carry on on the CPU.
 ``Index.query`` runs on the index's device. ``Index.from_numpy`` carries an
@@ -32,7 +37,9 @@ import numpy as np
 import torch
 
 from repro_torch import engine, not_ported
+from repro_torch.api.planner import QueryReport
 from repro_torch.api.spec import QualitySpec, QuerySpec, UpdateSpec
+from repro_torch.core import theory
 from repro_torch.core.families import n_flip_subsets
 from repro_torch.core.index import (
     ALSHIndex,
@@ -43,9 +50,12 @@ from repro_torch.core.index import (
     delta_from_numpy,
     delta_insert,
     index_from_numpy,
+    query_keys_for,
+    table_window_sizes,
     tombstone_ids,
 )
-from repro_torch.quant import decode_table, get_codec
+from repro_torch.core.multiprobe import multiprobe_keys_for
+from repro_torch.quant import decode_table, get_codec, screen_keep
 
 
 def resolve_device(device) -> torch.device:
@@ -250,6 +260,84 @@ class Index:
             self.tombstones if self.mutable else None,
             queries, weights, self.config, k=spec.k, mode=spec.mode,
             n_probes=spec.n_probes, max_flips=spec.max_flips, screen_alpha=spec.screen_alpha,
+            early_exit=spec.early_exit, exit_group=spec.exit_group, exit_slack=spec.exit_slack,
+        )
+
+    def explain(self, queries, weights, spec=QuerySpec()) -> QueryReport:
+        """Run ``query`` and return a :class:`QueryReport` wrapping the result
+        with per-query diagnostics: the Thm 1 success probability predicted
+        from Eq 25/27 at each query's own weights, candidate counts, window
+        truncation, sentinel slots, the storage tier's byte accounting and,
+        for a streamed early-exit query, ``tables_probed``/``stop_reason``.
+        The answer is the one a plain ``query`` with the same spec gives."""
+        if isinstance(spec, QualitySpec):
+            raise not_ported("Index.explain(QualitySpec) — quality-first planning",
+                             "Queue A item 10")
+        res = self.query(queries, weights, spec)
+        cfg, dev = self.config, self.device
+        queries = torch.as_tensor(queries).to(device=dev, dtype=torch.float32).contiguous()
+        weights = torch.as_tensor(weights).to(device=dev, dtype=torch.float32).contiguous()
+        b = queries.shape[0]
+        if spec.mode == "exact":
+            truncated = np.zeros((b,), np.int32)
+        else:
+            if spec.mode == "multiprobe":
+                keys = multiprobe_keys_for(self.state, queries, weights, cfg, spec.n_probes,
+                                           spec.max_flips)  # (b, L, P)
+            else:
+                keys = query_keys_for(self.state, queries, weights, cfg)  # (b, L)
+            over = table_window_sizes(self.state.sorted_keys, keys) > cfg.max_candidates
+            truncated = over.reshape(b, -1).sum(dim=1).to(torch.int32).cpu().numpy()
+
+        # Thm 1 success bound per query at its OWN w and observed top-1 r
+        # (result distances are raw-unit; Eq 25/27 want lattice units — x t)
+        top1 = res.dists[:, 0]
+        valid1 = torch.isfinite(top1)
+        r1 = torch.where(valid1, top1, torch.zeros_like(top1)) * cfg.space.t
+        if cfg.family == "l2":
+            p1 = theory.collision_prob_l2(r1, cfg.M, cfg.d, weights, cfg.W)
+        else:
+            p1 = theory.collision_prob_theta(r1, cfg.M, cfg.d, weights)
+        p1 = torch.clamp(p1, 1e-12, 1.0 - 1e-12)
+        miss = theory.int_pow(1.0 - theory.int_pow(p1, cfg.K), cfg.L)
+        success = torch.where(valid1, 1.0 - miss, torch.zeros_like(miss))
+
+        # storage-tier accounting: what the fused tail moved. The screen
+        # gathers every unique candidate once at the ENCODED row width; the
+        # exact rerank then re-gathers the survivors (all candidates when
+        # the screen is off).
+        n_cand = res.n_candidates.cpu().numpy().astype(np.int64)
+        row_bytes = self.state.data.element_size() * cfg.d
+        if spec.mode != "exact" and self.state.data.dtype != torch.float32:
+            p_slots = spec.n_probes if spec.mode == "multiprobe" else 1
+            n_slots = cfg.L * p_slots * cfg.max_candidates + (
+                self.delta.capacity if self.mutable else 0
+            )
+            keep = screen_keep(spec.k, spec.screen_alpha, n_slots)
+        else:
+            keep = 0
+        rows_screened = n_cand if keep else np.zeros_like(n_cand)
+        rows_reranked = np.minimum(n_cand, keep) if keep else n_cand
+        bytes_gathered = (rows_screened + rows_reranked) * row_bytes
+
+        def host(t):
+            return None if t is None else t.cpu().numpy().astype(np.int32)
+
+        return QueryReport(
+            spec=spec,
+            quality=None,
+            result=res,
+            predicted_success=success.cpu().numpy(),
+            n_candidates=res.n_candidates.cpu().numpy(),
+            truncated_tables=truncated,
+            n_invalid=(res.ids < 0).sum(dim=1).to(torch.int32).cpu().numpy(),
+            storage=cfg.storage,
+            rows_screened=rows_screened,
+            rows_reranked=rows_reranked,
+            bytes_gathered=bytes_gathered,
+            table_bytes=self.table_bytes,
+            tables_probed=host(res.tables_probed),
+            stop_reason=host(res.stop_reason),
         )
 
     # -- mutation (functional: every method returns a new Index) ------------
@@ -339,6 +427,13 @@ class Index:
             data=payload, levels=levels, scales=scales,
         )
         return Index(state=new_state, config=cfg, update=self.update)
+
+    def save(self, directory):
+        raise not_ported("Index.save — persistence", "Queue A item 9")
+
+    @classmethod
+    def load(cls, directory):
+        raise not_ported("Index.load — persistence", "Queue A item 9")
 
     def shard(self, *args, **kwargs):
         raise not_ported("Index.shard — the sharded service", "Queue A item 12")

@@ -1,10 +1,10 @@
 """QuerySpec / QualitySpec / UpdateSpec — counterpart of ``repro.api.spec``.
 
 The specs keep the reference's fields and validation, so a spec that is
-invalid there is invalid here with the same message. Fields this port does
-not execute yet raise ``NotImplementedError`` naming the ROADMAP.md item:
-``early_exit`` and a non-"auto" ``impl``; a :class:`QualitySpec` raises
-where ``Index`` receives it.
+invalid there is invalid here with the same message. A non-"auto" ``impl``,
+which this port does not execute yet, raises ``NotImplementedError`` naming
+the ROADMAP.md item; a :class:`QualitySpec` raises where ``Index`` receives
+it.
 """
 
 from __future__ import annotations
@@ -24,8 +24,11 @@ class QuerySpec:
     paper's single-probe ALSH), "multiprobe" (``n_probes`` buckets per
     table, flipping up to ``max_flips`` bits) or "exact" (streaming scan,
     the oracle); ``screen_alpha`` >= 1 screens quantized storage down to
-    ``ceil(k·α)`` survivors before the exact rerank (0: off). The
-    remaining fields mirror the reference and are not ported yet."""
+    ``ceil(k·α)`` survivors before the exact rerank (0: off);
+    ``early_exit`` streams the probe windows ``exit_group`` at a time and
+    stops each query at the geometric bound or, with ``exit_slack`` > 0, at
+    the Eq 25/27 confidence bound (a miss-probability budget). ``impl``
+    mirrors the reference and is not ported yet."""
 
     k: int = 1
     mode: str = "probe"
@@ -80,8 +83,6 @@ class QuerySpec:
                 "streaming scan already visits every row exactly once)"
             )
         # valid in the reference, not executed by this port yet
-        if self.early_exit:
-            raise not_ported("QuerySpec(early_exit=True)", "Queue A item 8")
         if self.impl != "auto":
             raise not_ported(f"QuerySpec(impl={self.impl!r})", "Queue A item 10")
 

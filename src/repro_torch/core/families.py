@@ -48,6 +48,7 @@ class HashFamily:
 
     name: str = "abstract"
     supports_multiprobe: bool = False
+    max_K: int | None = None  # per-table hash cap (None = unbounded)
 
     def validate(self, cfg: "IndexConfig") -> None:
         """Raise ValueError (naming the offending field) on bad geometry."""
@@ -83,6 +84,7 @@ class ThetaFamily(HashFamily):
 
     name = "theta"
     supports_multiprobe = True
+    max_K = 31  # int32 bit-packing limit
 
     def validate(self, cfg: "IndexConfig") -> None:
         if cfg.K > 31:

@@ -7,7 +7,8 @@ Each of the L tables is a sorted key column:
 
 This module owns the data structures (``IndexConfig``, ``ALSHIndex``,
 ``DeltaSegment``, ``build_index``), the probe primitives
-(``_probe_one_table``, ``_dedupe_candidates``, ``table_window_sizes``) and
+(``_probe_one_table``, ``_dedupe_candidates``, ``table_window_sizes``,
+``query_keys_for``) and
 the mutable lifecycle's primitives (``hash_rows``, ``delta_insert``,
 ``tombstone_ids``, the chunked delta key match ``_delta_candidates``,
 ``_mask_dead``, ``delta_live_mask``); query execution lives in
@@ -114,11 +115,17 @@ class ALSHIndex:
 
 class QueryResult(NamedTuple):
     """Batched k-NN result. A slot is invalid iff ``ids == -1`` iff
-    ``dists == +inf``; internal candidate sentinels never escape."""
+    ``dists == +inf``; internal candidate sentinels never escape.
+
+    ``tables_probed``/``stop_reason`` are set only by the streamed
+    early-exit tail (None on the monolithic paths). Stop-reason codes: 0 =
+    exhausted every group, 1 = geometric stop, 2 = confidence stop."""
 
     dists: torch.Tensor  # (b, k) ascending d_w^l1
     ids: torch.Tensor  # (b, k) int32 point ids
     n_candidates: torch.Tensor  # (b,) int32 unique candidates examined
+    tables_probed: torch.Tensor | None = None  # (b,) int32 probe windows visited (streamed)
+    stop_reason: torch.Tensor | None = None  # (b,) int32 stop code (streamed)
 
 
 @dataclasses.dataclass
@@ -447,8 +454,23 @@ def _dedupe_candidates(cand: torch.Tensor, n: int) -> tuple[torch.Tensor, torch.
 
 def table_window_sizes(sorted_keys: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:
     """Rows sharing each probed bucket, before the ``max_candidates`` clamp:
-    keys (b, L) -> (b, L) int32."""
-    kl = keys.T
+    keys (b, L) single-probe or (b, L, P) multiprobe -> the same shape,
+    int32. A window larger than ``max_candidates`` is truncated by the probe
+    (what ``Index.explain`` reports)."""
+    k3 = keys if keys.ndim == 3 else keys[..., None]  # (b, L, P)
+    b, L, P = k3.shape
+    kl = k3.permute(1, 0, 2).reshape(L, b * P)
     s = _searchsorted(sorted_keys, kl, right=False)
     e = _searchsorted(sorted_keys, kl, right=True)
-    return (e - s).T.to(torch.int32)
+    out = (e - s).reshape(L, b, P).permute(1, 0, 2).to(torch.int32)
+    return out if keys.ndim == 3 else out[..., 0]
+
+
+def query_keys_for(
+    index: ALSHIndex, queries: torch.Tensor, weights: torch.Tensor, cfg: IndexConfig
+) -> torch.Tensor:
+    """(b, L) single-probe bucket keys of a query batch (the diagnostic entry
+    point of ``Index.explain``; the query path computes the same keys inside
+    ``repro_torch.engine.probe_keys``)."""
+    qlevels = transforms.discretize(queries, cfg.space)
+    return _keys_for(qlevels, weights, index.tables, cfg, index.mixers)

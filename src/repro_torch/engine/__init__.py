@@ -1,6 +1,14 @@
-"""The shared execution pipeline (key enumeration → sources → one tail)."""
+"""The shared execution pipeline (key enumeration → sources → one tail:
+the monolithic ``execute`` or the streamed early-exit ``execute_streamed``)."""
 
-from repro_torch.engine.pipeline import dispatch, execute, probe_keys, query, sources_for
+from repro_torch.engine.pipeline import (
+    dispatch,
+    execute,
+    execute_streamed,
+    probe_keys,
+    query,
+    sources_for,
+)
 from repro_torch.engine.sources import (
     CandidateSource,
     DeltaMatchSource,
@@ -15,6 +23,7 @@ __all__ = [
     "SortedTableSource",
     "dispatch",
     "execute",
+    "execute_streamed",
     "probe_keys",
     "query",
     "sources_for",

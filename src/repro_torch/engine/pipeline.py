@@ -18,16 +18,20 @@ Counterpart of ``repro.engine.pipeline``:
 ``dispatch``/``query`` wire the stages for modes "probe" and "multiprobe".
 Mode "exact" runs the streaming scan kernel over a sealed index (over the
 decoded table for quantized storage) and, for a mutable index, the gather
-tail over every live row (``ExhaustiveSource``). Early exit raises
-``NotImplementedError``.
+tail over every live row (``ExhaustiveSource``). ``early_exit=True`` routes
+the probe/multiprobe key lattice through :func:`execute_streamed` (the
+streamed tail of :mod:`repro_torch.engine.stream`) instead of ``execute``;
+``query`` folds it off exactly where the reference's
+``normalize_static_args`` does.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch import not_ported, quant
+from repro_torch import quant
 from repro_torch.core import transforms
+from repro_torch.core.families import n_flip_subsets
 from repro_torch.core.index import (
     ALSHIndex,
     DeltaSegment,
@@ -136,6 +140,32 @@ def execute(
     return QueryResult(dists=dists, ids=ids, n_candidates=n_candidates)
 
 
+def execute_streamed(
+    state: ALSHIndex,
+    delta: DeltaSegment | None,
+    tombstones: torch.Tensor | None,
+    queries: torch.Tensor,
+    weights: torch.Tensor,
+    cfg: IndexConfig,
+    keys: torch.Tensor,
+    k: int,
+    exit_group: int = 8,
+    exit_slack: float = 0.0,
+) -> QueryResult:
+    """The adaptive-probing tail: stream the (b, L, P) window lattice in
+    ``exit_group``-sized groups (quality-major order), carrying the running
+    top-k heap and a per-query live mask, and stop each query as soon as the
+    geometric bound or the Eq 25/27 confidence estimate (at ``exit_slack``
+    miss budget) says the remaining windows cannot change its answer. See
+    :mod:`repro_torch.engine.stream`; results also carry ``tables_probed``
+    and ``stop_reason``."""
+    from repro_torch.engine import stream
+
+    return stream.stream_topk(state, delta, tombstones, queries, weights, cfg, keys, k,
+                              scales=state.scales, exit_group=exit_group,
+                              exit_slack=exit_slack)
+
+
 def dispatch(
     state: ALSHIndex,
     delta: DeltaSegment | None,
@@ -148,12 +178,17 @@ def dispatch(
     n_probes: int = N_PROBES,
     max_flips: int = MAX_FLIPS,
     screen_alpha: float = 0.0,
+    early_exit: bool = False,
+    exit_group: int = 8,
+    exit_slack: float = 0.0,
 ) -> QueryResult:
     """One query over one index view: ``mode`` "probe", "multiprobe" (ALSH)
     or "exact". ``delta``/``tombstones`` are None for a sealed index; then
     exact mode is the streaming scan over the decoded table (``cfg`` may be
     None), and otherwise the gather tail over every live row of both
-    segments. Runs on ``state``'s device."""
+    segments. ``early_exit=True`` sends the ALSH key lattice through
+    :func:`execute_streamed` instead of ``execute`` (``query`` folds it off
+    where streaming cannot apply). Runs on ``state``'s device."""
     n_main = state.n
     cap = delta.capacity if delta is not None else 0
     segmented = tombstones is not None or delta is not None
@@ -172,6 +207,9 @@ def dispatch(
                        n_valid=n_main + cap, scales=state.scales)
     keys = probe_keys(state, queries, weights, cfg, mode=mode, n_probes=n_probes,
                       max_flips=max_flips)
+    if early_exit:
+        return execute_streamed(state, delta, tombstones, queries, weights, cfg, keys, k,
+                                exit_group=exit_group, exit_slack=exit_slack)
     srcs = sources_for(state, delta, tombstones, cfg, keys)
     return execute(srcs, state.data, delta_data, queries, weights, k, n_valid=n_main + cap,
                    scales=state.scales, screen_alpha=screen_alpha)
@@ -190,17 +228,33 @@ def query(
     max_flips: int = MAX_FLIPS,
     screen_alpha: float = 0.0,
     early_exit: bool = False,
+    exit_group: int = 8,
+    exit_slack: float = 0.0,
 ) -> QueryResult:
-    """The engine entry every consumer shares (same signature prefix as the
-    reference). Queries move to the index's device as contiguous f32. The
-    screen is off for exact mode and f32 storage, as the reference's
-    ``normalize_static_args`` folds it."""
-    if early_exit:
-        raise not_ported("early_exit (streamed adaptive probing)", "Queue A item 8")
+    """The engine entry every consumer shares (same signature as the
+    reference's, less ``impl``). Queries move to the index's device as
+    contiguous f32.
+
+    The port has no compile cache to key, but the reference's
+    ``normalize_static_args`` folds also decide which tail runs, so they are
+    applied here the same way: the screen is off for exact mode and f32
+    storage; early exit is off for exact mode (the scan visits every row
+    once), under an active quantized screen (a global candidate-set stage),
+    and when one group covers the whole L·P window lattice (that group IS
+    the monolithic tail)."""
     if mode == "exact" or state.data.dtype == torch.float32:
         screen_alpha = 0.0
+    if early_exit:
+        if mode == "exact" or screen_alpha > 0.0:
+            early_exit = False
+        else:
+            p_eff = 1 if mode != "multiprobe" else min(n_probes,
+                                                        n_flip_subsets(cfg.K, max_flips))
+            if exit_group >= cfg.L * p_eff:
+                early_exit = False
     dev = state.device
     queries = queries.to(device=dev, dtype=torch.float32).contiguous()
     weights = weights.to(device=dev, dtype=torch.float32).contiguous()
     return dispatch(state, delta, tombstones, queries, weights, cfg, k=k, mode=mode,
-                    n_probes=n_probes, max_flips=max_flips, screen_alpha=screen_alpha)
+                    n_probes=n_probes, max_flips=max_flips, screen_alpha=screen_alpha,
+                    early_exit=early_exit, exit_group=exit_group, exit_slack=exit_slack)

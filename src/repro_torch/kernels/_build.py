@@ -8,7 +8,8 @@ sources and flags, so an edited source is rebuilt and an unchanged one is
 reused. :func:`build_all` starts one ``nvcc`` per source, all at once. A
 source may export several entry points, each a :class:`Kernel` of its own
 with its own launch count (the single- and two-segment gathers share their
-sources and build once).
+sources, as do the materializing scan and re-rank, and each source builds
+once).
 
 Nothing here runs at import time: the CPU tests import every module of the
 package on machines without ``nvcc``.
@@ -165,10 +166,20 @@ WL1_SCAN_TOPK = Kernel(
         "wl1_scan_topk_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     },
 )
+WL1_SCAN = Kernel(
+    "wl1_scan",
+    "wl1_distance.cu",
+    {"wl1_scan_launch": [_P, _P, _P, _P, _I, _I, _I, _P]},
+)
+WL1_RERANK = Kernel(
+    "wl1_rerank",
+    "wl1_distance.cu",
+    {"wl1_rerank_launch": [_P, _P, _P, _P, _I, _I, _I, _P]},
+)
 KERNELS = {
     k.name: k
     for k in (ALSH_PROJECT, GATHER_RERANK, GATHER_RERANK_BLOCKED, WL1_SCAN_TOPK,
-              GATHER_RERANK_TWO_SEG, GATHER_RERANK_BLOCKED_TWO_SEG)
+              GATHER_RERANK_TWO_SEG, GATHER_RERANK_BLOCKED_TWO_SEG, WL1_SCAN, WL1_RERANK)
 }
 
 

@@ -49,6 +49,34 @@ def alsh_project(
     return ref.alsh_project(levels, folded, weights)
 
 
+def wl1_scan(
+    data: torch.Tensor,
+    queries: torch.Tensor,
+    weights: torch.Tensor,
+    force: str | None = None,
+) -> torch.Tensor:
+    """Exact brute-force scan: (n, d) × (b, d) -> (b, n) (materializing)."""
+    if _use_kernel(data, force):
+        from repro_torch.kernels.wl1_distance import wl1_scan_cuda
+
+        return wl1_scan_cuda(data, queries, weights)
+    return ref.wl1_scan(data, queries, weights)
+
+
+def wl1_rerank(
+    pts: torch.Tensor,
+    queries: torch.Tensor,
+    weights: torch.Tensor,
+    force: str | None = None,
+) -> torch.Tensor:
+    """Candidate re-rank: (b, C, d) × (b, d) -> (b, C)."""
+    if _use_kernel(pts, force):
+        from repro_torch.kernels.wl1_distance import wl1_rerank_cuda
+
+        return wl1_rerank_cuda(pts, queries, weights)
+    return ref.wl1_rerank(pts, queries, weights)
+
+
 def wl1_scan_topk(
     data: torch.Tensor,
     queries: torch.Tensor,
@@ -99,3 +127,24 @@ def gather_rerank_topk(
         return ref.gather_rerank_topk_segmented(data, delta, ids, queries, weights, k,
                                                 scales=scales)
     return ref.gather_rerank_topk(data, ids, queries, weights, k, scales=scales)
+
+
+def gather_rerank_topk_group(
+    data: torch.Tensor,
+    ids: torch.Tensor,
+    queries: torch.Tensor,
+    weights: torch.Tensor,
+    k: int,
+    scales: torch.Tensor | None = None,
+    delta: torch.Tensor | None = None,
+    force: str | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused tail entry for GROUP-sized candidate blocks: the per-group merge
+    of the streamed early-exit loop (``repro_torch.engine.stream``), once per
+    group over the (b, k + G·C) heap-plus-group candidates. Same contract and
+    the same routing as :func:`gather_rerank_topk` — on the card the f32 or
+    the quantized kernel, single- or two-segment; on the CPU the plain
+    versions. The reference moves its CPU monolith/chunked crossover for
+    these small blocks; the plain versions here have one schedule."""
+    return gather_rerank_topk(data, ids, queries, weights, k, scales=scales, delta=delta,
+                              force=force)

@@ -5,8 +5,12 @@ Counterpart of ``repro.launch.serve`` on the explicit-knob path:
   * ``--mode alsh``: build the index over n uniform rows (stored as
     ``--storage``), then serve query batches in single-probe or
     ``--multiprobe`` mode — on a quantized table with the proxy screen at
-    ``--screen-alpha`` — and spot-check recall against the exact scan on the
-    first 16 queries of each batch;
+    ``--screen-alpha``, and with ``--early-exit`` through the streamed
+    early-exit tail (``--exit-group`` windows per group, ``--exit-slack``
+    miss budget) — and spot-check recall against the exact scan on the
+    first 16 queries of each batch; ``--stats`` adds the storage-tier
+    accounting and, for a streamed query, the windows probed and the mix of
+    stop reasons (``Index.explain`` on those 16 queries);
   * ``--mode stream``: the mutable-index service. Build the f32 index with
     ``UpdateSpec(delta_capacity=--delta-capacity,
     compact_threshold=--compact-threshold)``, then per tick insert
@@ -20,13 +24,14 @@ The printed lines match the reference's.
     python -m repro_torch.launch.serve --mode alsh --device cpu --n 4096 --d 16
     python -m repro_torch.launch.serve --mode alsh --storage int8 --screen-alpha 2 \
         --multiprobe --probes 8
+    python -m repro_torch.launch.serve --mode alsh --device cpu --n 4096 --d 16 \
+        --early-exit --stats
     python -m repro_torch.launch.serve --mode stream --n 262144 --d 128 --query-batch 1024
 
 The data and queries come from a seeded ``torch.Generator`` (the reference
 draws them with ``jax.random``, so the two services see different data).
-The other modes and the flags of unported features (``--stats``,
-``--early-exit``, ``--recall-target``) raise ``NotImplementedError`` naming
-their ROADMAP.md item.
+The other modes and ``--recall-target`` (quality-first planning) raise
+``NotImplementedError`` naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -52,6 +57,7 @@ def _sync(device) -> None:
 def serve_alsh(args):
     import dataclasses
 
+    import numpy as np
     import torch
 
     from repro_torch.api import Index, QuerySpec
@@ -61,10 +67,6 @@ def serve_alsh(args):
 
     if args.recall_target is not None:
         raise not_ported("--recall-target (quality-first planning)", "Queue A item 10")
-    if args.early_exit:
-        raise not_ported("--early-exit", "Queue A item 8")
-    if args.stats:
-        raise not_ported("--stats (explain/QueryReport)", "Queue A item 9")
 
     device = resolve_device(args.device)
     svc = ALSHServiceConfig(
@@ -90,6 +92,11 @@ def serve_alsh(args):
         # quantized tier: screen against compressed rows, exact-rerank the
         # top k*alpha survivors
         spec = dataclasses.replace(spec, screen_alpha=args.screen_alpha)
+    if args.early_exit and spec.mode != "exact" and spec.screen_alpha == 0.0:
+        # adaptive probing: stream probe windows, stop per query once the
+        # running top-k clears the confidence bound
+        spec = dataclasses.replace(spec, early_exit=True, exit_group=args.exit_group,
+                                   exit_slack=args.exit_slack)
     exact = QuerySpec(k=svc.topk, mode="exact")
     print(f"[alsh] serving policy: {spec}")
 
@@ -108,6 +115,21 @@ def serve_alsh(args):
               f"({dt/svc.query_batch*1e6:.1f} us/query) "
               f"cand_frac={cand_frac:.4f} "
               f"recall@{svc.topk}~{rec:.2f}")
+        if args.stats:
+            # storage-tier accounting: bytes moved by the gather tail
+            rep = index.explain(q[:16], w[:16], spec)
+            print(f"[alsh]   stats: storage={rep.storage} "
+                  f"table_bytes={rep.table_bytes} "
+                  f"rows_screened~{float(np.mean(rep.rows_screened)):.1f} "
+                  f"rows_reranked~{float(np.mean(rep.rows_reranked)):.1f} "
+                  f"bytes_gathered~{float(np.mean(rep.bytes_gathered)):.0f}")
+            if rep.tables_probed is not None:
+                # adaptive-probing accounting: windows visited + stop mix
+                d = rep.to_dict()
+                n_win = cfg.L * (spec.n_probes if spec.mode == "multiprobe" else 1)
+                print(f"[alsh]   stats: tables_probed~"
+                      f"{d['mean_tables_probed']:.1f}/{n_win} "
+                      f"stop_reasons={d['stop_reasons']}")
 
 
 def serve_alsh_stream(args):
@@ -194,8 +216,19 @@ def main(argv=None):
     ap.add_argument("--screen-alpha", type=float, default=2.0,
                     help="keep k*alpha proxy-screen survivors for exact rerank "
                          "(quantized storage only)")
-    ap.add_argument("--stats", action="store_true", help="not ported")
-    ap.add_argument("--early-exit", action="store_true", help="not ported")
+    ap.add_argument("--stats", action="store_true",
+                    help="alsh mode: print storage-tier accounting (table_bytes, rows "
+                         "screened/reranked, bytes gathered) and, with --early-exit, the "
+                         "windows probed and the stop reasons, per batch")
+    ap.add_argument("--early-exit", action="store_true",
+                    help="alsh mode: adaptive probing — stream probe windows in groups and "
+                         "stop per query at the confidence bound (folds off under an active "
+                         "quantized screen)")
+    ap.add_argument("--exit-group", type=int, default=8,
+                    help="alsh mode: probe windows per streamed group (with --early-exit)")
+    ap.add_argument("--exit-slack", type=float, default=0.1,
+                    help="alsh mode: acceptable miss probability for the confidence stop; "
+                         "0 disables it (geometric-only, bit-identical results)")
     ap.add_argument("--multiprobe", action="store_true",
                     help="serve with QuerySpec(mode='multiprobe')")
     ap.add_argument("--probes", type=int, default=8, help="multiprobe buckets per table")

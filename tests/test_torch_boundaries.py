@@ -1,6 +1,7 @@
 """Boundaries of the port: it imports neither ``jax`` nor ``repro``, its entry
-points default to the CUDA card and refuse to carry on without one, and
-every mode it does not port yet raises ``NotImplementedError``."""
+points default to the CUDA card and refuse to carry on without one, every
+mode it does not port yet raises ``NotImplementedError``, and the modes a
+slice ported (early exit, ``--stats``) run on the CPU."""
 
 import os
 import subprocess
@@ -79,14 +80,38 @@ def test_query_runs_on_the_index_device():
 @pytest.mark.parametrize(
     "make",
     [
-        lambda: tapi.QuerySpec(k=5, early_exit=True),
         lambda: tapi.QuerySpec(k=5, impl="onehot"),
+        lambda: tapi.QuerySpec(k=5, impl="gather"),
     ],
-    ids=["early_exit", "impl"],
+    ids=["impl", "impl_gather"],
 )
 def test_unported_specs_raise(make):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         make()
+
+
+@pytest.mark.parametrize("mutable", [False, True], ids=["sealed", "mutable"])
+def test_early_exit_runs_on_cpu(mutable):
+    """QuerySpec(early_exit=True) is accepted, and the streamed tail runs
+    through Index.query and the engine entry on the CPU, stamping
+    tables_probed and stop_reason."""
+    rs = np.random.default_rng(2)
+    data = rs.uniform(0, 1, (16, 4)).astype(np.float32)
+    update = tapi.UpdateSpec(delta_capacity=8 if mutable else 0)
+    idx = tapi.Index.build(0, data, _cfg(L=4), update=update, device="cpu")
+    if mutable:
+        idx, _ = idx.insert(rs.uniform(0, 1, (3, 4)))
+    q = torch.as_tensor(rs.uniform(0, 1, (2, 4)), dtype=torch.float32)
+    w = torch.ones((2, 4))
+    spec = tapi.QuerySpec(k=2, early_exit=True, exit_group=2, exit_slack=0.1)
+    res = idx.query(q, w, spec)
+    assert res.tables_probed is not None and res.stop_reason is not None
+    assert ((res.tables_probed >= 1) & (res.tables_probed <= 4)).all()
+    assert set(res.stop_reason.tolist()) <= {0, 1, 2}
+    eng = pipeline.query(idx.state, idx.delta if mutable else None,
+                         idx.tombstones if mutable else None, q, w, idx.config, k=2,
+                         early_exit=True, exit_group=2, exit_slack=0.1)
+    assert torch.equal(eng.ids, res.ids) and torch.equal(eng.tables_probed, res.tables_probed)
 
 
 def test_unported_index_modes_raise():
@@ -100,15 +125,16 @@ def test_unported_index_modes_raise():
         idx.query(q, np.ones((2, 4)), tapi.QualitySpec(k=3))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         idx.shard(None)
-    w = torch.ones((2, 4))
-    qt = torch.as_tensor(q, dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        pipeline.query(idx.state, None, None, qt, w, idx.config, k=2, early_exit=True)
-    mut = tapi.Index.build(0, data, _cfg(), update=tapi.UpdateSpec(delta_capacity=8),
-                           device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        pipeline.query(mut.state, mut.delta, mut.tombstones, qt, w, mut.config, k=2,
-                       early_exit=True)
+    with pytest.raises(NotImplementedError, match="Queue A item 10"):
+        idx.explain(q, np.ones((2, 4)), tapi.QualitySpec(k=3))
+
+
+def test_persistence_raises_naming_its_item(tmp_path):
+    idx = tapi.Index.build(0, np.zeros((8, 4), np.float32), _cfg(), device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue A item 9"):
+        idx.save(tmp_path)
+    with pytest.raises(NotImplementedError, match="Queue A item 9"):
+        tapi.Index.load(tmp_path)
 
 
 @pytest.mark.parametrize("mode", ["broker", "lm"])
@@ -139,11 +165,31 @@ def test_serve_alsh_quantized_runs_on_cpu(capsys):
     assert "mode='multiprobe', n_probes=4" in out and "screen_alpha=2.0" in out
 
 
-def test_serve_stats_stays_refused():
+def test_serve_early_exit_stats_runs_on_cpu(capsys):
+    """--early-exit --stats serves through the streamed tail and prints the
+    storage line and the tables_probed / stop-reason line."""
     from repro_torch.launch import serve
 
-    with pytest.raises(NotImplementedError, match="Queue A item 9"):
-        serve.main(["--mode", "alsh", "--device", "cpu", "--storage", "int8", "--stats"])
+    serve.main(["--mode", "alsh", "--device", "cpu", "--n", "512", "--d", "8", "--K", "4",
+                "--L", "8", "--query-batch", "16", "--batches", "1", "--early-exit",
+                "--exit-group", "2", "--stats"])
+    out = capsys.readouterr().out
+    assert "early_exit=True, exit_group=2, exit_slack=0.1" in out
+    assert "[alsh]   stats: storage=f32" in out
+    assert "[alsh]   stats: tables_probed~" in out and "/8 stop_reasons={" in out
+
+
+def test_serve_stats_without_early_exit_runs_on_cpu(capsys):
+    """--stats on a screened int8 table prints the storage line only: the
+    screen folds early exit off, so no query streamed."""
+    from repro_torch.launch import serve
+
+    serve.main(["--mode", "alsh", "--device", "cpu", "--n", "512", "--d", "8", "--K", "4",
+                "--L", "4", "--query-batch", "16", "--batches", "1", "--storage", "int8",
+                "--early-exit", "--stats"])
+    out = capsys.readouterr().out
+    assert "[alsh]   stats: storage=int8" in out and "early_exit=False" in out
+    assert "tables_probed" not in out
 
 
 def test_serve_quantized_without_a_card_raises(monkeypatch):
@@ -175,6 +221,7 @@ def test_kernel_dispatch_never_quietly_falls_back():
         gather_rerank_topk_blocked_cuda,
         gather_rerank_topk_cuda,
     )
+    from repro_torch.kernels.wl1_distance import wl1_rerank_cuda, wl1_scan_cuda
     from repro_torch.kernels.wl1_topk import wl1_scan_topk_cuda
 
     lv = torch.zeros((2, 3), dtype=torch.int32)
@@ -187,6 +234,10 @@ def test_kernel_dispatch_never_quietly_falls_back():
         alsh_project_cuda(lv, folded)
     with pytest.raises(ValueError, match="CUDA"):
         wl1_scan_topk_cuda(x, x[:2], x[:2], 1)
+    with pytest.raises(ValueError, match="CUDA"):
+        wl1_scan_cuda(x, x[:2], x[:2])
+    with pytest.raises(ValueError, match="CUDA"):
+        wl1_rerank_cuda(x[None], x[:1], x[:1])
     with pytest.raises(ValueError, match="CUDA"):
         gather_rerank_topk_cuda(x, lv, x[:2], x[:2], 1)
     with pytest.raises(ValueError, match="CUDA"):

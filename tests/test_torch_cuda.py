@@ -401,3 +401,97 @@ def test_mutable_engine_on_the_card_matches_the_cpu_path(dev, storage):
         assert rows.float().mean() >= 0.9
         _check_topk((g.dists.cpu()[rows], g.ids.cpu()[rows]), (c.dists[rows], c.ids[rows]),
                     decoded, torch.from_numpy(q)[rows], torch.from_numpy(w)[rows])
+
+
+# the materializing scan and re-rank: ragged n, b, C and d, b = 1, negative
+# weights; rtol/atol 1e-4, the reference's bar (tests/test_kernels_wl1.py)
+WL1_SCAN_SHAPES = [(1, 1, 1), (129, 9, 257), (300, 1, 16), (5000, 70, 130), (65536, 64, 128)]
+WL1_RERANK_SHAPES = [(1, 1, 1), (3, 130, 257), (1, 7, 16), (64, 4096, 128), (70, 515, 33)]
+
+
+@pytest.mark.parametrize("n,b,d", WL1_SCAN_SHAPES)
+def test_wl1_scan_kernel_matches_plain(dev, n, b, d):
+    from repro_torch.kernels._build import WL1_SCAN
+
+    rs = np.random.default_rng(n + b + d)
+    data, q, w = (_t(rs.normal(size=s).astype(np.float32), dev) for s in ((n, d), (b, d), (b, d)))
+    before = WL1_SCAN.launches
+    got = ops.wl1_scan(data, q, w)
+    assert WL1_SCAN.launches == before + 1
+    torch.testing.assert_close(got, ops.wl1_scan(data, q, w, force="plain"), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("b,C,d", WL1_RERANK_SHAPES)
+def test_wl1_rerank_kernel_matches_plain(dev, b, C, d):
+    from repro_torch.kernels._build import WL1_RERANK
+
+    rs = np.random.default_rng(b + C + d)
+    pts, q, w = (_t(rs.normal(size=s).astype(np.float32), dev)
+                 for s in ((b, C, d), (b, d), (b, d)))
+    before = WL1_RERANK.launches
+    got = ops.wl1_rerank(pts, q, w)
+    assert WL1_RERANK.launches == before + 1
+    torch.testing.assert_close(got, ops.wl1_rerank(pts, q, w, force="plain"), rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("case", ["f32", "int8-scaled", "f32-two-seg"])
+def test_group_entry_equals_gather_rerank_topk(dev, case):
+    rs = np.random.default_rng(3)
+    n, b, P, d, k = 3000, 37, 700, 128, 10
+    data = _t(rs.normal(size=(n, d)).astype(np.float32), dev)
+    q = _t(rs.normal(size=(b, d)).astype(np.float32), dev)
+    w = _t(np.abs(rs.normal(size=(b, d))).astype(np.float32), dev)
+    ids = _t(rs.integers(0, n + 200, (b, P)).astype(np.int32), dev)
+    kw = {}
+    if case == "int8-scaled":
+        data, kw["scales"] = _quantized(data, "int8-scaled", dev)
+    if case == "f32-two-seg":
+        kw["delta"] = data[:300].contiguous()
+    got = ops.gather_rerank_topk_group(data, ids, q, w, k, **kw)
+    want = ops.gather_rerank_topk(data, ids, q, w, k, **kw)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("view", ["sealed", "mutable", "int8"])
+def test_streamed_query_on_the_card_matches_the_cpu_path(dev, view):
+    """The streamed early-exit query on the card: at slack 0 it equals the
+    card's monolithic query bit for bit and every query exhausts; at slack
+    0.1 it agrees with the CPU path over the same index state."""
+    import repro_torch.api as tapi
+    from repro_torch import quant
+    from repro_torch.kernels._build import launch_counts, reset_launch_counts
+
+    rs = np.random.default_rng(12)
+    cfg = tapi.IndexConfig(d=32, M=32, K=8, L=16, max_candidates=64,
+                           storage="int8" if view == "int8" else "f32",
+                           space=tapi.BoundedSpace(0.0, 1.0, 32.0))
+    centres = rs.uniform(0.1, 0.9, (512, 32))
+    data = (centres[:, None, :] + 1e-3 * rs.normal(size=(512, 16, 32))).reshape(-1, 32)
+    q = (centres[:64] + 1e-3 * rs.normal(size=(64, 32))).astype(np.float32)
+    w = (1.0 + 0.1 * np.abs(rs.normal(size=(64, 32)))).astype(np.float32)
+    update = tapi.UpdateSpec(delta_capacity=1024 if view == "mutable" else 0)
+    gpu = tapi.Index.build(13, data.astype(np.float32), cfg, update=update)
+    if view == "mutable":
+        gpu, ids = gpu.insert((q[:16] + 1e-3 * rs.normal(size=(16, 32))).astype(np.float32))
+        gpu = gpu.delete(torch.cat([torch.arange(0, 800, 7, dtype=torch.int32, device="cuda"),
+                                    ids[::5]]))
+    cpu = tapi.Index(state=gpu.state.to("cpu"), config=cfg, update=gpu.update,
+                     delta=gpu.delta.to("cpu"), tombstones=gpu.tombstones.cpu())
+    reset_launch_counts()
+    on = gpu.query(q, w, tapi.QuerySpec(k=10, early_exit=True, exit_group=4))
+    name = {"sealed": "gather_rerank_topk", "mutable": "gather_rerank_topk_two_seg",
+            "int8": "gather_rerank_topk_blocked"}[view]
+    assert launch_counts()[name] >= 4
+    off = gpu.query(q, w, tapi.QuerySpec(k=10))
+    for f in ("ids", "dists", "n_candidates"):
+        assert torch.equal(getattr(on, f), getattr(off, f)), f
+    assert (on.tables_probed == cfg.L).all() and (on.stop_reason == 0).all()
+    spec = tapi.QuerySpec(k=10, early_exit=True, exit_group=4, exit_slack=0.1)
+    g, c = gpu.query(q, w, spec), cpu.query(q, w, spec)
+    rows = (g.n_candidates.cpu() == c.n_candidates) & (g.stop_reason.cpu() == c.stop_reason)
+    assert rows.float().mean() >= 0.9
+    assert (g.stop_reason.cpu() == 2).any()
+    decoded = quant.decode_table(torch.cat([cpu.state.data, cpu.delta.data]), cpu.state.scales)
+    _check_topk((g.dists.cpu()[rows], g.ids.cpu()[rows]), (c.dists[rows], c.ids[rows]),
+                decoded, torch.from_numpy(q)[rows], torch.from_numpy(w)[rows])

@@ -146,6 +146,59 @@ def test_probe_one_table_equal(C):
                                                       jnp.asarray(qkeys))))
 
 
+# the materializing scan and re-rank: ragged n, b, C and d (d past 256, the
+# Pallas kernels' coordinate block), negative weights; bar rtol/atol 1e-4
+# (tests/test_kernels_wl1.py)
+WL1_SCAN_SHAPES = [(1, 1, 1), (129, 9, 257), (300, 5, 16), (37, 3, 300), (1000, 8, 130)]
+WL1_RERANK_SHAPES = [(1, 1, 1), (3, 130, 257), (5, 7, 16), (2, 300, 100)]
+
+
+@pytest.mark.parametrize("n,b,d", WL1_SCAN_SHAPES)
+def test_plain_wl1_scan_matches_reference_and_pallas(n, b, d):
+    from repro.kernels.wl1_distance import wl1_scan_pallas
+
+    rs = np.random.default_rng(n * 7 + b + d)
+    data = rs.normal(size=(n, d)).astype(np.float32)
+    q = rs.normal(size=(b, d)).astype(np.float32)
+    w = rs.normal(size=(b, d)).astype(np.float32)  # mixed signs
+    got = tops.wl1_scan(torch.from_numpy(data), torch.from_numpy(q), torch.from_numpy(w))
+    assert got.shape == (b, n) and got.dtype == torch.float32
+    for want in (jref.wl1_scan(jnp.asarray(data), jnp.asarray(q), jnp.asarray(w)),
+                 wl1_scan_pallas(jnp.asarray(data), jnp.asarray(q), jnp.asarray(w),
+                                 interpret=True)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("b,C,d", WL1_RERANK_SHAPES)
+def test_plain_wl1_rerank_matches_reference_and_pallas(b, C, d):
+    from repro.kernels.wl1_distance import wl1_rerank_pallas
+
+    rs = np.random.default_rng(b * 5 + C + d)
+    pts = rs.normal(size=(b, C, d)).astype(np.float32)
+    q = rs.normal(size=(b, d)).astype(np.float32)
+    w = rs.normal(size=(b, d)).astype(np.float32)  # mixed signs
+    got = tops.wl1_rerank(torch.from_numpy(pts), torch.from_numpy(q), torch.from_numpy(w))
+    assert got.shape == (b, C) and got.dtype == torch.float32
+    for want in (jref.wl1_rerank(jnp.asarray(pts), jnp.asarray(q), jnp.asarray(w)),
+                 wl1_rerank_pallas(jnp.asarray(pts), jnp.asarray(q), jnp.asarray(w),
+                                   interpret=True)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
+
+
+def test_plain_wl1_scan_and_rerank_chunk(monkeypatch):
+    """Chunk boundaries that split rows and candidates give the unchunked answer."""
+    rs = np.random.default_rng(21)
+    data = torch.from_numpy(rs.normal(size=(50, 6)).astype(np.float32))
+    q = torch.from_numpy(rs.normal(size=(3, 6)).astype(np.float32))
+    w = torch.from_numpy(rs.normal(size=(3, 6)).astype(np.float32))
+    pts = data[:40].reshape(1, 40, 6).expand(3, 40, 6).contiguous()
+    scan, rerank = tops.wl1_scan(data, q, w), tops.wl1_rerank(pts, q, w)
+    monkeypatch.setattr(tref, "CHUNK_ELEMS", 3 * 6 * 7)  # 7 rows / candidates per chunk
+    assert torch.equal(tops.wl1_scan(data, q, w), scan)
+    assert torch.equal(tops.wl1_rerank(pts, q, w), rerank)
+    assert torch.equal(rerank, scan[:, :40])
+
+
 def test_distance_helpers_match_reference():
     from repro.distance import wl1 as jd
     from repro_torch.distance import wl1 as td
