@@ -22,6 +22,13 @@ Phases, each of which fails the run (exit code 1) when it fails:
      call's time where one computes the same function, and the least time
      the card could take (bytes over 3.35 TB/s or flops over 67 TFLOP/s
      FP32, whichever is larger; a gather moves each distinct row once).
+     The f32 gather runs at four main-path shapes — the service batch's
+     candidates (b=1024, P=4096), a streamed early-exit merge's (b=1024,
+     P=1034), a stream batch's over two segments (b=1024, P=12,288) and
+     the exact mode of a mutable index (two segments, b=64, every id) — and
+     at each must also equal, bit for bit, the one-warp-per-query schedule
+     on the same inputs (the quantized kernel's f32 instantiation), timed
+     beside it with the number of slot splits S the launch used.
      The quantized gather runs three cases over the service candidates —
      int8 with scales (the exact pass), int8 with the proxy query (the
      screen pass) and bf16 — and each must also equal, bit for bit, the f32
@@ -452,29 +459,97 @@ def _check_topk(label, got, want, data, q, w):
     return err
 
 
-def phase_gather_rerank(run, svc):
+def _f32_gather_case(label, data, ids, q, w, k, delta=None, iters=10, old_iters=10):
+    """The f32 kernel at one main-path shape: against its plain version, bit
+    for bit against the one-warp-per-query schedule on the same inputs (the
+    quantized kernel's f32 instantiation, ``gather_rerank_topk_blocked_cuda``
+    without scales; a difference fails the run), and timed beside both."""
     import torch
 
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.gather_rerank import gather_rerank_topk_blocked_cuda, gather_splits
+
+    b, P = ids.shape
+    d = data.shape[1]
+    S = gather_splits(b, P, torch.cuda.get_device_properties(data.device).multi_processor_count)
+
+    def kernel():
+        return ops.gather_rerank_topk(data, ids, q, w, k, delta=delta)
+
+    def old():
+        return gather_rerank_topk_blocked_cuda(data, ids, q, w, k, delta=delta)
+
+    got = kernel()
+    want = ops.gather_rerank_topk(data, ids, q, w, k, delta=delta, force="plain")
+    torch.cuda.synchronize()
+    table = data if delta is None else torch.cat([data, delta])
+    err = _check_topk(f"{label}: kernel vs plain", got, want, table, q, w)
+    ref = old()
+    bitwise = torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    print(f"  {label}: bit-equal to the one-warp-per-query schedule: {bitwise}")
+    if not bitwise:
+        raise AssertionError(f"{label}: differs from the one-warp-per-query schedule")
+    del table, ref
+    ms = time_ms(kernel, iters=iters, warmup=2)
+    old_ms = time_ms(old, iters=old_iters, warmup=1)
+    plain_ms = time_ms(lambda: ops.gather_rerank_topk(data, ids, q, w, k, delta=delta,
+                                                      force="plain"), iters=1)
+    n_tot = data.shape[0] + (0 if delta is None else delta.shape[0])
+    b_ms, b_by, nbytes, flops, l2_bytes = gather_bound(ids, n_tot, d, k, 4, scaled=False)
+    nv, nd = int(((ids >= 0) & (ids < n_tot)).sum()), distinct_rows(ids, n_tot)
+    print(f"  {label}: ids {tuple(ids.shape)}, {nv / b:.1f} valid per query, {nd} distinct rows; "
+          f"S={S}; kernel {ms:.4f} ms, one-warp schedule {old_ms:.4f} ms "
+          f"({old_ms / ms:.2f}x), plain {plain_ms:.4f} ms, library: none; bound "
+          f"{b_ms * 1e3:.1f} us by {b_by} ({nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP); "
+          f"rows gathered per query, served by HBM or L2: {l2_bytes / 1e6:.1f} MB")
+    return {"b": b, "P": P, "k": k, "splits": S, "valid_ids": nv, "distinct_rows": nd,
+            "max_abs_err": err, "ms": ms, "old_schedule_ms": old_ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def streamed_merge_ids(svc):
+    """The candidate block of the last per-group merge of a streamed
+    early-exit batch on the service index (slack 0, so every group runs):
+    the heap's ids and one group's windows, deduped — (1024, k + 8·128)."""
+    import dataclasses
+
+    import repro_torch.api as tapi
     from repro_torch.configs.paper_alsh import SERVICE
     from repro_torch.kernels import ops
 
-    data, q, w, cand = svc.wl.data, svc.q, svc.w, svc.cand
-    n, d = data.shape
-    k = SERVICE.topk
-    got = ops.gather_rerank_topk(data, cand, q, w, k)
-    want = ops.gather_rerank_topk(data, cand, q, w, k, force="plain")
-    torch.cuda.synchronize()
-    err = _check_topk("gather_rerank_topk", got, want, data, q, w)
-    ms = time_ms(lambda: ops.gather_rerank_topk(data, cand, q, w, k), iters=10, warmup=2)
-    plain_ms = time_ms(lambda: ops.gather_rerank_topk(data, cand, q, w, k, force="plain"),
-                       iters=1)
-    profile("gather_rerank_topk", lambda: ops.gather_rerank_topk(data, cand, q, w, k), top=2)
-    b_ms, b_by, nbytes, flops, l2_bytes = gather_bound(cand, n, d, k, 4, scaled=False)
-    print(f"  kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library: none; bound "
-          f"{b_ms * 1e3:.1f} us by {b_by} ({nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP); "
-          f"rows gathered per query, served by HBM or L2: {l2_bytes / 1e6:.1f} MB")
-    run.record("gather_rerank_topk", max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-               bound_by=b_by, library_ms=None)
+    seen = []
+    group_entry = ops.gather_rerank_topk_group
+
+    def spy(data, ids, *args, **kwargs):
+        seen.append(ids)
+        return group_entry(data, ids, *args, **kwargs)
+
+    spec = dataclasses.replace(tapi.QuerySpec(k=SERVICE.topk), early_exit=True,
+                               exit_group=EXIT_GROUP, exit_slack=0.0)
+    ops.gather_rerank_topk_group = spy
+    try:
+        svc.index.query(svc.q, svc.w, spec)
+    finally:
+        ops.gather_rerank_topk_group = group_entry
+    return seen[-1]
+
+
+def phase_gather_rerank(run, svc):
+    """The f32 kernel at the service batch's candidates (b=1024, P=4096) and
+    at a streamed early-exit merge's (b=1024, P=1034)."""
+    from repro_torch.configs.paper_alsh import SERVICE
+    from repro_torch.kernels import ops
+
+    data, q, w, k = svc.wl.data, svc.q, svc.w, SERVICE.topk
+    shapes = {"service": _f32_gather_case("service batch", data, svc.cand, q, w, k)}
+    profile("gather_rerank_topk", lambda: ops.gather_rerank_topk(data, svc.cand, q, w, k), top=2)
+    merge = streamed_merge_ids(svc)
+    shapes["streamed_merge"] = _f32_gather_case("streamed merge", data, merge, q, w, k)
+    main = shapes["service"]
+    run.record("gather_rerank_topk", max_abs_err=main["max_abs_err"], ms=main["ms"],
+               plain_ms=main["plain_ms"], bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+               library_ms=None, splits=main["splits"], old_schedule_ms=main["old_schedule_ms"],
+               shapes=shapes)
 
 
 def phase_gather_rerank_blocked(run, svc):
@@ -514,7 +589,8 @@ def phase_gather_rerank_blocked(run, svc):
         err = _check_topk(label, got, want, decoded, qq, ww)
         f32 = gather_rerank_topk_cuda(decoded.contiguous(), ids, qq, ww, kk)
         bitwise = torch.equal(got[0], f32[0]) and torch.equal(got[1], f32[1])
-        print(f"  {label}: bit-equal to the f32 kernel over the decoded table: {bitwise}")
+        print(f"  {label}: bit-equal to the f32 kernel (its split schedule) over the decoded "
+              f"table: {bitwise}")
         if not bitwise:
             raise AssertionError(f"{label}: differs from the f32 kernel over the decoded table")
         ms = time_ms(kernel, iters=10, warmup=2)
@@ -552,42 +628,46 @@ def phase_gather_rerank_blocked(run, svc):
 
 def phase_gather_rerank_two_seg(run, svc, seg):
     """The f32 two-segment kernel over the SERVICE main table and a full
-    delta, against its plain version and against the single-segment kernel
-    over the concatenated table (bit for bit)."""
+    delta: at a stream batch's candidates (b=1024, P=12,288) and at the
+    exact mode of a mutable index (b=64, every id of both segments, from
+    ``ExhaustiveSource``); against its plain version, the one-warp schedule,
+    and the single-segment kernel over the concatenated table (bit for
+    bit)."""
     import torch
 
     from repro_torch.configs.paper_alsh import SERVICE
+    from repro_torch.engine.sources import ExhaustiveSource
     from repro_torch.kernels import ops
     from repro_torch.kernels.gather_rerank import gather_rerank_topk_cuda
 
     main, delta, q, w, cand = svc.wl.data, seg.delta.data, seg.q, seg.w, seg.cand
-    d, k = main.shape[1], SERVICE.topk
+    k = SERVICE.topk
     cat = torch.cat([main, delta])
-
-    def kernel():
-        return ops.gather_rerank_topk(main, cand, q, w, k, delta=delta)
-
-    got = kernel()
-    want = ops.gather_rerank_topk(main, cand, q, w, k, delta=delta, force="plain")
-    torch.cuda.synchronize()
-    err = _check_topk("gather_rerank_topk_two_seg", got, want, cat, q, w)
+    got = ops.gather_rerank_topk(main, cand, q, w, k, delta=delta)
     single = gather_rerank_topk_cuda(cat, cand, q, w, k)
     bitwise = torch.equal(got[0], single[0]) and torch.equal(got[1], single[1])
     print(f"  bit-equal to the single-segment kernel over torch.cat([main, delta]): {bitwise}")
     if not bitwise:
         raise AssertionError("two-segment kernel differs from the concatenated-table kernel")
-    ms = time_ms(kernel, iters=10, warmup=2)
-    plain_ms = time_ms(lambda: ops.gather_rerank_topk(main, cand, q, w, k, delta=delta,
-                                                      force="plain"), iters=1)
     single_ms = time_ms(lambda: gather_rerank_topk_cuda(cat, cand, q, w, k), iters=10, warmup=1)
-    profile("gather_rerank_topk_two_seg", kernel, top=2)
-    b_ms, b_by, nbytes, flops, l2_bytes = gather_bound(cand, seg.n_tot, d, k, 4, scaled=False)
-    print(f"  kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, single-segment kernel over the "
-          f"concatenated table {single_ms:.4f} ms, library: none; bound {b_ms * 1e3:.1f} us by "
-          f"{b_by} ({nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP); rows gathered per query, "
-          f"served by HBM or L2: {l2_bytes / 1e6:.1f} MB")
-    run.record("gather_rerank_topk_two_seg", max_abs_err=err, ms=ms, plain_ms=plain_ms,
-               bound_ms=b_ms, bound_by=b_by, library_ms=None, single_segment_ms=single_ms)
+    print(f"  single-segment kernel over the concatenated table {single_ms:.4f} ms")
+    del cat, got, single
+    shapes = {"stream_batch": _f32_gather_case("stream batch", main, cand, q, w, k, delta=delta)}
+    profile("gather_rerank_topk_two_seg",
+            lambda: ops.gather_rerank_topk(main, cand, q, w, k, delta=delta), top=2)
+    tomb = torch.zeros((seg.n_tot,), dtype=torch.bool, device=main.device)
+    qx, wx = q[:64].contiguous(), w[:64].contiguous()  # the stream path's exact check
+    ex = ExhaustiveSource(svc.index.state, seg.delta, tomb).emit(qx, wx)
+    shapes["exhaustive"] = _f32_gather_case("exact mode of a mutable index", main, ex, qx, wx, k,
+                                            delta=delta, iters=5, old_iters=2)
+    profile("gather_rerank_topk_two_seg (exact mode)",
+            lambda: ops.gather_rerank_topk(main, ex, qx, wx, k, delta=delta), top=3)
+    main_case = shapes["stream_batch"]
+    run.record("gather_rerank_topk_two_seg", max_abs_err=main_case["max_abs_err"],
+               ms=main_case["ms"], plain_ms=main_case["plain_ms"], bound_ms=main_case["bound_ms"],
+               bound_by=main_case["bound_by"], library_ms=None, splits=main_case["splits"],
+               old_schedule_ms=main_case["old_schedule_ms"], single_segment_ms=single_ms,
+               shapes=shapes)
 
 
 def phase_gather_rerank_blocked_two_seg(run, svc, seg):

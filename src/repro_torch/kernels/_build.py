@@ -63,7 +63,8 @@ class Kernel:
     ``functions`` maps each exported C function to its ctypes argtypes
     (every function returns ``int``). ``launches`` counts the wrapper's
     calls of its launch function — the wrapper adds one there and nowhere
-    else (the scan's two launches, partial and merge, count once).
+    else (the scan's two launches, partial and merge, count once, as do the
+    f32 gathers' split and merge launches).
     """
 
     name: str
@@ -141,7 +142,7 @@ ALSH_PROJECT = Kernel(
 GATHER_RERANK = Kernel(
     "gather_rerank_topk",
     "gather_rerank.cu",
-    {"gather_rerank_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]},
+    {"gather_rerank_launch": [_P] * 8 + [_I] * 6 + [_P]},
 )
 GATHER_RERANK_BLOCKED = Kernel(
     "gather_rerank_topk_blocked",
@@ -151,7 +152,7 @@ GATHER_RERANK_BLOCKED = Kernel(
 GATHER_RERANK_TWO_SEG = Kernel(
     "gather_rerank_topk_two_seg",
     "gather_rerank.cu",
-    {"gather_rerank2_launch": [_P] * 7 + [_I] * 6 + [_P]},
+    {"gather_rerank2_launch": [_P] * 9 + [_I] * 7 + [_P]},
 )
 GATHER_RERANK_BLOCKED_TWO_SEG = Kernel(
     "gather_rerank_topk_blocked_two_seg",

@@ -1,15 +1,14 @@
-// The fused probe tail for Hopper, shared by the f32 kernels
-// (gather_rerank.cu) and the quantized-storage kernels
-// (gather_rerank_blocked.cu), each in a single-segment and a two-segment
-// form: gather each candidate row by id, decode it in registers, exact
-// weighted-L1 re-rank against the query, running top-k — without ever
-// materializing the (b, P, d) candidate tensor.
+// The row arithmetic of the fused probe tail for Hopper, and the schedule
+// of the quantized-storage kernels (gather_rerank_blocked.cu): gather each
+// candidate row by id, decode it in registers, exact weighted-L1 re-rank
+// against the query, running top-k — without ever materializing the
+// (b, P, d) candidate tensor. The f32 kernels (gather_rerank.cu) run the
+// same per-group body (rerank_group) on a schedule of their own.
 //
 // What bounds it on this card: HBM bytes of the gathered rows (d values of
 // the stored width per valid candidate, random rows) and the latency of
 // those dependent loads; the arithmetic (3 flops per coordinate) is far
-// below the rate. Design:
-//   * one warp per query; q, w (and the decode scales) sit in shared memory;
+// below the rate. The per-group body:
 //   * each lane loads 4 consecutive coordinates of a row at once — a float4
 //     for f32 (one 512-byte row per warp load at d = 128), 8 bytes of four
 //     bf16 (256-byte rows), a 4-byte char4 of int8 (128-byte rows) — and
@@ -22,18 +21,22 @@
 //     decoded value is therefore the one ``payload.float() * scales`` gives,
 //     and the sum that follows runs in the same lane->coordinate mapping and
 //     order for every stored type: over a quantized payload the kernel
-//     returns bit for bit what the f32 instantiation returns over the
-//     decoded table;
+//     returns bit for bit what the f32 kernels return over the decoded
+//     table;
 //   * the warp reduces by xor-butterfly, so every lane holds the identical
-//     distance and the admission test is warp-uniform;
+//     distance and the admission test is warp-uniform. A row's distance
+//     depends on the row, the query and the weights only — not on the
+//     warp, block or schedule that computes it;
 //   * the running top-k is a sorted list in shared memory (warp_topk.cuh):
 //     candidates are offered in slot order and inserted stably, so the
-//     output is already ascending by (dist, slot) — no sort afterwards;
+//     list is ascending by (dist, slot) — no sort afterwards;
 //   * ids are read 32 at a time; groups with no valid id (>= n or < 0) are
 //     skipped, so with the dedupe stage's packing (unique ids first,
 //     sentinels last) the row traffic is that of the unique candidates.
-// Nothing in the kernel assumes a range of q: the proxy screen feeds integer
-// levels (|q| <= 127) as f32 queries.
+// The quantized schedule here (gather_rerank_kernel) is one warp per
+// query, 4 queries per block, with q, w and the decode scales in shared
+// memory. Nothing in the kernels assumes a range of q: the proxy screen
+// feeds integer levels (|q| <= 127) as f32 queries.
 //
 // Two segments (TWO_SEG, a mutable index): ids address the virtual
 // [data; delta] table of n_tot = n_main + cap rows, which is never
@@ -55,7 +58,7 @@
 
 namespace gather_rerank {
 
-constexpr int WARPS = 4;  // queries per block
+constexpr int WARPS = 4;  // queries per block of the one-warp-per-query schedule
 constexpr int U = 8;      // candidate rows in flight per lane
 
 // Loads of stored values, widened to f32 exactly. load4 reads coordinates
@@ -112,6 +115,95 @@ __device__ __forceinline__ const T* row_of(const T* data, long long delta_shift,
   return reinterpret_cast<const T*>(reinterpret_cast<const char*>(data) + off);
 }
 
+// Re-ranks one 32-slot group of a query's candidates — slots c..c+31,
+// lane l holding the id `my` of slot c+l, `mask` the lanes whose id is
+// valid — into the warp's running top-k list (td, ti) and returns the new
+// admission threshold. A list entry names the row by its id, or with SLOTS
+// by its slot. q, w (and with SCALED the decode scales) are qs, ws, ss.
+template <typename T, bool SCALED, bool VEC4, bool TWO_SEG, bool SLOTS>
+__device__ __forceinline__ float rerank_group(const T* __restrict__ data, long long delta_shift,
+                                              const float* qs, const float* ws, const float* ss,
+                                              int my, unsigned mask, int c, int n_main, int d,
+                                              float* td, int* ti, int k, float worst, int lane) {
+  const int nv = 32 - __clz(mask);  // one past the last valid slot
+  for (int u0 = 0; u0 < nv; u0 += U) {
+    int cid[U];
+    float part[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int src = u0 + u;  // < 32: U divides 32
+      const int v = __shfl_sync(FULL_MASK, my, src);
+      cid[u] = (src < nv && ((mask >> src) & 1u)) ? v : -1;
+      part[u] = 0.f;
+    }
+    if (VEC4) {
+      const int d4 = d >> 2;
+      const float4* qs4 = reinterpret_cast<const float4*>(qs);
+      const float4* ws4 = reinterpret_cast<const float4*>(ws);
+      const float4* ss4 = reinterpret_cast<const float4*>(ss);
+      for (int j = lane; j < d4; j += 32) {
+        float4 rv[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+          rv[u] = (TWO_SEG || cid[u] >= 0)
+                      ? Stored<T>::load4(row_of<T, TWO_SEG>(data, delta_shift, cid[u], n_main, d), j)
+                      : make_float4(0.f, 0.f, 0.f, 0.f);
+        const float4 qv = qs4[j];
+        const float4 wv = ws4[j];
+        if (SCALED) {
+          const float4 sv = ss4[j];
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            rv[u].x = __fmul_rn(rv[u].x, sv.x);
+            rv[u].y = __fmul_rn(rv[u].y, sv.y);
+            rv[u].z = __fmul_rn(rv[u].z, sv.z);
+            rv[u].w = __fmul_rn(rv[u].w, sv.w);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          float p = part[u];
+          p = fmaf(wv.x, fabsf(rv[u].x - qv.x), p);
+          p = fmaf(wv.y, fabsf(rv[u].y - qv.y), p);
+          p = fmaf(wv.z, fabsf(rv[u].z - qv.z), p);
+          p = fmaf(wv.w, fabsf(rv[u].w - qv.w), p);
+          part[u] = p;
+        }
+      }
+    } else {
+      for (int j = lane; j < d; j += 32) {
+        float rv[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+          rv[u] = (TWO_SEG || cid[u] >= 0)
+                      ? Stored<T>::load1(row_of<T, TWO_SEG>(data, delta_shift, cid[u], n_main, d) + j)
+                      : 0.f;
+        const float qv = qs[j];
+        const float wv = ws[j];
+        if (SCALED) {
+          const float sv = ss[j];
+#pragma unroll
+          for (int u = 0; u < U; ++u) rv[u] = __fmul_rn(rv[u], sv);
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) part[u] = fmaf(wv, fabsf(rv[u] - qv), part[u]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        part[u] += __shfl_xor_sync(FULL_MASK, part[u], off);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (cid[u] >= 0 && part[u] < worst)
+        worst = warp_topk_insert(td, ti, k, part[u], SLOTS ? c + u0 + u : cid[u], lane);
+    }
+  }
+  return worst;
+}
+
 template <typename T, bool SCALED, bool VEC4, bool TWO_SEG>
 __global__ void __launch_bounds__(WARPS * 32)
     gather_rerank_kernel(const T* __restrict__ data, const T* __restrict__ delta,
@@ -151,82 +243,8 @@ __global__ void __launch_bounds__(WARPS * 32)
     const int my = (c + lane < P) ? idrow[c + lane] : -1;
     const unsigned mask = __ballot_sync(FULL_MASK, my >= 0 && my < n_tot);
     if (mask == 0) continue;
-    const int nv = 32 - __clz(mask);  // one past the last valid slot
-    for (int u0 = 0; u0 < nv; u0 += U) {
-      int cid[U];
-      float part[U];
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const int src = u0 + u;  // < 32: U divides 32
-        const int v = __shfl_sync(FULL_MASK, my, src);
-        cid[u] = (src < nv && ((mask >> src) & 1u)) ? v : -1;
-        part[u] = 0.f;
-      }
-      if (VEC4) {
-        const int d4 = d >> 2;
-        const float4* qs4 = reinterpret_cast<const float4*>(qs);
-        const float4* ws4 = reinterpret_cast<const float4*>(ws);
-        const float4* ss4 = reinterpret_cast<const float4*>(ss);
-        for (int j = lane; j < d4; j += 32) {
-          float4 rv[U];
-#pragma unroll
-          for (int u = 0; u < U; ++u)
-            rv[u] = (TWO_SEG || cid[u] >= 0)
-                        ? Stored<T>::load4(row_of<T, TWO_SEG>(data, delta_shift, cid[u], n_main, d), j)
-                        : make_float4(0.f, 0.f, 0.f, 0.f);
-          const float4 qv = qs4[j];
-          const float4 wv = ws4[j];
-          if (SCALED) {
-            const float4 sv = ss4[j];
-#pragma unroll
-            for (int u = 0; u < U; ++u) {
-              rv[u].x = __fmul_rn(rv[u].x, sv.x);
-              rv[u].y = __fmul_rn(rv[u].y, sv.y);
-              rv[u].z = __fmul_rn(rv[u].z, sv.z);
-              rv[u].w = __fmul_rn(rv[u].w, sv.w);
-            }
-          }
-#pragma unroll
-          for (int u = 0; u < U; ++u) {
-            float p = part[u];
-            p = fmaf(wv.x, fabsf(rv[u].x - qv.x), p);
-            p = fmaf(wv.y, fabsf(rv[u].y - qv.y), p);
-            p = fmaf(wv.z, fabsf(rv[u].z - qv.z), p);
-            p = fmaf(wv.w, fabsf(rv[u].w - qv.w), p);
-            part[u] = p;
-          }
-        }
-      } else {
-        for (int j = lane; j < d; j += 32) {
-          float rv[U];
-#pragma unroll
-          for (int u = 0; u < U; ++u)
-            rv[u] = (TWO_SEG || cid[u] >= 0)
-                        ? Stored<T>::load1(row_of<T, TWO_SEG>(data, delta_shift, cid[u], n_main, d) + j)
-                        : 0.f;
-          const float qv = qs[j];
-          const float wv = ws[j];
-          if (SCALED) {
-            const float sv = ss[j];
-#pragma unroll
-            for (int u = 0; u < U; ++u) rv[u] = __fmul_rn(rv[u], sv);
-          }
-#pragma unroll
-          for (int u = 0; u < U; ++u) part[u] = fmaf(wv, fabsf(rv[u] - qv), part[u]);
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
-          part[u] += __shfl_xor_sync(FULL_MASK, part[u], off);
-      }
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        if (cid[u] >= 0 && part[u] < worst)
-          worst = warp_topk_insert(td, ti, k, part[u], cid[u], lane);
-      }
-    }
+    worst = rerank_group<T, SCALED, VEC4, TWO_SEG, false>(data, delta_shift, qs, ws, ss, my, mask,
+                                                          c, n_main, d, td, ti, k, worst, lane);
   }
 
   for (int j = lane; j < k; j += 32) {

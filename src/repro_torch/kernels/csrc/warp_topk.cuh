@@ -1,5 +1,5 @@
 // A warp's running top-k list in shared memory, shared by the gather/rerank
-// and scan kernels.
+// and scan kernels, and the k-way merge of several such lists.
 //
 // The list holds k (dist, id) entries in ascending dist order; empty slots
 // are (+inf, -1). Every lane of the warp calls the helpers with the same
@@ -70,4 +70,55 @@ __device__ __forceinline__ float warp_topk_offer(float* td, int* ti, int k, floa
     if (v < worst) worst = warp_topk_insert(td, ti, k, v, i, lane);
   }
   return worst;
+}
+
+// One warp merges nl lists of k entries each — list l is (ld, ls)[l*k, l*k+k),
+// ascending by (dist, slot) with its empty entries (slot < 0) last — into the
+// k smallest (dist, slot) pairs over all of them, in that order. Real entries
+// carry distinct slots, so the order is total and the result does not depend
+// on how the slots were dealt to the lists. put(j, dist, slot) is called by
+// lane 0 for j = 0.. in order, then by the lanes for every position past the
+// last real entry with (+inf, -1). head (nl ints of shared memory) is
+// scratch. ld/ls may lie in shared or global memory.
+template <typename Put>
+__device__ __forceinline__ void warp_merge_lists(const float* ld, const int* ls, int nl, int k,
+                                                 int* head, int lane, Put put) {
+  for (int l = lane; l < nl; l += 32) head[l] = 0;
+  __syncwarp();
+  int j = 0;
+  for (; j < k; ++j) {
+    float bd = CUDART_INF_F;
+    int bs = 0x7fffffff;
+    int bl = -1;
+    for (int l = lane; l < nl; l += 32) {
+      const int h = head[l];
+      const int s = h < k ? ls[(size_t)l * k + h] : -1;
+      if (s >= 0) {
+        const float dv = ld[(size_t)l * k + h];
+        if (dv < bd || (dv == bd && s < bs)) {
+          bd = dv;
+          bs = s;
+          bl = l;
+        }
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const float od = __shfl_xor_sync(FULL_MASK, bd, off);
+      const int os = __shfl_xor_sync(FULL_MASK, bs, off);
+      const int ol = __shfl_xor_sync(FULL_MASK, bl, off);
+      if (od < bd || (od == bd && os < bs)) {
+        bd = od;
+        bs = os;
+        bl = ol;
+      }
+    }
+    if (bl < 0) break;  // warp-uniform: every list is spent
+    if (lane == 0) {
+      put(j, bd, bs);
+      head[bl] += 1;
+    }
+    __syncwarp();
+  }
+  for (int jj = j + lane; jj < k; jj += 32) put(jj, CUDART_INF_F, -1);
 }

@@ -495,3 +495,105 @@ def test_streamed_query_on_the_card_matches_the_cpu_path(dev, view):
     decoded = quant.decode_table(torch.cat([cpu.state.data, cpu.delta.data]), cpu.state.scales)
     _check_topk((g.dists.cpu()[rows], g.ids.cpu()[rows]), (c.dists[rows], c.ids[rows]),
                 decoded, torch.from_numpy(q)[rows], torch.from_numpy(w)[rows])
+
+
+# The f32 kernels' split schedule against the one-warp-per-query schedule
+# (the quantized kernel's f32 instantiation, gather_rerank_topk_blocked_cuda
+# without scales): (n, b, P, d, k, splits) with "one" or "many" splits on a
+# 132-SM card; k = 40 spans two 32-slot chunks of a list, d = 37 takes the
+# scalar path.
+SPLIT_SHAPES = [
+    (5000, 2, 20000, 128, 10, "many"),
+    (3000, 300, 128, 128, 10, "one"),
+    (3000, 3, 9000, 128, 40, "many"),
+    (50, 7, 1, 16, 3, "one"),
+    (2000, 4, 5000, 37, 10, "many"),
+]
+
+
+def _split_block(rs, n, b, P, d, dev, n_tot=None):
+    """Rows that repeat 4 times (equal distances under distinct ids), ids
+    with ~20% invalid and repeats, spread so that copies of a row fall on
+    both sides of every split boundary; row 0 all invalid, row 1 packed
+    (valid first, sentinels last)."""
+    n_tot = n if n_tot is None else n_tot
+    base = rs.uniform(-1, 1, (max(1, n // 4), d)).astype(np.float32)
+    data = np.resize(base, (n, d))
+    ids = rs.integers(-3, n_tot + n_tot // 4 + 2, (b, P)).astype(np.int32)
+    ids[0] = n_tot
+    if b > 1:
+        ids[1, P // 2:] = n_tot
+    return data, ids
+
+
+def _old_schedule(data, ids, q, w, k, delta=None):
+    from repro_torch.kernels.gather_rerank import gather_rerank_topk_blocked_cuda
+
+    return gather_rerank_topk_blocked_cuda(data, ids, q, w, k, scales=None, delta=delta)
+
+
+def _splits_of(b, P, dev):
+    from repro_torch.kernels.gather_rerank import gather_splits
+
+    return gather_splits(b, P, torch.cuda.get_device_properties(dev).multi_processor_count)
+
+
+@pytest.mark.parametrize("n,b,P,d,k,splits", SPLIT_SHAPES)
+def test_f32_split_kernel_equals_the_one_warp_schedule(dev, n, b, P, d, k, splits):
+    """The f32 kernel equals, bit for bit, the one-warp-per-query schedule on
+    the same inputs, and its plain version within rtol/atol 1e-5; one call
+    counts one launch whether it made one launch or two."""
+    from repro_torch.kernels._build import GATHER_RERANK
+
+    rs = np.random.default_rng(n + b + P + d + k)
+    data, ids = _split_block(rs, n, b, P, d, dev)
+    data, ids = _t(data, dev), _t(ids, dev)
+    q = _t(rs.uniform(-1, 1, (b, d)).astype(np.float32), dev)
+    w = _t(rs.normal(size=(b, d)).astype(np.float32), dev)
+    S = _splits_of(b, P, dev)
+    if torch.cuda.get_device_properties(dev).multi_processor_count == 132:
+        assert (S == 1) == (splits == "one")
+    before = GATHER_RERANK.launches
+    got = ops.gather_rerank_topk(data, ids, q, w, k)
+    torch.cuda.synchronize()
+    assert GATHER_RERANK.launches == before + 1
+    old = _old_schedule(data, ids, q, w, k)
+    assert torch.equal(got[0], old[0]) and torch.equal(got[1], old[1])
+    _check_topk(got, ops.gather_rerank_topk(data, ids, q, w, k, force="plain"), data, q, w)
+    assert torch.all(got[1][0] == -1) and torch.all(torch.isinf(got[0][0]))
+    if splits == "many":  # rows that tie exactly sit in the top-k, across splits
+        gd = got[0].cpu()
+        assert bool(((gd[:, 1:] == gd[:, :-1]) & torch.isfinite(gd[:, 1:])).any())
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("n_main,cap,b,P,d,k", [
+    (4000, 1000, 2, 20000, 128, 10),  # many splits
+    (3000, 500, 300, 128, 128, 40),  # one split
+])
+def test_f32_split_kernel_two_segment_equals_the_one_warp_schedule(dev, n_main, cap, b, P, d, k,
+                                                                    aligned):
+    """The two-segment f32 kernel against the one-warp two-segment schedule,
+    bit for bit, with a delta on the 4-wide path and one whose base is not
+    4-aligned (both schedules then take the scalar path); and against the
+    plain two-segment version."""
+    from repro_torch.kernels._build import GATHER_RERANK_TWO_SEG
+
+    rs = np.random.default_rng(n_main + cap + P + int(aligned))
+    data, ids = _split_block(rs, n_main + cap, b, P, d, dev)
+    main = _t(data[:n_main], dev)
+    delta = _t(data[n_main:], dev)
+    if not aligned:
+        delta = _misaligned(delta)
+    ids = _t(ids, dev)
+    q = _t(rs.uniform(-1, 1, (b, d)).astype(np.float32), dev)
+    w = _t(np.abs(rs.normal(size=(b, d))).astype(np.float32), dev)
+    before = GATHER_RERANK_TWO_SEG.launches
+    got = ops.gather_rerank_topk(main, ids, q, w, k, delta=delta)
+    torch.cuda.synchronize()
+    assert GATHER_RERANK_TWO_SEG.launches == before + 1
+    old = _old_schedule(main, ids, q, w, k, delta=delta)
+    assert torch.equal(got[0], old[0]) and torch.equal(got[1], old[1])
+    cat = torch.cat([main, delta])
+    _check_topk(got, ops.gather_rerank_topk(main, ids, q, w, k, delta=delta, force="plain"),
+                cat, q, w)
