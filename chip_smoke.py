@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch port (``src/repro_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --digests    # only alsh_project's output digests
 
 Phases, each of which fails the run (exit code 1) when it fails:
 
@@ -13,8 +14,9 @@ Phases, each of which fails the run (exit code 1) when it fails:
   3. service set-up, made once and shared by the later phases: the
      ``SERVICE`` configuration's (n=262,144, d=128, M=32, K=12, L=32,
      C=128) near-duplicate clusters (see ``Workload``) and query batch, the
-     f32 theta index built over them on the card with ``Index.build``, and
-     the batch's deduped probe candidates;
+     f32 theta index built over them on the card with ``Index.build`` (one
+     more build profiled: device time by kernel and idle share), and the
+     batch's deduped probe candidates;
   4. one phase per kernel, at the service widths: the kernel and its plain
      PyTorch version run on the same seeded inputs on the card and must
      agree (tolerances printed with each phase); the kernel's time (CUDA
@@ -40,7 +42,14 @@ Phases, each of which fails the run (exit code 1) when it fails:
      ``torch.cat([main, delta])``. The materializing scan ``wl1_scan`` runs
      at n=65,536 and 262,144 (b=64, d=128) and the re-rank ``wl1_rerank``
      at b=64, d=128, C=512 and 4096, each also on a ragged shape, against
-     their plain versions at rtol/atol 1e-4;
+     their plain versions at rtol/atol 1e-4. The exact scan
+     ``wl1_scan_topk`` runs at the service batch (n=262,144, b=1024), the
+     main path's recall check (b=64) and the recorded shape (n=65,536,
+     b=64), and at each must also equal, bit for bit, ``wl1_scan`` then a
+     stable sort of each query's distances (the first k, +inf -> id -1),
+     with the row splits S it used. ``alsh_project`` (build and query
+     width) must return the same bytes from two calls, and prints a
+     sha256 of its output's bytes;
   5. main paths, each with every launch counter zeroed just before its
      queries and read just after; a kernel of the path that was never
      launched fails the run:
@@ -95,6 +104,7 @@ and prints no result.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import subprocess
 import sys
@@ -178,6 +188,22 @@ def time_ms(fn, iters: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def clock_under_load(fn, seconds: float = 0.6) -> str:
+    """``nvidia-smi``'s SM clock and power draw, read while ``fn`` runs back
+    to back on the card for about ``seconds`` (launches queued first)."""
+    import torch
+
+    reps = max(1, int(seconds * 1e3 / max(time_ms(fn, iters=2), 1e-3)))
+    for _ in range(reps):
+        fn()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    torch.cuda.synchronize()
+    return smi.stdout.strip().splitlines()[0]
 
 
 class Run:
@@ -286,6 +312,8 @@ class Service:
         print(f"  [theta] built the f32 index over n={self.index.n} d={cfg.d} K={cfg.K} "
               f"L={cfg.L} C={cfg.max_candidates} on {self.index.device} in "
               f"{time.perf_counter() - t0:.3f} s")
+        profile("of one Index.build (SERVICE)",
+                lambda: tapi.Index.build(SEED + 2, self.wl.data, cfg), unprofiled_wall=True)
         keys = probe_keys(self.index.state, self.q, self.w, cfg)
         cand = sources_for(self.index.state, None, None, cfg, keys)[0].emit(self.q, self.w)
         self.cand, n_cand = _dedupe_candidates(cand, self.index.n)
@@ -377,6 +405,34 @@ def gather_bound(ids, n: int, d: int, k: int, row_bytes: int, scaled: bool):
     return (*bound(nbytes, flops), nbytes, flops, nv * d * row_bytes)
 
 
+def digest(t) -> str:
+    """The first 16 hex digits of the sha256 of a tensor's bytes."""
+    return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def projection_digests() -> dict:
+    """``alsh_project``'s output digests at build and query width on the
+    inputs ``phase_alsh_project`` uses, through ``ops.alsh_project(levels,
+    folded, weights)`` alone, so that the same file run beside an older tree
+    of the repository (``python3 chip_smoke.py --digests``) compares two
+    trees' kernels byte for byte."""
+    import torch
+
+    from repro_torch.configs.paper_alsh import SERVICE
+    from repro_torch.core import hash_families as hf
+    from repro_torch.core.transforms import discretize
+    from repro_torch.kernels import ops
+
+    cfg = SERVICE.index_config
+    wl = Workload(SERVICE.n_per_shard, SERVICE.d)
+    q, w = wl.batch(SERVICE.query_batch, SEED + 1)
+    tables = hf.make_prefix_tables(torch.Generator().manual_seed(SEED), cfg.lsh_params)
+    folded = tables.folded.to(wl.data.device).contiguous()
+    return {label: digest(ops.alsh_project(levels, folded, weights))
+            for label, levels, weights in (("build", discretize(wl.data, cfg.space), None),
+                                           ("query", discretize(q, cfg.space), w))}
+
+
 def phase_alsh_project(run, svc):
     import torch
     import torch.nn.functional as F
@@ -389,29 +445,43 @@ def phase_alsh_project(run, svc):
     cfg = SERVICE.index_config
     data, q, w = svc.wl.data, svc.q, svc.w
     tables = hf.make_prefix_tables(torch.Generator().manual_seed(SEED), cfg.lsh_params).to(data.device)
-    folded = tables.folded.contiguous()
+    folded, tiled = tables.folded.contiguous(), tables.tiled
     H, d, m1 = folded.shape
     for label, levels, weights in (
         ("build", discretize(data, cfg.space), None),
         ("query", discretize(q, cfg.space), w),
     ):
         n = levels.shape[0]
-        got = ops.alsh_project(levels, folded, weights)
+
+        def kernel():
+            return ops.alsh_project(levels, folded, weights, tiled=tiled)
+
+        got = kernel()
         want = ops.alsh_project(levels, folded, weights, force="plain")
+        again = kernel()
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         far = want.abs() > PROJ_ATOL  # theta codes are compared away from 0 only
         flips = int(((got >= 0) != (want >= 0))[far].sum())
+        same = torch.equal(got.view(torch.int32), again.view(torch.int32))
+        sha = digest(got)
         print(f"  {label}: levels ({n}, {d}) x folded ({H}, {d}, {m1})"
               f"{' weighted' if weights is not None else ''}: max_abs_err={err:.3g} "
               f"(atol {PROJ_ATOL}); theta-code flips away from 0: {flips} "
-              f"({int((~far).sum())} projections within atol of 0)")
+              f"({int((~far).sum())} projections within atol of 0); two calls identical "
+              f"bytes: {same}; sha256 of the output bytes {sha}")
         if err > PROJ_ATOL or flips:
             raise AssertionError(f"alsh_project {label}: kernel disagrees with the plain version")
-        ms = time_ms(lambda: ops.alsh_project(levels, folded, weights), iters=10, warmup=2)
+        if not same:
+            raise AssertionError(f"alsh_project {label}: two calls returned different bytes")
+        del again
+        ms = time_ms(kernel, iters=10, warmup=2)
         plain_ms = time_ms(lambda: ops.alsh_project(levels, folded, weights, force="plain"),
                            iters=1)
-        profile(f"alsh_project {label}", lambda: ops.alsh_project(levels, folded, weights), top=2)
+        dev_us = profile(f"alsh_project {label}", kernel, top=2)
+        clock = clock_under_load(kernel) if label == "build" else None
+        if clock:
+            print(f"  {label}: SM clock, power under a stream of calls: {clock}")
         # library yardstick: the TPU kernel's own formulation, a one-hot
         # (n, d*(M+1)) x (d*(M+1), H) f32 product (one-hot built outside the timing)
         onehot = F.one_hot(levels.long(), m1).float()
@@ -428,13 +498,15 @@ def phase_alsh_project(run, svc):
         print(f"  {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, one-hot matmul "
               f"{lib_ms:.4f} ms; bound {b_ms * 1e3:.1f} us by {b_by} "
               f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+        dev_ms = None if dev_us is None else dev_us / 1e3
         if label == "build":  # the JSON line reports the build-width call
             run.record("alsh_project", max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                       bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+                       bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, device_ms=dev_ms,
+                       sha256=sha, clock_under_load=clock)
         else:
             run.kernels["alsh_project"]["query_shape"] = {
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "library_ms": lib_ms,
-                "max_abs_err": err,
+                "max_abs_err": err, "device_ms": dev_ms, "sha256": sha,
             }
 
 
@@ -733,13 +805,34 @@ def phase_gather_rerank_blocked_two_seg(run, svc, seg):
                cases=out)
 
 
-def phase_scan(run, svc):
+def sorted_scan_topk(data, q, w, k):
+    """The first k of ``wl1_scan``'s distances under a stable sort, (+inf,
+    -1) past the finite ones: what ``wl1_scan_topk`` must return bit for bit."""
     import torch
 
     from repro_torch.kernels import ops
 
+    dists = ops.wl1_scan(data, q, w)
+    sd, order = torch.sort(dists, dim=1, stable=True)
+    del dists
+    kk = min(k, sd.shape[1])
+    out_d = torch.full((q.shape[0], k), float("inf"), device=data.device)
+    out_i = torch.full((q.shape[0], k), -1, dtype=torch.int32, device=data.device)
+    out_d[:, :kk] = sd[:, :kk]
+    out_i[:, :kk] = order[:, :kk].to(torch.int32)
+    out_i[~torch.isfinite(out_d)] = -1
+    return out_d, out_i
+
+
+def phase_scan(run, svc):
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.wl1_topk import scan_splits
+
     data, q, w = svc.wl.data, svc.q, svc.w
     k = 10
+    sms = torch.cuda.get_device_properties(data.device).multi_processor_count
     # service: exact mode on a full batch; main: the main path's recall check
     # (exact mode on a batch's first 64 queries); recorded: the repo's kernel shape
     for label, n, b in (("service", data.shape[0], q.shape[0]), ("main", data.shape[0], 64),
@@ -750,23 +843,37 @@ def phase_scan(run, svc):
         want = ops.wl1_scan_topk(dn, qb, wb, k, force="plain")
         torch.cuda.synchronize()
         err = _check_topk(f"wl1_scan_topk {label} n={n} b={b}", got, want, dn, qb, wb)
+        sd, si = sorted_scan_topk(dn, qb, wb, k)
+        bitwise = torch.equal(got[0], sd) and torch.equal(got[1], si)
+        print(f"  wl1_scan_topk {label}: bit-equal to wl1_scan + stable sort: {bitwise}")
+        if not bitwise:
+            raise AssertionError(f"wl1_scan_topk {label}: differs from wl1_scan + stable sort")
+        del sd, si
+        S = scan_splits(n, b, k, sms)
         ms = time_ms(lambda: ops.wl1_scan_topk(dn, qb, wb, k), iters=5, warmup=2)
         plain_ms = time_ms(lambda: ops.wl1_scan_topk(dn, qb, wb, k, force="plain"), iters=1)
-        profile(f"wl1_scan_topk {label}", lambda: ops.wl1_scan_topk(dn, qb, wb, k), top=3)
+        dev_us = profile(f"wl1_scan_topk {label}", lambda: ops.wl1_scan_topk(dn, qb, wb, k),
+                         top=3)
+        clock = None
+        if label == "service":
+            clock = clock_under_load(lambda: ops.wl1_scan_topk(dn, qb, wb, k))
+            print(f"  {label}: SM clock, power under a stream of calls: {clock}")
         nbytes = 4 * (n * d + 2 * b * d) + 8 * b * k
         flops = 3 * b * n * d
         b_ms, b_by = bound(nbytes, flops)
-        print(f"  {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library: none; "
+        print(f"  {label}: S={S}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library: none; "
               f"bound {b_ms * 1e3:.1f} us by {b_by} ({nbytes / 1e6:.1f} MB, "
               f"{flops / 1e9:.1f} GFLOP)")
+        numbers = {"n": n, "b": b, "splits": S, "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": b_ms, "max_abs_err": err,
+                   "device_ms": None if dev_us is None else dev_us / 1e3}
         if label == "service":
             run.record("wl1_scan_topk", max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                       bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                       bound_ms=b_ms, bound_by=b_by, library_ms=None, splits=S,
+                       device_ms=numbers["device_ms"], clock_under_load=clock)
         else:
-            run.kernels["wl1_scan_topk"][f"{label}_shape"] = {
-                "n": n, "b": b, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                "max_abs_err": err,
-            }
+            run.kernels["wl1_scan_topk"][f"{label}_shape"] = numbers
+    torch.cuda.empty_cache()  # the stable-sort check's ~4 GB stays out of the later phases
 
 
 def _wl1_check(label, got, want):
@@ -920,7 +1027,8 @@ def _serve(family: str, batches: int, wl, index=None, **overrides):
 def profile(label, fn, top=12, unprofiled_wall=False):
     """Print device time by kernel and the device's idle share over one
     call of ``fn`` (torch.profiler; diagnostics, the run does not depend on
-    them). With ``unprofiled_wall`` the same call is first timed without the
+    them) and return the device busy time in us (None when not measured).
+    With ``unprofiled_wall`` the same call is first timed without the
     profiler, and the idle share is also estimated against that wall time."""
     import torch
     from torch.autograd import DeviceType
@@ -944,11 +1052,11 @@ def profile(label, fn, top=12, unprofiled_wall=False):
                 if e.device_type != DeviceType.CPU and e.self_device_time_total > 0]
     except Exception as e:  # diagnostics only: a profiler fault must not fail the run
         print(f"  profile {label}: not measured ({type(e).__name__}: {e})")
-        return
+        return None
     busy_us = sum(e.self_device_time_total for e in rows)
     if busy_us == 0:
         print(f"  profile {label}: no device time recorded (not measured)")
-        return
+        return None
     print(f"  profile {label}: wall {wall_us:.0f} us (profiler on), device busy {busy_us:.0f} us, "
           f"idle share {max(0.0, 1 - busy_us / wall_us):.3f}")
     if plain_wall_us is not None:
@@ -957,6 +1065,7 @@ def profile(label, fn, top=12, unprofiled_wall=False):
               f"{max(0.0, 1 - busy_us / plain_wall_us):.3f}")
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:top]:
         print(f"    {e.self_device_time_total:9.1f} us  x{e.count:<4d} {e.key[:90]}")
+    return busy_us
 
 
 def _path_counts(label, needed):
@@ -1491,6 +1600,9 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if sys.argv[1:] == ["--digests"]:
+        print(json.dumps(projection_digests()))
+        return 0
 
     run = Run()
     dev = run.phase("device", phase_device)

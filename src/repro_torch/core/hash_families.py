@@ -21,6 +21,7 @@ import torch
 
 from repro_torch.core.families import get_family
 from repro_torch.kernels import ops
+from repro_torch.kernels.alsh_project import tile_folded
 
 __all__ = [
     "LSHParams",
@@ -51,10 +52,18 @@ class PrefixTables:
 
     folded: (H, d, M+1) — b'[h, i, m] = suffix_cos[h, i, m] + prefix_sin[h, i, m]
     offsets: (H,) — the uniform offset b ~ U[0, W] for l2 (zeros for theta).
+    tiled: the CUDA kernel's relayout of ``folded`` (``tile_folded``), made
+    once here when ``folded`` lies on the card; None elsewhere.
     """
 
     folded: torch.Tensor
     offsets: torch.Tensor
+    tiled: torch.Tensor | None = dataclasses.field(default=None, init=False, repr=False,
+                                                   compare=False)
+
+    def __post_init__(self):
+        if self.folded.is_cuda:
+            self.tiled = tile_folded(self.folded)
 
     def to(self, device) -> "PrefixTables":
         return PrefixTables(self.folded.to(device), self.offsets.to(device))
@@ -93,14 +102,14 @@ def make_prefix_tables(
 
 def project_data(levels: torch.Tensor, tables: PrefixTables) -> torch.Tensor:
     """a^T P(o) for a batch of lattice points: (n, d) int32 -> (n, H) f32."""
-    return ops.alsh_project(levels, tables.folded, weights=None)
+    return ops.alsh_project(levels, tables.folded, weights=None, tiled=tables.tiled)
 
 
 def project_query(
     levels: torch.Tensor, w: torch.Tensor, tables: PrefixTables
 ) -> torch.Tensor:
     """a^T Q_w(q): the asymmetric (weighted) projection, (b, d) -> (b, H)."""
-    return ops.alsh_project(levels, tables.folded, weights=w)
+    return ops.alsh_project(levels, tables.folded, weights=w, tiled=tables.tiled)
 
 
 def hash_data(levels: torch.Tensor, tables: PrefixTables, params: LSHParams) -> torch.Tensor:

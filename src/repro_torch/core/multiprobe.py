@@ -50,7 +50,8 @@ def multiprobe_keys_for(
         )
     b = queries.shape[0]
     qlevels = transforms.discretize(queries, cfg.space)
-    proj = ops.alsh_project(qlevels, index.tables.folded, weights)  # (b, H)
+    proj = ops.alsh_project(qlevels, index.tables.folded, weights,
+                            tiled=index.tables.tiled)  # (b, H)
     keys = family.multiprobe_keys(proj.reshape(b, cfg.L, cfg.K), n_probes, max_flips)
     if not with_ranks:
         return keys

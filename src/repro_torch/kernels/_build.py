@@ -162,10 +162,7 @@ GATHER_RERANK_BLOCKED_TWO_SEG = Kernel(
 WL1_SCAN_TOPK = Kernel(
     "wl1_scan_topk",
     "wl1_topk.cu",
-    {
-        "wl1_scan_splits": [_I, _I],
-        "wl1_scan_topk_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    },
+    {"wl1_scan_topk_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]},
 )
 WL1_SCAN = Kernel(
     "wl1_scan",

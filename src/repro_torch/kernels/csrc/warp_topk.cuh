@@ -1,5 +1,5 @@
-// A warp's running top-k list in shared memory, shared by the gather/rerank
-// and scan kernels, and the k-way merge of several such lists.
+// A warp's running top-k list in shared memory (the gather/rerank kernels),
+// and the k-way merge of several sorted lists (the gathers and the scan).
 //
 // The list holds k (dist, id) entries in ascending dist order; empty slots
 // are (+inf, -1). Every lane of the warp calls the helpers with the same
@@ -55,21 +55,6 @@ __device__ __forceinline__ float warp_topk_insert(float* td, int* ti, int k, flo
     __syncwarp();
   }
   return td[k - 1];
-}
-
-// Offers the 32 lanes' candidates (one per lane, lane order = arrival
-// order) to the list; lanes with ok == false offer nothing.
-__device__ __forceinline__ float warp_topk_offer(float* td, int* ti, int k, float worst, float dv,
-                                                 int id, bool ok, int lane) {
-  unsigned pass = __ballot_sync(FULL_MASK, ok && dv < worst);
-  while (pass) {
-    const int src = __ffs(pass) - 1;
-    pass &= pass - 1;
-    const float v = __shfl_sync(FULL_MASK, dv, src);
-    const int i = __shfl_sync(FULL_MASK, id, src);
-    if (v < worst) worst = warp_topk_insert(td, ti, k, v, i, lane);
-  }
-  return worst;
 }
 
 // One warp merges nl lists of k entries each — list l is (ld, ls)[l*k, l*k+k),

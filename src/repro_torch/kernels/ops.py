@@ -40,12 +40,15 @@ def alsh_project(
     folded: torch.Tensor,
     weights: torch.Tensor | None = None,
     force: str | None = None,
+    tiled: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """§4.2.3 hash projection: (n, d) levels × (H, d, M+1) tables -> (n, H)."""
+    """§4.2.3 hash projection: (n, d) levels × (H, d, M+1) tables -> (n, H).
+    ``tiled`` is the kernel's relayout of ``folded`` (``PrefixTables.tiled``);
+    the kernel makes it when it is not given, the plain version ignores it."""
     if _use_kernel(levels, force):
         from repro_torch.kernels.alsh_project import alsh_project_cuda
 
-        return alsh_project_cuda(levels, folded, weights)
+        return alsh_project_cuda(levels, folded, weights, tiled)
     return ref.alsh_project(levels, folded, weights)
 
 

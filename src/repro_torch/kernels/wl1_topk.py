@@ -2,9 +2,10 @@
 
 Counterpart of ``repro.kernels.wl1_topk.wl1_scan_topk_pallas``: the k
 smallest d_w^l1 distances per query over every row, never writing the
-(b, n) distance matrix. Two launches — per-split partial top-k lists, then
-their merge — both hand-written. The plain version is
-``repro_torch.kernels.ref.wl1_scan_topk``.
+(b, n) distance matrix. The rows are cut into :func:`scan_splits` splits;
+one launch keeps each split's k smallest (dist, id) per query and, with
+more than one split, a second merges the splits' lists. Both are
+hand-written. The plain version is ``repro_torch.kernels.ref.wl1_scan_topk``.
 """
 
 from __future__ import annotations
@@ -15,9 +16,41 @@ from repro_torch.kernels._build import WL1_SCAN_TOPK as KERNEL
 from repro_torch.kernels._build import require, stream_of
 
 SMEM_LIMIT = 227 * 1024
-# floats of the partial kernel's staged tiles: q/w (32 x 68 each) + rows (256 x 33)
-_TILE_FLOATS = 2 * 32 * 68 + 256 * 33
-_BQ = 64  # queries per block
+# The partial kernel's schedule, as in csrc/wl1_topk.cu
+BLOCK_QUERIES = 64  # queries per block
+TILE_ROWS = 256  # rows per tile; a split is a run of whole tiles
+BLOCKS_PER_SM = 2  # blocks per SM its registers and shared memory allow
+MERGE_ENTRIES = 4096  # most split-list entries (S * k) one merge block stages
+CANDIDATE_BUFFER = 32  # survivors a query holds before they are folded into its list
+# bytes of the partial kernel's shared memory besides the per-k lists: a ring
+# of 3 staged chunks (q/w 16 x 68 each + rows 256 x 17 floats), 64 candidate
+# buffers of 32 (dist, id), 64 taus and fills
+_FIXED_BYTES = 4 * (3 * (2 * 16 * 68 + 256 * 17) + 2 * 64 * 32 + 2 * 64)
+_BYTES_PER_K = 8 * (64 + 8)  # (dist, id) lists of 64 queries + 8 warps' fold scratch
+
+
+def scan_splits(n: int, b: int, k: int, sm_count: int) -> int:
+    """The number of row splits ``S`` of the scan for ``n`` rows, ``b``
+    queries and top-``k`` on a card of ``sm_count`` SMs.
+
+    A block owns one query tile of ``BLOCK_QUERIES`` and one split. ``S`` is
+    the most that keeps the grid within one wave of ``BLOCKS_PER_SM``
+    blocks per SM, never more than the ``TILE_ROWS``-row tiles, and never so
+    many that a query's split lists (``S * k`` entries) outgrow the merge
+    block's ``MERGE_ENTRIES``. The splits are whole tiles, ``ceil(tiles /
+    S)`` each, and ``S`` is then trimmed so that none is empty."""
+    tiles = -(-n // TILE_ROWS)
+    if tiles == 0 or b <= 0:
+        return 1
+    qtiles = -(-b // BLOCK_QUERIES)
+    S = max(1, min(BLOCKS_PER_SM * sm_count // qtiles, tiles, MERGE_ENTRIES // k))
+    per = -(-tiles // S)
+    return -(-tiles // per)
+
+
+def smem_bytes(k: int) -> int:
+    """Shared memory of one partial block for top-``k``."""
+    return _FIXED_BYTES + _BYTES_PER_K * k
 
 
 def wl1_scan_topk_cuda(
@@ -40,7 +73,7 @@ def wl1_scan_topk_cuda(
         )
     if not isinstance(k, int) or k <= 0:
         raise ValueError(f"k must be a positive int, got {k!r}")
-    if 4 * (_TILE_FLOATS + 2 * _BQ * k) > SMEM_LIMIT:
+    if smem_bytes(k) > SMEM_LIMIT:
         raise ValueError(f"wl1_scan_topk_cuda: k={k} exceeds one block's shared memory")
     out_d = torch.empty((b, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
@@ -48,15 +81,19 @@ def wl1_scan_topk_cuda(
         return out_d, out_i
     if n == 0:
         return out_d.fill_(float("inf")), out_i.fill_(-1)
+    S = scan_splits(n, b, k, torch.cuda.get_device_properties(dev).multi_processor_count)
+    part_d = part_i = None
+    if S > 1:
+        part_d = torch.empty((b, S, k), dtype=torch.float32, device=dev)
+        part_i = torch.empty((b, S, k), dtype=torch.int32, device=dev)
     lib = KERNEL.lib()
-    S = lib.wl1_scan_splits(n, b)
-    part_d = torch.empty((b, S, k), dtype=torch.float32, device=dev)
-    part_i = torch.empty((b, S, k), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         KERNEL.launches += 1
         err = lib.wl1_scan_topk_launch(
             data.data_ptr(), queries.data_ptr(), weights.data_ptr(),
-            part_d.data_ptr(), part_i.data_ptr(), out_d.data_ptr(), out_i.data_ptr(),
+            None if part_d is None else part_d.data_ptr(),
+            None if part_i is None else part_i.data_ptr(),
+            out_d.data_ptr(), out_i.data_ptr(),
             n, d, b, k, S,
             stream_of(data),
         )

@@ -597,3 +597,102 @@ def test_f32_split_kernel_two_segment_equals_the_one_warp_schedule(dev, n_main, 
     cat = torch.cat([main, delta])
     _check_topk(got, ops.gather_rerank_topk(main, ids, q, w, k, delta=delta, force="plain"),
                 cat, q, w)
+
+
+# The scan's filter-then-select top-k: bit for bit the first k of wl1_scan's
+# distances under a stable sort (the same sequential fmaf per distance), on
+# ragged shapes (n, b, d off every tile, k past one buffer of 32, one split
+# and many) and on tie-heavy data (each row 4 times, across tiles and splits).
+SCAN_SELECT_SHAPES = [
+    (1, 1, 1, 1),
+    (5, 3, 7, 8),  # n < k
+    (257, 65, 17, 33),  # one row past a tile, one query past a tile, k > 32
+    (5003, 70, 130, 10),
+    (70001, 37, 24, 50),  # many splits, a ragged last tile
+    (20000, 129, 128, 238),  # k at the shared-memory limit
+]
+
+
+def _stable_sorted_topk(data, q, w, k):
+    sd, order = torch.sort(ops.wl1_scan(data, q, w), dim=1, stable=True)
+    b, n = sd.shape
+    out_d = torch.full((b, k), float("inf"), device=data.device)
+    out_i = torch.full((b, k), -1, dtype=torch.int32, device=data.device)
+    out_d[:, : min(k, n)] = sd[:, :k]
+    out_i[:, : min(k, n)] = order[:, :k].to(torch.int32)
+    out_i[~torch.isfinite(out_d)] = -1
+    return out_d, out_i
+
+
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("n,b,d,k", SCAN_SELECT_SHAPES)
+def test_scan_topk_equals_scan_and_stable_sort(dev, n, b, d, k, ties):
+    from repro_torch.kernels._build import WL1_SCAN_TOPK
+    from repro_torch.kernels.wl1_topk import smem_bytes, SMEM_LIMIT
+
+    assert smem_bytes(238) <= SMEM_LIMIT < smem_bytes(239)
+    rs = np.random.default_rng(n + 3 * b + 5 * d + k + int(ties))
+    if ties:
+        base = rs.integers(-4, 5, (max(1, n // 4), d)).astype(np.float32) / 4
+        data = np.resize(base, (n, d))  # rows r and r + n // 4 tie exactly
+    else:
+        data = rs.normal(size=(n, d)).astype(np.float32)
+    data, q = _t(data, dev), _t(rs.normal(size=(b, d)).astype(np.float32), dev)
+    w = _t(rs.normal(size=(b, d)).astype(np.float32), dev)  # negative weights too
+    before = WL1_SCAN_TOPK.launches
+    got = ops.wl1_scan_topk(data, q, w, k)
+    torch.cuda.synchronize()
+    assert WL1_SCAN_TOPK.launches == before + 1
+    want = _stable_sorted_topk(data, q, w, k)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    if ties and n >= 8 and k > 1:
+        gd = got[0].cpu()
+        assert bool(((gd[:, 1:] == gd[:, :-1]) & torch.isfinite(gd[:, 1:])).any())
+
+
+def test_scan_topk_rows_at_infinity(dev):
+    """Rows at +inf never enter: with fewer finite rows than k the list ends
+    in (+inf, -1), as wl1_scan + stable sort + the sentinel rule give."""
+    rs = np.random.default_rng(9)
+    data = rs.normal(size=(600, 12)).astype(np.float32)
+    data[5:] = np.inf
+    data, q = _t(data, dev), _t(rs.normal(size=(3, 12)).astype(np.float32), dev)
+    w = _t(np.abs(rs.normal(size=(3, 12))).astype(np.float32) + 0.1, dev)
+    got = ops.wl1_scan_topk(data, q, w, 8)
+    want = _stable_sorted_topk(data, q, w, 8)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert got[1][:, 5:].eq(-1).all()
+
+
+# alsh_project's launch branches (csrc/alsh_project.cu): 256-row tiles when
+# ceil(n / 256) * ceil(H / 64) >= 264, else 64-row tiles; within each, the
+# widest coordinate chunk whose ring fits (M+1 = 17 and 33: 4, 65: 2 on
+# 256-row tiles; 101: 2 and 201: 1 on both). Ragged n, H and d throughout.
+PROJECT_BRANCH_SHAPES = [
+    (70001, 23, 40, 16),
+    (70001, 23, 40, 32),
+    (70001, 23, 40, 64),
+    (67000, 9, 70, 200),
+    (3001, 37, 130, 16),
+    (3001, 37, 130, 32),
+    (3001, 37, 130, 64),
+    (777, 5, 65, 100),
+]
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("n,d,H,M", PROJECT_BRANCH_SHAPES)
+def test_alsh_project_branches_match_plain_and_repeat(dev, n, d, H, M, weighted):
+    from repro_torch.kernels.alsh_project import tile_folded
+
+    rs = np.random.default_rng(n + d + H + M + int(weighted))
+    levels = _t(rs.integers(-2, M + 3, (n, d), dtype=np.int32), dev)  # some clamped
+    folded = _t(rs.normal(size=(H, d, M + 1)).astype(np.float32), dev)
+    w = _t(rs.normal(size=(n, d)).astype(np.float32), dev) if weighted else None
+    tiled = tile_folded(folded)
+    got = ops.alsh_project(levels, folded, w, tiled=tiled)
+    again = ops.alsh_project(levels, folded, w)  # the kernel makes its own relayout
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    want = ops.alsh_project(levels.clamp(0, M), folded, w, force="plain")
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
