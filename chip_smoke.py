@@ -29,17 +29,23 @@ Phases, each of which fails the run (exit code 1) when it fails:
      P=1034), a stream batch's over two segments (b=1024, P=12,288) and
      the exact mode of a mutable index (two segments, b=64, every id) — and
      at each must also equal, bit for bit, the one-warp-per-query schedule
-     on the same inputs (the quantized kernel's f32 instantiation), timed
-     beside it with the number of slot splits S the launch used.
-     The quantized gather runs three cases over the service candidates —
+     on the same inputs (``gather_rerank_topk_warp_cuda``, the reference
+     entry of the stored-type source), timed beside it with the number of
+     slot splits S the launch used.
+     The quantized gather runs four cases — over the service candidates
      int8 with scales (the exact pass), int8 with the proxy query (the
-     screen pass) and bf16 — and each must also equal, bit for bit, the f32
-     kernel over the decoded table. The two two-segment gathers (f32, and
-     int8 with scales and with the proxy query) run over the SERVICE main
-     table plus a delta of 8192 near-duplicate rows, on a stream batch's
-     deduped candidates from the main windows and the delta match; each
-     must also equal, bit for bit, its single-segment kernel over
-     ``torch.cat([main, delta])``. The materializing scan ``wl1_scan`` runs
+     screen pass) and bf16, and the exact pass over the screen's survivors —
+     each on the schedule the host picks (printed), and each must also
+     equal, bit for bit, the f32 kernel over the decoded table and the
+     one-warp schedule over the payload, both timed beside it (over the
+     survivors also as device time per call, from the profiler). The two
+     two-segment gathers (f32, and int8 with scales and with the proxy
+     query) run over the SERVICE main table plus a delta of 8192
+     near-duplicate rows, on a stream batch's deduped candidates from the
+     main windows and the delta match; each must also equal, bit for bit,
+     its single-segment kernel over ``torch.cat([main, delta])``, and the
+     quantized one also the f32 two-segment kernel over the decoded tables
+     and the one-warp schedule, all timed beside it. The materializing scan ``wl1_scan`` runs
      at n=65,536 and 262,144 (b=64, d=128) and the re-rank ``wl1_rerank``
      at b=64, d=128, C=512 and 4096, each also on a ragged shape, against
      their plain versions at rtol/atol 1e-4. The exact scan
@@ -129,6 +135,7 @@ L2_W = 64.0  # l2 bucket width of the l2 batch (the projections' scale; see PERF
 L2_RECALL_FLOOR = 0.5
 QUANT_RECALL_FLOOR = 0.5  # recall@10 of a quantized batch against its own exact mode
 SCREEN_ALPHA = 2.0  # the serve CLI's default --screen-alpha
+SURVIVOR_CALLS = 20  # calls profiled for the device time of the exact pass over the survivors
 
 KERNEL_META = {
     "alsh_project": ("src/repro_torch/kernels/csrc/alsh_project.cu",
@@ -533,23 +540,23 @@ def _check_topk(label, got, want, data, q, w):
 
 def _f32_gather_case(label, data, ids, q, w, k, delta=None, iters=10, old_iters=10):
     """The f32 kernel at one main-path shape: against its plain version, bit
-    for bit against the one-warp-per-query schedule on the same inputs (the
-    quantized kernel's f32 instantiation, ``gather_rerank_topk_blocked_cuda``
-    without scales; a difference fails the run), and timed beside both."""
+    for bit against the one-warp-per-query schedule on the same inputs
+    (``gather_rerank_topk_warp_cuda``; a difference fails the run), and
+    timed beside both."""
     import torch
 
     from repro_torch.kernels import ops
-    from repro_torch.kernels.gather_rerank import gather_rerank_topk_blocked_cuda, gather_splits
+    from repro_torch.kernels.gather_rerank import f32_splits, gather_rerank_topk_warp_cuda
 
     b, P = ids.shape
     d = data.shape[1]
-    S = gather_splits(b, P, torch.cuda.get_device_properties(data.device).multi_processor_count)
+    S = f32_splits(data, ids, delta)
 
     def kernel():
         return ops.gather_rerank_topk(data, ids, q, w, k, delta=delta)
 
     def old():
-        return gather_rerank_topk_blocked_cuda(data, ids, q, w, k, delta=delta)
+        return gather_rerank_topk_warp_cuda(data, ids, q, w, k, delta=delta)
 
     got = kernel()
     want = ops.gather_rerank_topk(data, ids, q, w, k, delta=delta, force="plain")
@@ -624,13 +631,35 @@ def phase_gather_rerank(run, svc):
                shapes=shapes)
 
 
+def _schedule(payload, ids, scales, delta=None) -> tuple[int, str]:
+    """The stored-type kernel's schedule for these inputs, as the wrapper
+    picks it, and how it reads."""
+    from repro_torch.kernels.gather_rerank import WARP_SCHEDULE, stored_schedule
+
+    S = stored_schedule(payload, ids, scales, delta)
+    return S, ("one warp per query" if S == WARP_SCHEDULE else f"split, S={S}")
+
+
+def _same_bits(label, got, ref, what):
+    """Fails the run unless ``got`` equals ``ref`` bit for bit."""
+    import torch
+
+    bitwise = torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    print(f"  {label}: bit-equal to {what}: {bitwise}")
+    if not bitwise:
+        raise AssertionError(f"{label}: differs from {what}")
+
+
 def phase_gather_rerank_blocked(run, svc):
     import torch
 
     from repro_torch import quant
     from repro_torch.configs.paper_alsh import SERVICE
     from repro_torch.kernels import ops
-    from repro_torch.kernels.gather_rerank import gather_rerank_topk_cuda
+    from repro_torch.kernels.gather_rerank import (
+        gather_rerank_topk_cuda,
+        gather_rerank_topk_warp_cuda,
+    )
 
     data, q, w, cand = svc.wl.data, svc.q, svc.w, svc.cand
     (n, d), P = data.shape, cand.shape[1]
@@ -654,18 +683,20 @@ def phase_gather_rerank_blocked(run, svc):
         def kernel():
             return ops.gather_rerank_topk(payload, ids, qq, ww, kk, scales=scales)
 
+        def one_warp():
+            return gather_rerank_topk_warp_cuda(payload, ids, qq, ww, kk, scales=scales)
+
+        S, sched = _schedule(payload, ids, scales)
         got = kernel()
         want = ops.gather_rerank_topk(payload, ids, qq, ww, kk, scales=scales, force="plain")
         torch.cuda.synchronize()
         decoded = quant.decode_table(payload, scales)
         err = _check_topk(label, got, want, decoded, qq, ww)
-        f32 = gather_rerank_topk_cuda(decoded.contiguous(), ids, qq, ww, kk)
-        bitwise = torch.equal(got[0], f32[0]) and torch.equal(got[1], f32[1])
-        print(f"  {label}: bit-equal to the f32 kernel (its split schedule) over the decoded "
-              f"table: {bitwise}")
-        if not bitwise:
-            raise AssertionError(f"{label}: differs from the f32 kernel over the decoded table")
+        _same_bits(label, got, gather_rerank_topk_cuda(decoded.contiguous(), ids, qq, ww, kk),
+                   "the f32 kernel (its split schedule) over the decoded table")
+        _same_bits(label, got, one_warp(), "the one-warp-per-query schedule")
         ms = time_ms(kernel, iters=10, warmup=2)
+        warp_ms = time_ms(one_warp, iters=10, warmup=1)
         plain_ms = time_ms(
             lambda: ops.gather_rerank_topk(payload, ids, qq, ww, kk, scales=scales,
                                            force="plain"), iters=1)
@@ -674,28 +705,42 @@ def phase_gather_rerank_blocked(run, svc):
         b_ms, b_by, nbytes, flops, l2_bytes = gather_bound(
             ids, n, d, kk, payload.element_size(), scaled=scales is not None)
         nv, nd = int((ids < n).sum()), distinct_rows(ids, n)
-        print(f"  {label}: ids {tuple(ids.shape)}, {nv} valid, {nd} distinct rows; kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, f32 kernel over the decoded table "
-              f"{f32_ms:.4f} ms, library: none; bound {b_ms * 1e3:.1f} us by {b_by} "
-              f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP); rows gathered per query, "
-              f"served by HBM or L2: {l2_bytes / 1e6:.1f} MB")
+        print(f"  {label}: ids {tuple(ids.shape)}, {nv} valid, {nd} distinct rows; {sched}; "
+              f"kernel {ms:.4f} ms, one-warp schedule {warp_ms:.4f} ms ({warp_ms / ms:.2f}x), "
+              f"f32 kernel over the decoded table {f32_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"library: none; bound {b_ms * 1e3:.1f} us by {b_by} ({nbytes / 1e6:.1f} MB, "
+              f"{flops / 1e9:.3f} GFLOP); rows gathered per query, served by HBM or L2: "
+              f"{l2_bytes / 1e6:.1f} MB")
         out[label] = {"ids_shape": list(ids.shape), "valid_ids": nv, "distinct_rows": nd,
-                      "k": kk,
-                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "f32_ms": f32_ms,
+                      "k": kk, "splits": S,
+                      "max_abs_err": err, "ms": ms, "old_schedule_ms": warp_ms,
+                      "plain_ms": plain_ms, "f32_ms": f32_ms,
                       "bound_ms": b_ms, "bound_by": b_by}
     profile("gather_rerank_topk_blocked (int8 screen pass)",
             lambda: ops.gather_rerank_topk(p8, cand, qp, wp, keep), top=2)
-    # at 20 survivors per query the events time may hold host time between
-    # launches; the profiler's device time of one call separates the two
-    profile("gather_rerank_topk_blocked (int8 exact pass over the survivors)",
-            lambda: ops.gather_rerank_topk(p8, surv, q, w, k, scales=s8), top=2)
+    # at 20 survivors per query the events time holds host time between
+    # launches; the profiler's device time of SURVIVOR_CALLS calls separates
+    # the two
     decoded8 = quant.decode_table(p8, s8)
-    profile("gather_rerank_topk (f32 over the decoded survivors)",
-            lambda: gather_rerank_topk_cuda(decoded8, surv, q, w, k), top=2)
+    survivors = out[cases[3][0]]
+    for key, label, fn in (
+        ("device_us", "gather_rerank_topk_blocked (int8 exact pass over the survivors)",
+         lambda: ops.gather_rerank_topk(p8, surv, q, w, k, scales=s8)),
+        ("old_schedule_device_us", "one-warp schedule (int8 exact pass over the survivors)",
+         lambda: gather_rerank_topk_warp_cuda(p8, surv, q, w, k, scales=s8)),
+        ("f32_device_us", "gather_rerank_topk (f32 over the decoded survivors)",
+         lambda: gather_rerank_topk_cuda(decoded8, surv, q, w, k)),
+    ):
+        busy = profile(f"{label}, {SURVIVOR_CALLS} calls",
+                       lambda: [fn() for _ in range(SURVIVOR_CALLS)], top=2)
+        survivors[key] = None if busy is None else busy / SURVIVOR_CALLS
+        if busy is not None:
+            print(f"  {label}: device time per call {busy / SURVIVOR_CALLS:.2f} us")
     main = out[cases[0][0]]
     run.record("gather_rerank_topk_blocked", max_abs_err=main["max_abs_err"], ms=main["ms"],
                plain_ms=main["plain_ms"], bound_ms=main["bound_ms"], bound_by=main["bound_by"],
-               library_ms=None, cases=out)
+               library_ms=None, splits=main["splits"], old_schedule_ms=main["old_schedule_ms"],
+               cases=out)
 
 
 def phase_gather_rerank_two_seg(run, svc, seg):
@@ -747,13 +792,18 @@ def phase_gather_rerank_blocked_two_seg(run, svc, seg):
     and int8 with the proxy query (the screen pass) over the int8 main
     table and the delta encoded with its scales; against the plain version
     and, bit for bit, the single-segment kernel over the concatenated
-    payload."""
+    payload, the f32 two-segment kernel over the decoded tables and the
+    one-warp schedule, each timed beside it."""
     import torch
 
     from repro_torch import quant
     from repro_torch.configs.paper_alsh import SERVICE
     from repro_torch.kernels import ops
-    from repro_torch.kernels.gather_rerank import gather_rerank_topk_blocked_cuda
+    from repro_torch.kernels.gather_rerank import (
+        gather_rerank_topk_blocked_cuda,
+        gather_rerank_topk_cuda,
+        gather_rerank_topk_warp_cuda,
+    )
 
     main, q, w, cand = svc.wl.data, seg.q, seg.w, seg.cand
     d, P, k = main.shape[1], cand.shape[1], SERVICE.topk
@@ -768,21 +818,32 @@ def phase_gather_rerank_blocked_two_seg(run, svc, seg):
         ("int8, scales: exact pass over all candidates", s8, q, w, k),
         (f"int8, proxy q/w: screen pass keeping {keep}", None, qp, wp, keep),
     ):
+        dec_main = quant.decode_table(p8, scales).contiguous()
+        dec_delta = quant.decode_table(d8, scales).contiguous()
+
         def kernel():
             return ops.gather_rerank_topk(p8, cand, qq, ww, kk, scales=scales, delta=d8)
 
+        def one_warp():
+            return gather_rerank_topk_warp_cuda(p8, cand, qq, ww, kk, scales=scales, delta=d8)
+
+        def f32():
+            return gather_rerank_topk_cuda(dec_main, cand, qq, ww, kk, delta=dec_delta)
+
+        S, sched = _schedule(p8, cand, scales, d8)
         got = kernel()
         want = ops.gather_rerank_topk(p8, cand, qq, ww, kk, scales=scales, delta=d8,
                                       force="plain")
         torch.cuda.synchronize()
         err = _check_topk(label, got, want, quant.decode_table(cat8, scales), qq, ww)
-        single = gather_rerank_topk_blocked_cuda(cat8, cand, qq, ww, kk, scales=scales)
-        bitwise = torch.equal(got[0], single[0]) and torch.equal(got[1], single[1])
-        print(f"  {label}: bit-equal to the single-segment kernel over torch.cat([main, delta]): "
-              f"{bitwise}")
-        if not bitwise:
-            raise AssertionError(f"{label}: differs from the concatenated-table kernel")
+        _same_bits(label, got, gather_rerank_topk_blocked_cuda(cat8, cand, qq, ww, kk,
+                                                               scales=scales),
+                   "the single-segment kernel over torch.cat([main, delta])")
+        _same_bits(label, got, f32(), "the f32 two-segment kernel over the decoded tables")
+        _same_bits(label, got, one_warp(), "the one-warp-per-query schedule")
         ms = time_ms(kernel, iters=10, warmup=2)
+        warp_ms = time_ms(one_warp, iters=10, warmup=1)
+        f32_ms = time_ms(f32, iters=10, warmup=1)
         plain_ms = time_ms(lambda: ops.gather_rerank_topk(p8, cand, qq, ww, kk, scales=scales,
                                                           delta=d8, force="plain"), iters=1)
         single_ms = time_ms(lambda: gather_rerank_topk_blocked_cuda(cat8, cand, qq, ww, kk,
@@ -790,18 +851,24 @@ def phase_gather_rerank_blocked_two_seg(run, svc, seg):
                             iters=10, warmup=1)
         b_ms, b_by, nbytes, flops, l2_bytes = gather_bound(cand, seg.n_tot, d, kk, 1,
                                                            scaled=scales is not None)
-        print(f"  {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, single-segment kernel "
-              f"over the concatenated payload {single_ms:.4f} ms, library: none; bound "
+        print(f"  {label}: {sched}; kernel {ms:.4f} ms, one-warp schedule {warp_ms:.4f} ms "
+              f"({warp_ms / ms:.2f}x), single-segment kernel over the concatenated payload "
+              f"{single_ms:.4f} ms, f32 two-segment kernel over the decoded tables "
+              f"{f32_ms:.4f} ms, plain {plain_ms:.4f} ms, library: none; bound "
               f"{b_ms * 1e3:.1f} us by {b_by} ({nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP); "
               f"rows gathered per query, served by HBM or L2: {l2_bytes / 1e6:.1f} MB")
-        out[label] = {"k": kk, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                      "single_segment_ms": single_ms, "bound_ms": b_ms, "bound_by": b_by}
+        out[label] = {"k": kk, "splits": S, "max_abs_err": err, "ms": ms,
+                      "old_schedule_ms": warp_ms, "plain_ms": plain_ms,
+                      "single_segment_ms": single_ms, "f32_ms": f32_ms, "bound_ms": b_ms,
+                      "bound_by": b_by}
+        del dec_main, dec_delta
     profile("gather_rerank_topk_blocked_two_seg (int8 screen pass)",
             lambda: ops.gather_rerank_topk(p8, cand, qp, wp, keep, delta=d8), top=2)
     main_case = next(iter(out.values()))
     run.record("gather_rerank_topk_blocked_two_seg", max_abs_err=main_case["max_abs_err"],
                ms=main_case["ms"], plain_ms=main_case["plain_ms"],
                bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"], library_ms=None,
+               splits=main_case["splits"], old_schedule_ms=main_case["old_schedule_ms"],
                cases=out)
 
 

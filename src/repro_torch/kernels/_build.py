@@ -64,7 +64,7 @@ class Kernel:
     (every function returns ``int``). ``launches`` counts the wrapper's
     calls of its launch function — the wrapper adds one there and nowhere
     else (the scan's two launches, partial and merge, count once, as do the
-    f32 gathers' split and merge launches).
+    gathers' split and merge launches).
     """
 
     name: str
@@ -142,12 +142,14 @@ ALSH_PROJECT = Kernel(
 GATHER_RERANK = Kernel(
     "gather_rerank_topk",
     "gather_rerank.cu",
-    {"gather_rerank_launch": [_P] * 8 + [_I] * 6 + [_P]},
+    {"gather_rerank_launch": [_P] * 8 + [_I] * 6 + [_P],
+     "gather_rerank_split_blocks": [_P, _P, _I]},
 )
 GATHER_RERANK_BLOCKED = Kernel(
     "gather_rerank_topk_blocked",
     "gather_rerank_blocked.cu",
-    {"gather_rerank_blocked_launch": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]},
+    {"gather_rerank_blocked_launch": [_P, _I] + [_P] * 8 + [_I] * 6 + [_P],
+     "gather_rerank_blocked_split_blocks": [_P, _P, _I, _I, _I]},
 )
 GATHER_RERANK_TWO_SEG = Kernel(
     "gather_rerank_topk_two_seg",
@@ -157,7 +159,16 @@ GATHER_RERANK_TWO_SEG = Kernel(
 GATHER_RERANK_BLOCKED_TWO_SEG = Kernel(
     "gather_rerank_topk_blocked_two_seg",
     "gather_rerank_blocked.cu",
-    {"gather_rerank_blocked2_launch": [_P, _P, _I] + [_P] * 6 + [_I] * 6 + [_P]},
+    {"gather_rerank_blocked2_launch": [_P, _P, _I] + [_P] * 8 + [_I] * 7 + [_P]},
+)
+# The one-warp-per-query schedule of the stored-type source on its own: the
+# bit reference of the split schedule for the tests and chip_smoke.py. No
+# query path reaches it, so it is not in KERNELS (no launch count of a path,
+# no row of the kernel table); its source builds with the others.
+GATHER_RERANK_WARP = Kernel(
+    "gather_rerank_topk_warp",
+    "gather_rerank_blocked.cu",
+    {"gather_rerank_warp_launch": [_P, _P, _I] + [_P] * 6 + [_I] * 6 + [_P]},
 )
 WL1_SCAN_TOPK = Kernel(
     "wl1_scan_topk",

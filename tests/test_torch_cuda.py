@@ -498,10 +498,9 @@ def test_streamed_query_on_the_card_matches_the_cpu_path(dev, view):
 
 
 # The f32 kernels' split schedule against the one-warp-per-query schedule
-# (the quantized kernel's f32 instantiation, gather_rerank_topk_blocked_cuda
-# without scales): (n, b, P, d, k, splits) with "one" or "many" splits on a
-# 132-SM card; k = 40 spans two 32-slot chunks of a list, d = 37 takes the
-# scalar path.
+# (gather_rerank_topk_warp_cuda, the stored-type source's reference entry):
+# (n, b, P, d, k, splits) with "one" or "many" splits on a 132-SM card;
+# k = 40 spans two 32-slot chunks of a list, d = 37 takes the scalar path.
 SPLIT_SHAPES = [
     (5000, 2, 20000, 128, 10, "many"),
     (3000, 300, 128, 128, 10, "one"),
@@ -526,16 +525,12 @@ def _split_block(rs, n, b, P, d, dev, n_tot=None):
     return data, ids
 
 
-def _old_schedule(data, ids, q, w, k, delta=None):
-    from repro_torch.kernels.gather_rerank import gather_rerank_topk_blocked_cuda
+def _old_schedule(data, ids, q, w, k, scales=None, delta=None):
+    from repro_torch.kernels.gather_rerank import gather_rerank_topk_warp_cuda
 
-    return gather_rerank_topk_blocked_cuda(data, ids, q, w, k, scales=None, delta=delta)
+    return gather_rerank_topk_warp_cuda(data, ids, q, w, k, scales=scales, delta=delta)
 
 
-def _splits_of(b, P, dev):
-    from repro_torch.kernels.gather_rerank import gather_splits
-
-    return gather_splits(b, P, torch.cuda.get_device_properties(dev).multi_processor_count)
 
 
 @pytest.mark.parametrize("n,b,P,d,k,splits", SPLIT_SHAPES)
@@ -544,13 +539,14 @@ def test_f32_split_kernel_equals_the_one_warp_schedule(dev, n, b, P, d, k, split
     the same inputs, and its plain version within rtol/atol 1e-5; one call
     counts one launch whether it made one launch or two."""
     from repro_torch.kernels._build import GATHER_RERANK
+    from repro_torch.kernels.gather_rerank import f32_splits
 
     rs = np.random.default_rng(n + b + P + d + k)
     data, ids = _split_block(rs, n, b, P, d, dev)
     data, ids = _t(data, dev), _t(ids, dev)
     q = _t(rs.uniform(-1, 1, (b, d)).astype(np.float32), dev)
     w = _t(rs.normal(size=(b, d)).astype(np.float32), dev)
-    S = _splits_of(b, P, dev)
+    S = f32_splits(data, ids)
     if torch.cuda.get_device_properties(dev).multi_processor_count == 132:
         assert (S == 1) == (splits == "one")
     before = GATHER_RERANK.launches
@@ -597,6 +593,155 @@ def test_f32_split_kernel_two_segment_equals_the_one_warp_schedule(dev, n_main, 
     cat = torch.cat([main, delta])
     _check_topk(got, ops.gather_rerank_topk(main, ids, q, w, k, delta=delta, force="plain"),
                 cat, q, w)
+
+
+# The stored-type kernel on its two schedules: (n, b, P, d, k, schedule) on a
+# 132-SM card — "many" splits, "one" split, or "warp" (one warp per query:
+# fewer 32-slot groups than a split block has warps); k = 20 is the screen's
+# keep at k = 10. Layouts (gather_rerank.cuh): bf16 and int8 rows of d <= 128
+# in whole pieces (8 bytes of int8, 16 of bf16) are PACKED (d = 64, 48 and 16
+# leave lanes past the row's end), d = 256 is VEC4 for every type, d = 37
+# SCALAR.
+STORED_SHAPES = [
+    (5000, 2, 20000, 128, 10, "many"),
+    (3000, 300, 1024, 128, 20, "one"),
+    (3000, 64, 20, 128, 10, "warp"),
+    (3000, 33, 200, 128, 20, "warp"),
+    (500, 5, 300, 64, 10, "one"),
+    (800, 6, 700, 48, 20, "one"),
+    (300, 3, 100, 16, 5, "warp"),
+    (600, 4, 900, 256, 10, "one"),
+    (2000, 4, 5000, 37, 10, "many"),
+]
+STORED_CASES = ["f32-scaled", "bf16", "bf16-scaled", "int8", "int8-scaled"]
+
+
+def _stored(x, xd, q, w, case, rs, dev):
+    """(main, delta, scales, q, w) of a stored-type case: rows ``x`` and delta
+    rows ``xd`` (or None) encoded as the case says; "int8" is the screen
+    pass (integer levels and w·s for q and w, no scales)."""
+    from repro_torch import quant
+
+    d = x.shape[1]
+    scales = None
+    if case.startswith("int8"):
+        main, s = quant.get_codec("int8").encode(x)
+        delta = None if xd is None else quant.get_codec("int8").encode_rows(xd, s)
+        if case == "int8":
+            q, w = quant.proxy_query(q, w, main.dtype, s)
+        else:
+            scales = s
+    else:
+        dtype = torch.bfloat16 if case.startswith("bf16") else torch.float32
+        main = x.to(dtype)
+        delta = None if xd is None else xd.to(dtype)
+    if case.endswith("-scaled") and scales is None:
+        scales = _t(rs.uniform(0.5, 2.0, (d,)).astype(np.float32), dev)
+    return main.contiguous(), delta, scales, q, w
+
+
+def _decode(payload, scales):
+    """``payload.float() * scales``: what the kernel decodes a row to (an f32
+    payload too, which ``quant.decode_table`` passes through unscaled)."""
+    out = payload.float()
+    return (out if scales is None else out * scales).contiguous()
+
+
+@pytest.mark.parametrize("segments", [1, 2])
+@pytest.mark.parametrize("case", STORED_CASES)
+@pytest.mark.parametrize("n,b,P,d,k,schedule", STORED_SHAPES)
+def test_stored_kernel_equals_f32_kernel_and_the_one_warp_schedule(dev, n, b, P, d, k, schedule,
+                                                                    case, segments):
+    """The stored-type kernel on the schedule gather_schedule picks equals,
+    bit for bit, the f32 kernel over the decoded table(s) and the one-warp
+    schedule over the same payload, and its plain version within rtol/atol
+    1e-5; row 0 has no valid id, row 1 is packed; one call counts one
+    launch on its own counter."""
+    from repro_torch.kernels._build import GATHER_RERANK_BLOCKED, GATHER_RERANK_BLOCKED_TWO_SEG
+    from repro_torch.kernels.gather_rerank import WARP_SCHEDULE, stored_schedule
+
+    rs = np.random.default_rng(n + b + P + d + k + len(case) + 7 * segments)
+    cap = n // 4 if segments == 2 else 0
+    data, ids = _split_block(rs, n, b, P, d, dev)
+    x = _t(data[: n - cap], dev)
+    xd = _t(data[n - cap:], dev) if segments == 2 else None
+    ids = _t(ids, dev)
+    q = _t(rs.uniform(-1, 1, (b, d)).astype(np.float32), dev)
+    w = _t(rs.normal(size=(b, d)).astype(np.float32), dev)
+    main, delta, scales, q, w = _stored(x, xd, q, w, case, rs, dev)
+    S = stored_schedule(main, ids, scales, delta)
+    if torch.cuda.get_device_properties(dev).multi_processor_count == 132:
+        assert {"warp": S == WARP_SCHEDULE, "one": S == 1, "many": S > 1}[schedule]
+    counter = GATHER_RERANK_BLOCKED if delta is None else GATHER_RERANK_BLOCKED_TWO_SEG
+    before = counter.launches
+    got = ops.gather_rerank_topk(main, ids, q, w, k, scales=scales, delta=delta)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    dec = _decode(main, scales)
+    dec_delta = None if delta is None else _decode(delta, scales)
+    f32 = ops.gather_rerank_topk(dec, ids, q, w, k, delta=dec_delta)
+    assert torch.equal(got[0], f32[0]) and torch.equal(got[1], f32[1])
+    old = _old_schedule(main, ids, q, w, k, scales=scales, delta=delta)
+    assert torch.equal(got[0], old[0]) and torch.equal(got[1], old[1])
+    table = dec if delta is None else torch.cat([dec, dec_delta])
+    _check_topk(got, ops.gather_rerank_topk(main, ids, q, w, k, scales=scales, delta=delta,
+                                            force="plain"), table, q, w)
+    assert torch.all(got[1][0] == -1) and torch.all(torch.isinf(got[0][0]))
+
+
+@pytest.mark.parametrize("case", STORED_CASES)
+@pytest.mark.parametrize("P", [20, 4000])
+def test_stored_two_segment_kernel_with_an_unaligned_delta(dev, case, P):
+    """A delta whose base is off the 4-value alignment sends the stored-type
+    two-segment kernel (both schedules) down the scalar path: it equals, bit
+    for bit, the one-warp schedule and the f32 two-segment kernel over the
+    decoded tables with the decoded delta equally unaligned."""
+    rs = np.random.default_rng(P + len(case))
+    n_main, cap, b, d, k = 2000, 600, 6, 128, 20
+    data, ids = _split_block(rs, n_main + cap, b, P, d, dev)
+    q = _t(rs.uniform(-1, 1, (b, d)).astype(np.float32), dev)
+    w = _t(np.abs(rs.normal(size=(b, d))).astype(np.float32), dev)
+    main, delta, scales, q, w = _stored(_t(data[:n_main], dev), _t(data[n_main:], dev), q, w,
+                                        case, rs, dev)
+    delta = _misaligned(delta)
+    ids = _t(ids, dev)
+    got = ops.gather_rerank_topk(main, ids, q, w, k, scales=scales, delta=delta)
+    old = _old_schedule(main, ids, q, w, k, scales=scales, delta=delta)
+    assert torch.equal(got[0], old[0]) and torch.equal(got[1], old[1])
+    dec = _decode(main, scales)
+    dec_delta = _misaligned(_decode(delta, scales))
+    f32 = ops.gather_rerank_topk(dec, ids, q, w, k, delta=dec_delta)
+    assert torch.equal(got[0], f32[0]) and torch.equal(got[1], f32[1])
+    _check_topk(got, ops.gather_rerank_topk(main, ids, q, w, k, scales=scales, delta=delta,
+                                            force="plain"), torch.cat([dec, dec_delta]), q, w)
+
+
+@pytest.mark.parametrize("P", [256, 20])
+def test_int8_widening_is_exact_for_every_byte_value(dev, P):
+    """Every int8 value v at each byte position of the two words a lane
+    widens (coordinates 0..7): with w = e_j and q = -200 e_j, row r's
+    distance is exactly v_rj + 200, so the 256 rows come back in value order
+    with distances 72..327 — on the split schedule (P = 256) and on the
+    one-warp one (P = 20, the first 20 values)."""
+    rs = np.random.default_rng(P)
+    n, d, b = 256, 128, 8
+    rows = rs.integers(-128, 128, (n, d)).astype(np.int8)
+    perms = [rs.permutation(n) for _ in range(b)]
+    for j, perm in enumerate(perms):
+        rows[:, j] = (perm - 128).astype(np.int8)  # row r holds perm[r] - 128 at coordinate j
+    w = np.zeros((b, d), np.float32)
+    q = np.zeros((b, d), np.float32)
+    for j in range(b):
+        w[j, j], q[j, j] = 1.0, -200.0
+    ids = np.tile(np.arange(P, dtype=np.int32), (b, 1))
+    payload = _t(rows, dev)
+    got = ops.gather_rerank_topk(payload, _t(ids, dev), _t(q, dev), _t(w, dev), P)
+    gd, gi = (t.cpu().numpy() for t in got)
+    for j, perm in enumerate(perms):
+        vals = perm[:P].astype(np.int64) - 128
+        order = np.argsort(vals, kind="stable")
+        assert np.array_equal(gd[j], (vals[order] + 200).astype(np.float32))
+        assert np.array_equal(gi[j], order.astype(np.int32))
 
 
 # The scan's filter-then-select top-k: bit for bit the first k of wl1_scan's
