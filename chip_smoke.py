@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --digests    # only alsh_project's output digests
+    python3 chip_smoke.py --wl1-times  # only the wl1 kernels' times (see wl1_times)
 
 Phases, each of which fails the run (exit code 1) when it fails:
 
@@ -48,8 +49,12 @@ Phases, each of which fails the run (exit code 1) when it fails:
      and the one-warp schedule, all timed beside it. The materializing scan ``wl1_scan`` runs
      at n=65,536 and 262,144 (b=64, d=128) and the re-rank ``wl1_rerank``
      at b=64, d=128, C=512 and 4096, each also on a ragged shape, against
-     their plain versions at rtol/atol 1e-4. The exact scan
-     ``wl1_scan_topk`` runs at the service batch (n=262,144, b=1024), the
+     their plain versions at rtol/atol 1e-4, with the profiler's device
+     time per call and its share of the bound, the scan's issue floor
+     derived from the SM clock read under load in the run (printed, not
+     recorded), and the host time per call of 200 back-to-back calls
+     (printed on one line). The
+     exact scan ``wl1_scan_topk`` runs at the service batch (n=262,144, b=1024), the
      main path's recall check (b=64) and the recorded shape (n=65,536,
      b=64), and at each must also equal, bit for bit, ``wl1_scan`` then a
      stable sort of each query's distances (the first k, +inf -> id -1),
@@ -92,7 +97,8 @@ Phases, each of which fails the run (exit code 1) when it fails:
         then ``torch.topk`` beside ``wl1_scan_topk``, and ``data[ids]``
         then ``wl1_rerank`` then ``torch.topk`` beside
         ``gather_rerank_topk`` on real probe candidates, P=512…4096; the
-        two sides must agree (see ``phase_unfused_path``);
+        two sides' dists must be equal bit for bit (see
+        ``phase_unfused_path``);
      f. early exit (see ``phase_early_exit_path``): the streamed query at
         slack 0 equals the monolithic one (sealed f32, mutable, int8 with
         the screen off); at slack 0.1, probe and multiprobe, its batch
@@ -167,6 +173,10 @@ STREAM_HIT_FLOOR = 0.9  # share of those that must return a delta id
 # The materializing scan and re-rank: the reference's own bar
 # (tests/test_kernels_wl1.py); both sum in another order than the plain version
 WL1_RTOL = WL1_ATOL = 1e-4
+# Their device time per call: the profiler over WL1_CALLS back-to-back calls;
+# their host cost per call: the host clock over HOST_CALLS calls, no sync
+WL1_CALLS = 20
+HOST_CALLS = 200
 # The unfused baseline of benchmarks/kernels_bench.py (its shapes)
 BASELINE_N, BASELINE_B, BASELINE_K = 65536, 64, 10
 BASELINE_P = (512, 1024, 2048, 4096)
@@ -211,6 +221,45 @@ def clock_under_load(fn, seconds: float = 0.6) -> str:
     )
     torch.cuda.synchronize()
     return smi.stdout.strip().splitlines()[0]
+
+
+def device_us_per_call(label, fn, calls: int = WL1_CALLS):
+    """The profiler's device time of one call of ``fn``, over ``calls``
+    back-to-back calls (None when not measured)."""
+    busy = profile(f"{label}, {calls} calls", lambda: [fn() for _ in range(calls)], top=2)
+    return None if busy is None else busy / calls
+
+
+def host_us_per_call(fn, calls: int = HOST_CALLS) -> float:
+    """Host clock per call over ``calls`` back-to-back calls with no sync
+    between them (warmed up; the device may still be busy at the end)."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def issue_floor_us(terms: int, clock: str):
+    """The scan's issue floor, derived from the SM clock that ``nvidia-smi``
+    read under load in this run (``clock``, as ``clock_under_load`` returns
+    it): two FP32 instructions (a subtract, an |.|-multiply-add) per
+    (query, row, coordinate) term, one warp instruction per clock on each
+    of an SM's 4 schedulers. None when the clock is not a number."""
+    import torch
+
+    try:
+        mhz = float(clock.split(" MHz")[0])
+    except ValueError:
+        return None
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return 2 * terms / (sms * 128 * mhz * 1e6) * 1e6
 
 
 class Run:
@@ -438,6 +487,77 @@ def projection_digests() -> dict:
     return {label: digest(ops.alsh_project(levels, folded, weights))
             for label, levels, weights in (("build", discretize(wl.data, cfg.space), None),
                                            ("query", discretize(q, cfg.space), w))}
+
+
+def wl1_times() -> dict:
+    """CUDA-event time, device time per call (the profiler over WL1_CALLS
+    back-to-back calls) and host time per call (``host_us_per_call``) of
+    ``wl1_scan`` and ``wl1_rerank`` at the shapes of their phases, the
+    host time of the parts of one ``ops.wl1_rerank`` call at C=512
+    (``rerank_host_parts``), and the two times of ``wl1_scan_topk`` at the
+    three scan shapes, through ``ops`` alone, so that the same file run
+    beside an older tree of the repository (``python3 chip_smoke.py
+    --wl1-times``) times both trees' kernels with one method."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    def times(label, fn, host=False):
+        out = {"ms": time_ms(fn, iters=10, warmup=2), "device_us": device_us_per_call(label, fn)}
+        if host:
+            out["host_us"] = host_us_per_call(fn)
+        return out
+
+    out = {}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 60)
+    for n in (BASELINE_N, 262144):
+        data, q, w = (torch.randn(s, generator=gen, device="cuda")
+                      for s in ((n, 128), (BASELINE_B, 128), (BASELINE_B, 128)))
+        out[f"wl1_scan n={n}"] = times(f"wl1_scan n={n}", lambda: ops.wl1_scan(data, q, w),
+                                       host=True)
+    for C in (512, 4096):
+        pts, q, w = (torch.randn(s, generator=gen, device="cuda")
+                     for s in ((BASELINE_B, C, 128), (BASELINE_B, 128), (BASELINE_B, 128)))
+        out[f"wl1_rerank C={C}"] = times(f"wl1_rerank C={C}", lambda: ops.wl1_rerank(pts, q, w),
+                                         host=True)
+        if C == 512:
+            out["wl1_rerank C=512 host parts"] = rerank_host_parts(pts, q, w)
+    wl = Workload(262144, 128)
+    q, w = wl.batch(1024, SEED + 1)
+    for label, n, b in (("service", 262144, 1024), ("main", 262144, 64),
+                        ("recorded", BASELINE_N, 64)):
+        dn, qb, wb = wl.data[:n].contiguous(), q[:b].contiguous(), w[:b].contiguous()
+        out[f"wl1_scan_topk {label}"] = times(f"wl1_scan_topk {label}",
+                                              lambda: ops.wl1_scan_topk(dn, qb, wb, 10))
+    return out
+
+
+def rerank_host_parts(pts, q, w) -> dict:
+    """Host us per call of the parts of one ``ops.wl1_rerank`` call, each
+    timed alone like ``host_us_per_call``: the three argument checks, the
+    output allocation, and the launch through ``ctypes`` (outside the
+    wrapper, so not counted; its error code checked)."""
+    import torch
+
+    from repro_torch.kernels._build import WL1_RERANK, require
+
+    dev = pts.device
+    b, C, d = pts.shape
+    lib = WL1_RERANK.lib()
+    out = torch.empty((b, C), dtype=torch.float32, device=dev)
+    ptrs = (pts.data_ptr(), q.data_ptr(), w.data_ptr(), out.data_ptr())
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def launch():
+        WL1_RERANK.check(lib.wl1_rerank_launch(*ptrs, b, C, d, stream), "wl1_rerank launch")
+
+    parts = {
+        "argument checks": lambda: [require(t, "t", torch.float32, t.ndim, dev)
+                                    for t in (pts, q, w)],
+        "output allocation": lambda: torch.empty((b, C), dtype=torch.float32, device=dev),
+        "ctypes launch": launch,
+    }
+    return {name: host_us_per_call(fn) for name, fn in parts.items()}
 
 
 def phase_alsh_project(run, svc):
@@ -956,6 +1076,19 @@ def _wl1_check(label, got, want):
     return err
 
 
+def _share(us, of_us):
+    """``of_us`` over a measured device time ``us`` (None when either is)."""
+    return None if us is None or of_us is None else of_us / us
+
+
+def _fmt_us(us) -> str:
+    return "not measured" if us is None else f"{us:.2f} us"
+
+
+def _fmt_share(x) -> str:
+    return "not measured" if x is None else f"{x:.3f}"
+
+
 def phase_wl1_scan(run):
     """The materializing scan against its plain version: the recorded shape
     of benchmarks/kernels_bench.py (n=65,536, b=64, d=128; normal data,
@@ -977,15 +1110,24 @@ def phase_wl1_scan(run):
             continue
         ms = time_ms(lambda: ops.wl1_scan(data, q, w), iters=10, warmup=2)
         plain_ms = time_ms(lambda: ops.wl1_scan(data, q, w, force="plain"), iters=1)
-        profile(f"wl1_scan {label}", lambda: ops.wl1_scan(data, q, w), top=2)
+        dev_us = device_us_per_call(f"wl1_scan {label}", lambda: ops.wl1_scan(data, q, w))
         nbytes = 4 * (n * d + 2 * b * d + b * n)
         flops = 3 * b * n * d
         b_ms, b_by = bound(nbytes, flops)
-        print(f"  {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library: none; bound "
-              f"{b_ms * 1e3:.1f} us by {b_by} ({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
         numbers = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                       library_ms=None)
+                       library_ms=None, device_us=dev_us,
+                       share_of_bound=_share(dev_us, b_ms * 1e3))
+        clock = clock_under_load(lambda: ops.wl1_scan(data, q, w))
+        floor_us = issue_floor_us(b * n * d, clock)
+        print(f"  {label}: kernel {ms:.4f} ms (device {_fmt_us(dev_us)} per call), plain "
+              f"{plain_ms:.4f} ms, library: none; bound {b_ms * 1e3:.1f} us by {b_by} "
+              f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); device share of bound "
+              f"{_fmt_share(numbers['share_of_bound'])}")
+        print(f"  {label}: SM clock, power under a stream of calls: {clock}; issue floor derived "
+              f"from that clock {_fmt_us(floor_us)} (2 FP32 instructions a term), device share "
+              f"of it {_fmt_share(_share(dev_us, floor_us))}")
         if label == "recorded":
+            numbers["host_us_per_call"] = host_us_per_call(lambda: ops.wl1_scan(data, q, w))
             run.record("wl1_scan", **numbers)
         else:
             run.kernels["wl1_scan"][f"{label}_shape"] = {"n": n, "b": b, **numbers}
@@ -1012,16 +1154,27 @@ def phase_wl1_rerank(run):
             continue
         ms = time_ms(lambda: ops.wl1_rerank(pts, q, w), iters=10, warmup=2)
         plain_ms = time_ms(lambda: ops.wl1_rerank(pts, q, w, force="plain"), iters=1)
-        profile(f"wl1_rerank {label}", lambda: ops.wl1_rerank(pts, q, w), top=2)
+        dev_us = device_us_per_call(f"wl1_rerank {label}", lambda: ops.wl1_rerank(pts, q, w))
         nbytes = 4 * (b * C * d + 2 * b * d + b * C)
         flops = 3 * b * C * d
         b_ms, b_by = bound(nbytes, flops)
-        print(f"  {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library: none; bound "
-              f"{b_ms * 1e3:.1f} us by {b_by} ({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+        # C=512's 16.8 MB stay in the L2 between calls here, so it can beat
+        # the bound (every point read once from HBM)
         numbers = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                       library_ms=None)
+                       library_ms=None, device_us=dev_us,
+                       share_of_bound=_share(dev_us, b_ms * 1e3))
+        print(f"  {label}: kernel {ms:.4f} ms (device {_fmt_us(dev_us)} per call), plain "
+              f"{plain_ms:.4f} ms, library: none; bound {b_ms * 1e3:.1f} us by {b_by} "
+              f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); device share of bound "
+              f"{_fmt_share(numbers['share_of_bound'])}")
         if label == "recorded":
+            numbers["host_us_per_call"] = host_us_per_call(lambda: ops.wl1_rerank(pts, q, w))
             run.record("wl1_rerank", **numbers)
+            scan = run.kernels.get("wl1_scan", {})
+            print(f"  host per call ({HOST_CALLS} back-to-back calls, no sync): ops.wl1_rerank "
+                  f"{numbers['host_us_per_call']:.1f} us (device {_fmt_us(dev_us)}); "
+                  f"ops.wl1_scan {scan.get('host_us_per_call', float('nan')):.1f} us (device "
+                  f"{_fmt_us(scan.get('device_us'))})")
         else:
             run.kernels["wl1_rerank"]["C4096_shape"] = {"C": C, **numbers}
 
@@ -1424,9 +1577,9 @@ def phase_unfused_path():
     ``torch.topk`` against ``gather_rerank_topk`` on real probe candidates
     (b=64, d=128, k=10, P=512…4096: uniform rows, queries at 0.01 from a row,
     weights |N(0,1)| + 0.1, an L=8, C=P/8, K=14, M=16 theta index). The two
-    sides must agree: dists within rtol/atol 1e-5, ids equal up to genuine
-    ties. The indexing and ``torch.topk`` are the baseline's plain XLA
-    stages, not ports of a kernel."""
+    sides must agree: dists bit for bit (each kernel pair sums a row in one
+    order), ids equal up to genuine ties. The indexing and ``torch.topk``
+    are the baseline's plain XLA stages, not ports of a kernel."""
     import torch
 
     import repro_torch.api as tapi
@@ -1443,8 +1596,10 @@ def phase_unfused_path():
         vals, sel = torch.topk(ops.wl1_scan(data, q, w), k, dim=1, largest=False)
         return vals, sel.to(torch.int32)
 
-    err = _check_topk("scan: wl1_scan + torch.topk vs wl1_scan_topk", unfused_scan(),
-                      ops.wl1_scan_topk(data, q, w, k), data, q, w)
+    label = "scan: wl1_scan + torch.topk vs wl1_scan_topk"
+    unfused, fused = unfused_scan(), ops.wl1_scan_topk(data, q, w, k)
+    err = _check_topk(label, unfused, fused, data, q, w)
+    _same_dists(label, unfused[0], fused[0])
     un_ms = time_ms(unfused_scan, iters=10, warmup=2)
     f_ms = time_ms(lambda: ops.wl1_scan_topk(data, q, w, k), iters=10, warmup=2)
     print(f"  scan n={n} b={b} k={k}: unfused {un_ms:.4f} ms, fused wl1_scan_topk {f_ms:.4f} ms "
@@ -1470,8 +1625,10 @@ def phase_unfused_path():
             out_i = torch.gather(ids, 1, sel)
             return vals, torch.where(torch.isfinite(vals), out_i, torch.full_like(out_i, -1))
 
-        err = _check_topk(f"tail P={P}: data[ids] + wl1_rerank + torch.topk vs gather_rerank_topk",
-                          unfused_tail(), ops.gather_rerank_topk(data, ids, q, w, k), data, q, w)
+        label = f"tail P={P}: data[ids] + wl1_rerank + torch.topk vs gather_rerank_topk"
+        unfused, fused = unfused_tail(), ops.gather_rerank_topk(data, ids, q, w, k)
+        err = _check_topk(label, unfused, fused, data, q, w)
+        _same_dists(label, unfused[0], fused[0])
         un_ms = time_ms(unfused_tail, iters=10, warmup=2)
         f_ms = time_ms(lambda: ops.gather_rerank_topk(data, ids, q, w, k), iters=10, warmup=2)
         uniq = float(n_cand.float().mean())
@@ -1481,6 +1638,18 @@ def phase_unfused_path():
                               "max_abs_err": err}
     counts = _path_counts("unfused baseline", ("wl1_scan", "wl1_rerank"))
     return counts, rows
+
+
+def _same_dists(label, unfused, fused):
+    """The unfused side's distances must be the fused kernel's bit for bit:
+    both sum each row in the same order (the scan's loop; the gathers' VEC4
+    row body)."""
+    import torch
+
+    same = torch.equal(unfused, fused)
+    print(f"  {label}: dists bit-equal: {same}")
+    if not same:
+        raise AssertionError(f"{label}: dists differ from the fused kernel's")
 
 
 def phase_early_exit_path(svc):
@@ -1669,6 +1838,9 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     if sys.argv[1:] == ["--digests"]:
         print(json.dumps(projection_digests()))
+        return 0
+    if sys.argv[1:] == ["--wl1-times"]:
+        print(json.dumps(wl1_times()))
         return 0
 
     run = Run()

@@ -178,7 +178,7 @@ WL1_SCAN_TOPK = Kernel(
 WL1_SCAN = Kernel(
     "wl1_scan",
     "wl1_distance.cu",
-    {"wl1_scan_launch": [_P, _P, _P, _P, _I, _I, _I, _P]},
+    {"wl1_scan_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P]},
 )
 WL1_RERANK = Kernel(
     "wl1_rerank",
@@ -224,6 +224,29 @@ def stream_of(t) -> int:
     import torch
 
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def raw_stream(device) -> int:
+    """The current CUDA stream of ``device`` as a pointer-sized int, as
+    :func:`stream_of` gives it, without building a ``torch.cuda.Stream``
+    object (which costs more host time than a launch)."""
+    import torch
+
+    index = torch.cuda.current_device() if device.index is None else device.index
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
+def on_device(device):
+    """The device context of a launch on ``device``, entered only when it is
+    not the current device (entering one costs more host time than a
+    launch)."""
+    import contextlib
+
+    import torch
+
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 def require(t, name: str, dtype, ndim: int, device) -> None:

@@ -25,9 +25,9 @@
 // are read once per query tile. Design against that:
 //   * a register tile of 8 queries x 8 rows per thread (64 accumulators),
 //     so each coordinate step loads 8 + 8 + 8 values from shared memory for
-//     128 FP32 instructions (the tiling of wl1_distance.cu's scan, so the
-//     distances are bit for bit wl1_scan's: each a sequential fmaf over the
-//     coordinates 0..d-1);
+//     128 FP32 instructions (the tiling of wl1_distance.cu's scan, with
+//     the chunk staging of wl1_tile.cuh, so the distances are bit for bit
+//     wl1_scan's: each a sequential fmaf over the coordinates 0..d-1);
 //   * a warp shares its 8 queries (q and w are float4 broadcasts, the
 //     query tile is stored with a padded stride of 68 words) and lane l owns
 //     rows l, l+32, ..., l+224 of the row-major staged tile (stride 17
@@ -53,18 +53,11 @@
 
 #include "cp_async.cuh"
 #include "warp_topk.cuh"
+#include "wl1_tile.cuh"
 
 namespace {
 
-constexpr int BQ = 64;       // queries per block (8 per warp)
-constexpr int BR = 256;      // rows per tile (8 per lane)
-constexpr int DK = 16;       // coordinates per staged chunk
-constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-constexpr int STAGES = 3;    // ring of staged chunks
-constexpr int QS = BQ + 4;   // padded stride of the transposed q/w tiles
-constexpr int RS = DK + 1;   // padded stride of the row-major row tile
-constexpr int STAGE_FLOATS = 2 * DK * QS + BR * RS;
 constexpr int CAP = 32;          // candidate buffer per query: one entry per lane at a fold
 constexpr int EMPTY = INT_MAX;   // id of an empty list entry: after every real (dist, id)
 constexpr int MERGE_THREADS = 128;
@@ -156,35 +149,6 @@ __device__ __forceinline__ float fold_buffer(float* ld, int* li, float* bd, int*
   }
   __syncwarp();
   return sd[k - 1];
-}
-
-// Issues the cp.async copies of one chunk: this thread's coordinate
-// (tid % DK) of 4 queries (q and w, stored transposed) and of 16 rows of
-// the tile, 16 apart from its first (tid / DK). q, w and x point at its
-// first query's and row's element of the chunk; nq and nr count the valid
-// queries and rows from there on; out-of-range elements are zero-filled
-// (w = 0 adds exactly 0) and read nothing (src is then `any`).
-__device__ __forceinline__ void stage_chunk(float* st, const float* q, const float* w,
-                                            const float* x, const float* any, int nq, int nr,
-                                            bool col_ok, int d, int tid) {
-  constexpr int SPAN = THREADS / DK;  // rows (or queries) between a thread's copies
-  float* qs = st;
-  float* ws = qs + DK * QS;
-  float* rs = ws + DK * QS;
-  const int kk = tid % DK;
-  const int r = tid / DK;
-  const size_t step = (size_t)SPAN * d;
-#pragma unroll
-  for (int u = 0; u < BQ / SPAN; ++u) {
-    const bool ok = col_ok && u * SPAN < nq;
-    cp_async4(qs + kk * QS + r + u * SPAN, ok ? q + u * step : any, ok);
-    cp_async4(ws + kk * QS + r + u * SPAN, ok ? w + u * step : any, ok);
-  }
-#pragma unroll
-  for (int u = 0; u < BR / SPAN; ++u) {
-    const bool ok = col_ok && u * SPAN < nr;
-    cp_async4(rs + (r + u * SPAN) * RS + kk, ok ? x + u * step : any, ok);
-  }
 }
 
 __global__ void __launch_bounds__(THREADS, 2)

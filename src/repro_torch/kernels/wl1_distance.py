@@ -18,10 +18,32 @@ import torch
 
 from repro_torch.kernels._build import WL1_RERANK as RERANK_KERNEL
 from repro_torch.kernels._build import WL1_SCAN as SCAN_KERNEL
-from repro_torch.kernels._build import require, stream_of
+from repro_torch.kernels._build import on_device, raw_stream, require
 
 GRID_Y_MAX = 65535  # CUDA's limit on gridDim.y
-SCAN_ROWS_PER_BLOCK = 256  # as in the CUDA source
+# The scan's schedule, as in csrc/wl1_distance.cu: a block owns BLOCK_QUERIES
+# queries and a run of whole TILE_ROWS-row tiles
+BLOCK_QUERIES = 64
+TILE_ROWS = 256
+# The most rows the scan takes: its row arithmetic (a split's end, a tile's
+# last row) stays within a C int
+MAX_ROWS = 2**31 - 1 - GRID_Y_MAX * TILE_ROWS
+
+
+def scan_row_splits(n: int) -> int:
+    """The row splits ``S`` of the materializing scan's grid (query tiles x
+    ``S``) for ``n`` rows: one ``TILE_ROWS``-row tile per block, as many
+    blocks as tiles up to CUDA's ``GRID_Y_MAX``; past that, whole tiles
+    shared out evenly (``ceil(tiles / S)`` each, ``S`` trimmed so that none
+    is empty). A block's ring walks on from one of its tiles into the next.
+    Raises ValueError past ``MAX_ROWS``."""
+    if n > MAX_ROWS:
+        raise ValueError(f"wl1_scan takes at most {MAX_ROWS} rows, got {n}")
+    tiles = -(-n // TILE_ROWS)
+    if tiles == 0:
+        return 1
+    per = -(-tiles // min(tiles, GRID_Y_MAX))
+    return -(-tiles // per)
 
 
 def _query_args(queries: torch.Tensor, weights: torch.Tensor, b: int | None, d: int, dev) -> int:
@@ -45,18 +67,17 @@ def wl1_scan_cuda(data: torch.Tensor, queries: torch.Tensor, weights: torch.Tens
     require(data, "data", torch.float32, 2, dev)
     n, d = data.shape
     b = _query_args(queries, weights, None, d, dev)
-    if -(-n // SCAN_ROWS_PER_BLOCK) > GRID_Y_MAX:
-        raise ValueError(f"wl1_scan_cuda: n={n} exceeds {GRID_Y_MAX * SCAN_ROWS_PER_BLOCK} rows")
+    S = scan_row_splits(n)
     out = torch.empty((b, n), dtype=torch.float32, device=dev)
     if b == 0 or n == 0:
         return out
     lib = SCAN_KERNEL.lib()
-    with torch.cuda.device(dev):
+    with on_device(dev):
         SCAN_KERNEL.launches += 1
         err = lib.wl1_scan_launch(
             data.data_ptr(), queries.data_ptr(), weights.data_ptr(), out.data_ptr(),
-            n, d, b,
-            stream_of(data),
+            n, d, b, S,
+            raw_stream(dev),
         )
     SCAN_KERNEL.check(err, "wl1_scan launch")
     return out
@@ -77,12 +98,12 @@ def wl1_rerank_cuda(pts: torch.Tensor, queries: torch.Tensor, weights: torch.Ten
     if b == 0 or C == 0:
         return out
     lib = RERANK_KERNEL.lib()
-    with torch.cuda.device(dev):
+    with on_device(dev):
         RERANK_KERNEL.launches += 1
         err = lib.wl1_rerank_launch(
             pts.data_ptr(), queries.data_ptr(), weights.data_ptr(), out.data_ptr(),
             b, C, d,
-            stream_of(pts),
+            raw_stream(dev),
         )
     RERANK_KERNEL.check(err, "wl1_rerank launch")
     return out

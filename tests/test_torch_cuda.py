@@ -405,7 +405,8 @@ def test_mutable_engine_on_the_card_matches_the_cpu_path(dev, storage):
 
 # the materializing scan and re-rank: ragged n, b, C and d, b = 1, negative
 # weights; rtol/atol 1e-4, the reference's bar (tests/test_kernels_wl1.py)
-WL1_SCAN_SHAPES = [(1, 1, 1), (129, 9, 257), (300, 1, 16), (5000, 70, 130), (65536, 64, 128)]
+WL1_SCAN_SHAPES = [(1, 1, 1), (129, 9, 257), (300, 1, 16), (5000, 70, 130), (65536, 64, 128),
+                   (257, 65, 40)]  # n one past a tile, b one past a query tile, d ragged
 WL1_RERANK_SHAPES = [(1, 1, 1), (3, 130, 257), (1, 7, 16), (64, 4096, 128), (70, 515, 33)]
 
 
@@ -421,6 +422,33 @@ def test_wl1_scan_kernel_matches_plain(dev, n, b, d):
     torch.testing.assert_close(got, ops.wl1_scan(data, q, w, force="plain"), rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("n,b,d,S", [(2049, 65, 40, 3), (257, 9, 16, 1), (5000, 3, 130, 7)])
+def test_wl1_scan_block_walks_several_tiles(dev, n, b, d, S):
+    """Fewer row splits than tiles, as scan_row_splits gives past GRID_Y_MAX
+    tiles: a block's ring walks on across its tiles. Launched through the
+    library's entry with S given; equal bit for bit to the one-tile-per-block
+    launch (every output written: both start as NaN) and within 1e-4 of the
+    plain version."""
+    from repro_torch.kernels._build import WL1_SCAN, raw_stream
+    from repro_torch.kernels.wl1_distance import TILE_ROWS, scan_row_splits
+
+    rs = np.random.default_rng(n + b + d)
+    data, q, w = (_t(rs.normal(size=s).astype(np.float32), dev) for s in ((n, d), (b, d), (b, d)))
+    tiles = -(-n // TILE_ROWS)
+    assert scan_row_splits(n) == tiles > S
+
+    def launch(splits):
+        out = torch.full((b, n), float("nan"), device=dev)
+        err = WL1_SCAN.lib().wl1_scan_launch(data.data_ptr(), q.data_ptr(), w.data_ptr(),
+                                             out.data_ptr(), n, d, b, splits, raw_stream(dev))
+        WL1_SCAN.check(err, "wl1_scan launch")
+        return out
+
+    got = launch(S)
+    assert torch.equal(got, launch(tiles))
+    torch.testing.assert_close(got, ops.wl1_scan(data, q, w, force="plain"), rtol=1e-4, atol=1e-4)
+
+
 @pytest.mark.parametrize("b,C,d", WL1_RERANK_SHAPES)
 def test_wl1_rerank_kernel_matches_plain(dev, b, C, d):
     from repro_torch.kernels._build import WL1_RERANK
@@ -433,6 +461,48 @@ def test_wl1_rerank_kernel_matches_plain(dev, b, C, d):
     assert WL1_RERANK.launches == before + 1
     torch.testing.assert_close(got, ops.wl1_rerank(pts, q, w, force="plain"), rtol=1e-4,
                                atol=1e-4)
+
+
+# The re-rank is the gathers' row body over contiguous rows: over the rows
+# data[ids] (unique ids, k = P) its distances, sorted, are gather_rerank_topk's
+# bit for bit in either layout — VEC4 (d % 4 == 0, aligned) or SCALAR (d
+# ragged, or both tables misaligned by one float).
+RERANK_BITS_CASES = [
+    (3, 515, 16, "aligned"),
+    (2, 7, 128, "aligned"),
+    (4, 515, 128, "aligned"),
+    (1, 1, 128, "aligned"),
+    (1, 515, 256, "aligned"),
+    (2, 300, 130, "aligned"),
+    (3, 515, 128, "misaligned"),
+    (1, 7, 40, "misaligned"),
+]
+
+
+@pytest.mark.parametrize("b,C,d,align", RERANK_BITS_CASES)
+def test_wl1_rerank_equals_gather_rerank_topk_bits(dev, b, C, d, align):
+    from repro_torch.kernels._build import WL1_RERANK
+
+    rs = np.random.default_rng(b + C + d)
+    n = C + 40
+    data = _t(rs.normal(size=(n, d)).astype(np.float32), dev)
+    ids = _t(np.stack([rs.permutation(n)[:C] for _ in range(b)]).astype(np.int32), dev)
+    q, w = (_t(rs.normal(size=(b, d)).astype(np.float32), dev) for _ in range(2))
+    pts = data[ids.long()]
+    if align == "misaligned":
+        data, pts = _misaligned(data), _misaligned(pts)
+        assert data.data_ptr() % 16 == pts.data_ptr() % 16 == 4
+    before = WL1_RERANK.launches
+    got = ops.wl1_rerank(pts, q, w)
+    assert WL1_RERANK.launches == before + 1
+    want_d, want_i = ops.gather_rerank_topk(data, ids, q, w, C)
+    torch.testing.assert_close(got, ops.wl1_rerank(pts, q, w, force="plain"), rtol=1e-4,
+                               atol=1e-4)
+    assert torch.equal(torch.sort(got, dim=1).values, want_d)
+    # and each returned id's distance is the re-rank's at that id's slot
+    slot_of = torch.full((b, n), -1, dtype=torch.long, device=dev)
+    slot_of.scatter_(1, ids.long(), torch.arange(C, device=dev).expand(b, C).contiguous())
+    assert torch.equal(torch.gather(got, 1, torch.gather(slot_of, 1, want_i.long())), want_d)
 
 
 @pytest.mark.parametrize("case", ["f32", "int8-scaled", "f32-two-seg"])
