@@ -104,6 +104,15 @@ Phases, each of which fails the run (exit code 1) when it fails:
         the screen off); at slack 0.1, probe and multiprobe, its batch
         time, windows probed, stop reasons and recall@10 (held to the
         floor); ``Index.explain`` and ``serve --early-exit --stats``;
+     g. persistence (see ``phase_persist_path``): ``Index.save`` then
+        ``Index.load`` with the default device, at the service width: the
+        f32 sealed index, int8 and f32 mutable indexes after two stream
+        ticks, a bf16 sealed index; every leaf equal by bits and every
+        query bit-equal with equal launch counts (the mutable ones also
+        after one more tick and after a compact); the save and load
+        seconds and the bytes on disk beside the card's name and power
+        limit; a flipped payload byte and a removed COMMIT raise their
+        named errors; msgpack and ml_dtypes are never imported;
   6. check: on a small input, the card's answers agree with the plain
      PyTorch path on the CPU over the same index state (f32 probe and
      exact, int8 screened probe).
@@ -161,7 +170,7 @@ KERNEL_META = {
     "wl1_rerank": ("src/repro_torch/kernels/csrc/wl1_distance.cu",
                    "src/repro/kernels/wl1_distance.py:112"),
 }
-PATHS = ("f32", "quantized", "multiprobe", "stream", "unfused", "early_exit")
+PATHS = ("f32", "quantized", "multiprobe", "stream", "unfused", "early_exit", "persist")
 # The stream path: the reference service's defaults (serve --mode stream)
 STREAM_CAP = 8192  # --delta-capacity
 STREAM_THRESHOLD = 0.75  # --compact-threshold
@@ -1784,6 +1793,220 @@ def phase_early_exit_path(svc):
     return counts, rows
 
 
+def _launched(fn):
+    """``fn()`` and the kernel launches it made."""
+    from repro_torch.kernels import _build
+
+    before = _build.launch_counts()
+    out = fn()
+    after = _build.launch_counts()
+    return out, {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+def _same_answer(label, a, b, launches_a, launches_b):
+    import torch
+
+    same = all(torch.equal(getattr(a, f), getattr(b, f)) for f in ("ids", "dists", "n_candidates"))
+    print(f"  [persist] {label}: ids, dists and n_candidates bit-equal to the saved index's: "
+          f"{same}; launches {launches_b} (saved index: {launches_a})")
+    if not same:
+        raise AssertionError(f"{label}: the loaded index answers differently from the saved one")
+    if launches_a != launches_b:
+        raise AssertionError(f"{label}: the loaded index launched {launches_b}, the saved one "
+                             f"{launches_a}")
+
+
+def _same_state(label, a, b):
+    """Every tensor of two indexes equal by bits (``tiled`` too)."""
+    import torch
+
+    def bits(t):
+        return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+    pairs = [(f"state.{f}", getattr(a.state, f), getattr(b.state, f))
+             for f in ("mixers", "sorted_keys", "perm", "data", "levels", "scales")]
+    pairs += [(f"tables.{f}", getattr(a.state.tables, f), getattr(b.state.tables, f))
+              for f in ("folded", "offsets", "tiled")]
+    pairs += [(f"delta.{f}", getattr(a.delta, f), getattr(b.delta, f))
+              for f in ("data", "levels", "keys")]
+    pairs.append(("tombstones", a.tombstones, b.tombstones))
+    bad = [name for name, x, y in pairs
+           if (x is None) != (y is None) or (x is not None and not torch.equal(bits(x), bits(y)))]
+    if a.delta_fill != b.delta_fill:
+        bad.append("delta.fill")
+    print(f"  [persist] {label}: {len(pairs) + 1} leaves compared, unequal: {bad or 'none'}")
+    if bad:
+        raise AssertionError(f"{label}: loaded leaves differ: {bad}")
+
+
+def _round_trip(label, index, directory, card):
+    """Save ``index`` into ``directory`` and load it back with the default
+    device; prints the times (host clock; the load includes the copy to the
+    card), the bytes on disk and the codec, beside the card's name."""
+    import os
+
+    import torch
+
+    import repro_torch.api as tapi
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    index.save(directory)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = tapi.Index.load(directory)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    files = [os.path.join(r, f) for r, _, fs in os.walk(directory) for f in fs]
+    on_disk = sum(os.path.getsize(f) for f in files)
+    codec = "zstd" if any(f.endswith(".msgpack.zst") for f in files) else "zlib"
+    raw = sum(t.nbytes for t in (index.state.tables.folded, index.state.tables.offsets,
+                                 index.state.mixers, index.state.sorted_keys, index.state.perm,
+                                 index.state.data, index.state.levels, index.delta.data,
+                                 index.delta.levels, index.delta.keys, index.tombstones))
+    print(f"  [persist] {label}: save {save_s:.3f} s, load {load_s:.3f} s (host clock, the load "
+          f"with its copy to {loaded.device}); {raw} B of leaves, {on_disk} B on disk "
+          f"({codec}, {on_disk / raw:.3f} of raw); {card}")
+    if loaded.device.type != "cuda":
+        raise AssertionError(f"{label}: Index.load put the index on {loaded.device}")
+    return loaded, {"save_s": save_s, "load_s": load_s, "raw_bytes": raw,
+                    "disk_bytes": on_disk, "codec": codec}
+
+
+def phase_persist_path(svc, card):
+    """Persistence at the SERVICE width, through ``Index.save`` and
+    ``Index.load`` with the default device: the f32 sealed service index
+    (every leaf and ``tiled`` equal; the probe batch and 64 exact queries
+    bit-equal, with equal launch counts); int8 and f32 mutable indexes after
+    two stream ticks (fill 1024, 256 tombstones; the two-segment queries
+    bit-equal, and again after one more tick and after a compact on both);
+    a bf16 sealed index (leaves equal by bits); then, on n=8192, a flipped
+    payload byte raises ``CorruptCheckpointError`` and a removed ``COMMIT``
+    ``FileNotFoundError``. The indexes to be saved are built, and the
+    mutable ones take their first two ticks, before the launch counts are
+    zeroed: the path's counts are those of the saves, the loads, the queries
+    of both copies and the tick and compact after the load. Prints the save
+    and load seconds and the bytes on disk beside ``card``, which of
+    msgpack, zstandard and ml_dtypes this machine has, and that the saves
+    and loads imported neither msgpack nor ml_dtypes."""
+    import dataclasses
+    import glob
+    import importlib.util
+    import os
+    import tempfile
+
+    import torch
+
+    import repro_torch.api as tapi
+    from repro_torch.ckpt import CorruptCheckpointError
+    from repro_torch.configs.paper_alsh import SERVICE
+    from repro_torch.kernels import _build
+
+    installed = {m: importlib.util.find_spec(m) is not None
+                 for m in ("msgpack", "zstandard", "ml_dtypes")}
+    print(f"  [persist] installed on this machine: {installed}")
+    modules_before = set(sys.modules)
+    wl, cfg = svc.wl, svc.index.config
+    k, b, d = SERVICE.topk, SERVICE.query_batch, cfg.d
+    spec, exact = tapi.QuerySpec(k=k), tapi.QuerySpec(k=k, mode="exact")
+    rows = {}
+    update = tapi.UpdateSpec(delta_capacity=STREAM_CAP, compact_threshold=STREAM_THRESHOLD)
+
+    def tick(idx, t):
+        _, new = stream_rows(SEED + 5000 + t, STREAM_INGEST // CLUSTER, d)
+        retire = torch.arange((t - 1) * STREAM_RETIRE, t * STREAM_RETIRE, dtype=torch.int32,
+                              device="cuda")
+        return idx.insert(new)[0].delete(retire)
+
+    # set-up, off the path's counts: the indexes to be saved
+    mutable = {}
+    for storage in ("int8", "f32"):
+        idx = tapi.Index.build(SEED + 2, wl.data, dataclasses.replace(cfg, storage=storage),
+                               update=update)
+        for t in (1, 2):
+            idx = tick(idx, t)
+        mutable[storage] = idx
+    bf16 = tapi.Index.build(SEED + 2, wl.data, dataclasses.replace(cfg, storage="bf16"))
+    small = tapi.Index.build(SEED, Workload(8192, d, seed=SEED + 7).data, cfg)
+    del idx
+    _build.reset_launch_counts()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_persist_") as tmp:
+        # 1. the f32 sealed service index
+        loaded, rows["f32"] = _round_trip("f32 sealed", svc.index, os.path.join(tmp, "f32"),
+                                          card)
+        _same_state("f32 sealed", svc.index, loaded)
+        for label, qq, ww, s in (("f32 probe batch", svc.q, svc.w, spec),
+                                 ("f32 exact, 64 queries", svc.q[:64], svc.w[:64], exact)):
+            a, la = _launched(lambda: svc.index.query(qq, ww, s))
+            c, lc = _launched(lambda: loaded.query(qq, ww, s))
+            _check_result(c, qq.shape[0], k)
+            _same_answer(label, a, c, la, lc)
+        del loaded
+
+        # 2. int8 and f32 mutable indexes after two stream ticks
+        for storage in ("int8", "f32"):
+            idx = mutable.pop(storage)
+            fill, dead = idx.delta_fill, int(idx.tombstones.sum())
+            print(f"  [persist] {storage} mutable: delta fill {fill}, {dead} tombstones")
+            if (fill, dead) != (2 * STREAM_INGEST, 2 * STREAM_RETIRE):
+                raise AssertionError(f"{storage} mutable: fill {fill}, {dead} tombstones")
+            label = f"{storage} mutable"
+            back, rows[label] = _round_trip(label, idx, os.path.join(tmp, storage + "_mut"),
+                                            card)
+            _same_state(label, idx, back)
+            q, w = stream_batch(wl, stream_rows(SEED + 5000 + 2, 32, d)[0], SEED + 5100)
+            alphas = (SCREEN_ALPHA, 0.0) if storage == "int8" else (0.0,)
+            for stage in ("loaded", "one more tick", "compacted"):
+                if stage == "one more tick":
+                    idx, back = tick(idx, 3), tick(back, 3)
+                elif stage == "compacted":
+                    idx, back = idx.compact(), back.compact()
+                for alpha in alphas:
+                    s = tapi.QuerySpec(k=k, screen_alpha=alpha)
+                    a, la = _launched(lambda: idx.query(q, w, s))
+                    c, lc = _launched(lambda: back.query(q, w, s))
+                    _check_result(c, b, k)
+                    _same_answer(f"{label}, {stage}, alpha={alpha}", a, c, la, lc)
+            del idx, back
+
+        # 3. the bf16 sealed index
+        back, rows["bf16"] = _round_trip("bf16 sealed", bf16, os.path.join(tmp, "bf16"), card)
+        _same_state("bf16 sealed", bf16, back)
+        a, la = _launched(lambda: bf16.query(svc.q, svc.w, spec))
+        c, lc = _launched(lambda: back.query(svc.q, svc.w, spec))
+        _same_answer("bf16 probe batch", a, c, la, lc)
+        del bf16, back
+
+        # 4. named errors on a small index
+        for damage, want in (("flipped payload byte", CorruptCheckpointError),
+                             ("removed COMMIT", FileNotFoundError)):
+            path = small.save(os.path.join(tmp, damage.replace(" ", "_")))
+            if want is CorruptCheckpointError:
+                (shard,) = glob.glob(os.path.join(path, "step_*", "shard_*"))
+                blob = bytearray(open(shard, "rb").read())
+                blob[len(blob) // 2] ^= 0xFF
+                open(shard, "wb").write(bytes(blob))
+            else:
+                os.remove(glob.glob(os.path.join(path, "step_*", "COMMIT"))[0])
+            try:
+                tapi.Index.load(path)
+            except want as e:
+                print(f"  [persist] {damage}: {type(e).__name__}: {str(e)[:120]}")
+            else:
+                raise AssertionError(f"{damage}: Index.load did not raise {want.__name__}")
+    imported = sorted({m.split(".")[0] for m in set(sys.modules) - modules_before}
+                      & {"msgpack", "ml_dtypes", "jax", "repro"})
+    print(f"  [persist] the saves and loads imported msgpack, ml_dtypes, jax or repro: "
+          f"{imported or 'none'} (in this process at all: "
+          f"{sorted(m for m in ('msgpack', 'ml_dtypes') if m in sys.modules) or 'none'})")
+    if imported:
+        raise AssertionError(f"persistence imported {imported}")
+    counts = _path_counts("persist", ("alsh_project", "gather_rerank_topk",
+                                      "gather_rerank_topk_two_seg", "gather_rerank_topk_blocked",
+                                      "gather_rerank_topk_blocked_two_seg", "wl1_scan_topk"))
+    return counts, rows
+
+
 def phase_small_check():
     """The card's answers against the plain PyTorch path on the CPU, over
     one index state (built on the card, copied to the CPU)."""
@@ -1878,6 +2101,8 @@ def main() -> int:
                   phase_unfused_path),
         run.phase("main path (SERVICE, early exit: streamed query, explain, serve --stats)",
                   phase_early_exit_path, svc),
+        run.phase("main path (SERVICE, persistence: save, load, query)", phase_persist_path, svc,
+                  dev["card"]),
     ]
     run.phase("check against the CPU path", phase_small_check)
     if run.failures or any(p is None for p in paths):

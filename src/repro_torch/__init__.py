@@ -1,19 +1,22 @@
 """PyTorch + CUDA port of the weighted-Manhattan ALSH system (``repro``).
 
 The JAX package ``repro`` is the reference; this package mirrors its layout
-(``core/``, ``kernels/``, ``engine/``, ``api/``, ``distance/``, ``configs/``,
-``launch/``) so each module here has one counterpart there. It imports
-``torch`` and numpy only — never ``jax`` and never ``repro``.
+(``core/``, ``kernels/``, ``engine/``, ``api/``, ``ckpt/``, ``distance/``,
+``configs/``, ``launch/``) so each module here has one counterpart there. It
+imports ``torch`` and numpy only — never ``jax``, ``repro``, ``msgpack`` or
+``ml_dtypes`` (``zstandard`` is used where it is installed).
 
 Ported so far: the sealed index — build, single-probe and multiprobe query
 and the exact scan — with f32, bf16 or int8 row storage and the quantized
 proxy screen (``quant/``); the mutable index (insert, delete, the
 two-segment query, compact); the streamed early-exit query
 (``engine/stream.py``, with the paper's theory in ``core/theory.py``) and
-``Index.explain`` with its ``QueryReport``; and the materializing scan and
-re-rank (``ops.wl1_scan``/``ops.wl1_rerank``). Its eight kernels are
-hand-written in CUDA for Hopper (``kernels/csrc``): every Pallas kernel of
-the reference has a counterpart. Entry points run on the CUDA card unless
+``Index.explain`` with its ``QueryReport``; the materializing scan and
+re-rank (``ops.wl1_scan``/``ops.wl1_rerank``); ``Index.save``/``Index.load``
+in the reference's directory format (``api/persist.py``, ``ckpt/``); and
+the paper's unary embedding, the naive projection and the wl2 baseline.
+Its eight kernels are hand-written in CUDA for Hopper (``kernels/csrc``):
+every Pallas kernel of the reference has a counterpart. Entry points run on the CUDA card unless
 the caller asks for ``device="cpu"``; on CPU tensors the kernels' plain
 PyTorch versions run.
 Modes that are not ported yet raise :class:`NotImplementedError` naming the

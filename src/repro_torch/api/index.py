@@ -21,12 +21,17 @@ probe windows G at a time and stops each query early;
 ``index.explain(q, w, spec)`` runs the query and returns a
 :class:`~repro_torch.api.planner.QueryReport` of per-query diagnostics.
 
-``Index.build`` runs on ``device="cuda"`` unless the caller passes
-``device="cpu"``; without a card it raises rather than carry on on the CPU.
-``Index.query`` runs on the index's device. ``Index.from_numpy`` carries an
-index built by the JAX package across (the parity tests' entry point).
-Quality-first planning, persistence and sharding are not ported yet and
-raise ``NotImplementedError``.
+``index.save(directory)`` writes the reference's directory format
+(version 5: ``index.json`` and a committed msgpack payload, see
+:mod:`repro_torch.api.persist`); ``Index.load(directory)`` reads versions
+1–5, whichever package wrote them.
+
+``Index.build`` and ``Index.load`` run on ``device="cuda"`` unless the
+caller passes ``device="cpu"``; without a card they raise rather than carry
+on on the CPU. ``Index.query`` runs on the index's device.
+``Index.from_numpy`` carries an index built by the JAX package across (the
+parity tests' entry point). Quality-first planning and sharding are not
+ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ import numpy as np
 import torch
 
 from repro_torch import engine, not_ported
+from repro_torch.api import persist
 from repro_torch.api.planner import QueryReport
 from repro_torch.api.spec import QualitySpec, QuerySpec, UpdateSpec
 from repro_torch.core import theory
@@ -140,6 +146,13 @@ class Index:
     inserted row gets ``n_main + i``; only ``compact`` renumbers, per
     ``live_ids``. The lifecycle methods are functional: each returns a new
     ``Index`` and leaves this one as it was.
+
+    Three fields travel through ``save``/``load`` untouched: ``build_key``,
+    the reference's JAX PRNG key as a numpy uint32 array (None for an index
+    this package built, which saves ``persist.PORT_BUILT_KEY``); ``plans``,
+    the manifest's plan memo; ``tuning``, its tuning stamp (plain JSON
+    until the planner is ported). ``insert`` and ``delete`` keep all three;
+    ``compact`` keeps ``build_key`` and drops the other two.
     """
 
     state: ALSHIndex
@@ -147,6 +160,9 @@ class Index:
     update: UpdateSpec = UpdateSpec()
     delta: DeltaSegment | None = None
     tombstones: torch.Tensor | None = None
+    build_key: np.ndarray | None = dataclasses.field(default=None, compare=False)
+    plans: list = dataclasses.field(default_factory=list, compare=False)
+    tuning: dict | None = dataclasses.field(default=None, compare=False)
 
     def __post_init__(self):
         # empty mutation state when constructed without it (sealed indexes)
@@ -426,14 +442,28 @@ class Index:
             tables=state.tables, mixers=state.mixers, sorted_keys=sorted_keys, perm=perm,
             data=payload, levels=levels, scales=scales,
         )
-        return Index(state=new_state, config=cfg, update=self.update)
+        return Index(state=new_state, config=cfg, update=self.update, build_key=self.build_key)
 
-    def save(self, directory):
-        raise not_ported("Index.save — persistence", "Queue A item 9")
+    # -- persistence (self-describing) --------------------------------------
+    def save(self, directory) -> str:
+        """Write a directory restorable by ``Index.load(directory)`` alone
+        (this package's or the reference's): config, update policy, every
+        segment, the tombstones, the plan memo and the tuning stamp."""
+        return persist.save_index(
+            directory, self.state, self.build_key, self.config, update=self.update,
+            delta=self.delta, tombstones=self.tombstones, plans=self.plans, tuning=self.tuning,
+        )
 
     @classmethod
-    def load(cls, directory):
-        raise not_ported("Index.load — persistence", "Queue A item 9")
+    def load(cls, directory, device=None) -> "Index":
+        """Restore an index from a directory that either package saved,
+        every tensor on ``device`` (default: the CUDA card)."""
+        dev = resolve_device(device)
+        state, build_key, cfg, update, delta, tombstones, plans, tuning = persist.load_index(
+            directory, dev
+        )
+        return cls(state=state, config=cfg, update=update, delta=delta, tombstones=tombstones,
+                   build_key=build_key, plans=plans, tuning=tuning)
 
     def shard(self, *args, **kwargs):
         raise not_ported("Index.shard — the sharded service", "Queue A item 12")

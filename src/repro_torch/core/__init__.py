@@ -10,7 +10,15 @@ from repro_torch.core.index import (
     build_index,
     index_from_numpy,
 )
-from repro_torch.core.transforms import BoundedSpace, discretize
+from repro_torch.core.transforms import (
+    BoundedSpace,
+    discretization_slack,
+    discretize,
+    transform_P,
+    transform_Q,
+    unary_code,
+    wl1_via_mips,
+)
 
 __all__ = [
     "ALSHIndex",
@@ -21,7 +29,12 @@ __all__ = [
     "PrefixTables",
     "QueryResult",
     "build_index",
+    "discretization_slack",
     "discretize",
     "index_from_numpy",
     "make_prefix_tables",
+    "transform_P",
+    "transform_Q",
+    "unary_code",
+    "wl1_via_mips",
 ]

@@ -27,8 +27,11 @@ __all__ = [
     "LSHParams",
     "PrefixTables",
     "make_prefix_tables",
+    "naive_projection_vector",
     "project_data",
     "project_query",
+    "l2_hash",
+    "sign_hash",
     "hash_data",
     "hash_query",
 ]
@@ -67,6 +70,14 @@ class PrefixTables:
 
     def to(self, device) -> "PrefixTables":
         return PrefixTables(self.folded.to(device), self.offsets.to(device))
+
+
+def naive_projection_vector(a_rows: torch.Tensor) -> torch.Tensor:
+    """The flat 2Md Gaussian vector ``a`` from its (2d, M) row view, in the
+    layout of ``transforms.transform_P``/``transform_Q`` (cos rows 0..d-1,
+    then sin rows d..2d-1). Test-only: the naive O(Md) inner product that
+    the O(d) trick is checked against."""
+    return a_rows.reshape(-1)
 
 
 def _prefix_tables_from_rows(a_rows: torch.Tensor) -> torch.Tensor:
@@ -110,6 +121,16 @@ def project_query(
 ) -> torch.Tensor:
     """a^T Q_w(q): the asymmetric (weighted) projection, (b, d) -> (b, H)."""
     return ops.alsh_project(levels, tables.folded, weights=w, tiled=tables.tiled)
+
+
+def l2_hash(projections: torch.Tensor, tables: PrefixTables, W: float) -> torch.Tensor:
+    """Eq 3: h(x) = floor((a^T x + b) / W), integer bucket codes."""
+    return get_family("l2").codes_from_projections(projections, tables.offsets, W)
+
+
+def sign_hash(projections: torch.Tensor) -> torch.Tensor:
+    """Eq 5: h(x) = 1[a^T x >= 0], SimHash bits."""
+    return get_family("theta").codes_from_projections(projections, None, 0.0)
 
 
 def hash_data(levels: torch.Tensor, tables: PrefixTables, params: LSHParams) -> torch.Tensor:

@@ -1,8 +1,11 @@
-"""Boundaries of the port: it imports neither ``jax`` nor ``repro``, its entry
-points default to the CUDA card and refuse to carry on without one, every
-mode it does not port yet raises ``NotImplementedError``, and the modes a
-slice ported (early exit, ``--stats``) run on the CPU."""
+"""Boundaries of the port: it imports neither ``jax`` nor ``repro`` (nor
+``msgpack`` or ``ml_dtypes``, which the reference's persistence needs), its
+entry points default to the CUDA card and refuse to carry on without one,
+every mode it does not port yet raises ``NotImplementedError``, and the
+modes a slice ported (early exit, ``--stats``, persistence) run on the
+CPU."""
 
+import inspect
 import os
 import subprocess
 import sys
@@ -27,21 +30,61 @@ def _port_modules():
         yield ".".join(parts)
 
 
-def test_port_imports_no_jax_and_no_reference():
-    mods = list(_port_modules())
-    assert "repro_torch.kernels.ops" in mods and "repro_torch.launch.serve" in mods
-    code = (
-        "import importlib, sys\n"
-        f"for m in {mods!r}: importlib.import_module(m)\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m == 'repro' or m.startswith('repro.'))\n"
-        "assert not bad, bad\n"
-        "print(len(sys.modules))\n"
-    )
+FORBIDDEN = ("jax", "repro", "msgpack", "ml_dtypes")
+
+
+def _forbidden(mod):
+    """Any module whose top-level name starts with ``jax`` (``jaxlib``,
+    ``jax_*``) or is one of ``FORBIDDEN``."""
+    top = mod.split(".")[0]
+    return top.startswith("jax") or top in FORBIDDEN
+
+
+# The same predicate, run in a fresh interpreter after the imports under test.
+_FORBIDDEN_CHECK = (
+    f"FORBIDDEN = {FORBIDDEN!r}\n" + inspect.getsource(_forbidden)
+    + "bad = sorted(m for m in sys.modules if _forbidden(m))\nassert not bad, bad\n"
+)
+
+
+def _run_clean(code):
     env = dict(os.environ, PYTHONPATH=str(SRC))
     out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stderr
+    return out.stdout
+
+
+def test_port_imports_no_jax_and_no_reference():
+    mods = list(_port_modules())
+    for m in ("repro_torch.kernels.ops", "repro_torch.launch.serve", "repro_torch.ckpt",
+              "repro_torch.ckpt.checkpoint", "repro_torch.ckpt._msgpack",
+              "repro_torch.api.persist"):
+        assert m in mods, m
+    _run_clean("import importlib, sys\n"
+               f"for m in {mods!r}: importlib.import_module(m)\n" + _FORBIDDEN_CHECK)
+
+
+def test_save_and_load_import_no_reference_msgpack_or_ml_dtypes(tmp_path):
+    """A bf16 and an int8 index saved and loaded on the CPU: the payload
+    packs and the bf16 leaf reads without ``msgpack`` or ``ml_dtypes``."""
+    out = _run_clean(
+        "import sys, numpy as np, torch\n"
+        "import repro_torch.api as tapi\n"
+        "data = np.random.default_rng(0).uniform(0, 1, (64, 4)).astype(np.float32)\n"
+        "for storage in ('bf16', 'int8'):\n"
+        "    cfg = tapi.IndexConfig(d=4, M=8, K=3, L=2, storage=storage,\n"
+        "                           space=tapi.BoundedSpace(0.0, 1.0, 8.0))\n"
+        "    idx = tapi.Index.build(0, data, cfg, update=tapi.UpdateSpec(delta_capacity=8),\n"
+        "                           device='cpu')\n"
+        "    idx, _ = idx.insert(data[:3])\n"
+        f"    d = idx.save({str(tmp_path)!r} + '/' + storage)\n"
+        "    back = tapi.Index.load(d, device='cpu')\n"
+        "    assert torch.equal(back.state.data.view(torch.uint8), idx.state.data.view(torch.uint8))\n"
+        "    assert back.delta_fill == 3 and back.state.data.dtype == idx.state.data.dtype\n"
+        "    print(storage, back.state.data.dtype)\n" + _FORBIDDEN_CHECK
+    )
+    assert "bf16 torch.bfloat16" in out and "int8 torch.int8" in out
 
 
 def test_chip_smoke_imports_no_jax_and_no_reference():
@@ -50,7 +93,7 @@ def test_chip_smoke_imports_no_jax_and_no_reference():
         s = line.strip()
         if s.startswith(("import ", "from ")):
             mod = s.split()[1]
-            assert not mod.startswith(("jax", "repro.")) and mod != "repro", line
+            assert not _forbidden(mod), line
 
 
 def _cfg(**kw):
@@ -66,6 +109,8 @@ def test_build_defaults_to_cuda_and_raises_without_it(monkeypatch):
         tapi.Index.build(0, data, _cfg())
     with pytest.raises(RuntimeError, match='device="cpu"'):
         tapi.Index.from_numpy({}, _cfg())
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        tapi.Index.load("no-such-directory")
     idx = tapi.Index.build(0, data, _cfg(), device="cpu")  # the explicit CPU path works
     assert idx.device.type == "cpu"
 
@@ -129,12 +174,15 @@ def test_unported_index_modes_raise():
         idx.explain(q, np.ones((2, 4)), tapi.QualitySpec(k=3))
 
 
-def test_persistence_raises_naming_its_item(tmp_path):
+def test_shard_still_raises_naming_item_12(tmp_path):
+    """Persistence is ported; sharding is not, and a loaded index refuses it
+    as a built one does."""
     idx = tapi.Index.build(0, np.zeros((8, 4), np.float32), _cfg(), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A item 9"):
-        idx.save(tmp_path)
-    with pytest.raises(NotImplementedError, match="Queue A item 9"):
-        tapi.Index.load(tmp_path)
+    with pytest.raises(NotImplementedError, match="Queue A item 12"):
+        idx.shard(None)
+    loaded = tapi.Index.load(idx.save(tmp_path / "idx"), device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue A item 12"):
+        loaded.shard(None)
 
 
 @pytest.mark.parametrize("mode", ["broker", "lm"])

@@ -266,6 +266,73 @@ def test_multiprobe_on_the_card_sees_a_superset_of_probe(dev):
     assert torch.all(mp.dists <= pr.dists + 1e-6)
 
 
+def _persist_case(storage, mutable):
+    """A small index on the card (n=8192, d=32), mutable ones with a filled
+    delta and tombstones, and a query batch."""
+    import repro_torch.api as tapi
+
+    rs = np.random.default_rng(21)
+    cfg = tapi.IndexConfig(d=32, M=32, K=8, L=16, max_candidates=64, storage=storage,
+                           space=tapi.BoundedSpace(0.0, 1.0, 32.0))
+    data = rs.uniform(0, 1, (8192, 32)).astype(np.float32)
+    extra = rs.uniform(0, 1, (300, 32)).astype(np.float32)
+    update = tapi.UpdateSpec(delta_capacity=512 if mutable else 0)
+    idx = tapi.Index.build(13, data, cfg, update=update)
+    if mutable:
+        idx, ids = idx.insert(extra)
+        idx = idx.delete(torch.cat([torch.arange(0, 400, 3, device="cuda"), ids[::7].long()]))
+    q = np.concatenate([extra[:16], rs.uniform(0, 1, (48, 32))]).astype(np.float32)
+    w = (np.abs(rs.normal(size=(64, 32))) + 0.1).astype(np.float32)
+    return idx, q, w
+
+
+@pytest.mark.parametrize("storage,mutable", [("f32", False), ("f32", True), ("int8", True),
+                                             ("bf16", False)])
+def test_save_and_load_on_the_card_answer_bit_for_bit(dev, tmp_path, storage, mutable):
+    """A round trip through the disk on the card: every tensor (and the
+    kernel's relayout ``tiled``) equal, and the f32, int8 and bf16 tails
+    (two-segment where mutable) answer bit for bit."""
+    import repro_torch.api as tapi
+
+    idx, q, w = _persist_case(storage, mutable)
+    back = tapi.Index.load(idx.save(tmp_path / "idx"))
+    assert back.device.type == "cuda" and back.state.tables.tiled is not None
+    assert torch.equal(back.state.tables.tiled, idx.state.tables.tiled)
+    for name in ("mixers", "sorted_keys", "perm", "data", "levels"):
+        assert torch.equal(getattr(back.state, name), getattr(idx.state, name)), name
+    for name in ("data", "levels", "keys"):
+        assert torch.equal(getattr(back.delta, name), getattr(idx.delta, name)), name
+    assert torch.equal(back.tombstones, idx.tombstones) and back.delta_fill == idx.delta_fill
+    alphas = (0.0,) if storage == "f32" else (0.0, 2.0)
+    for spec in [tapi.QuerySpec(k=10, screen_alpha=a) for a in alphas] + [
+            tapi.QuerySpec(k=10, mode="exact")]:
+        a, b = idx.query(q, w, spec), back.query(q, w, spec)
+        for f in ("ids", "dists", "n_candidates"):
+            assert torch.equal(getattr(a, f), getattr(b, f)), (spec, f)
+
+
+@pytest.mark.parametrize("storage", ["f32", "int8", "bf16"])
+def test_directory_saved_on_the_card_loads_on_the_cpu(dev, tmp_path, storage):
+    """Loaded with device="cpu", the card's directory answers as the card
+    does within the bar: exact mode up to near-ties, probe mode except where
+    a projection within rounding of a bucket edge flips a key."""
+    import repro_torch.api as tapi
+    from repro_torch import quant
+
+    idx, q, w = _persist_case(storage, mutable=True)
+    cpu = tapi.Index.load(idx.save(tmp_path / "idx"), device="cpu")
+    assert cpu.device.type == "cpu" and cpu.state.tables.tiled is None
+    assert torch.equal(cpu.state.data.cpu(), idx.state.data.cpu())
+    decoded = quant.decode_table(torch.cat([cpu.state.data, cpu.delta.data]), cpu.state.scales)
+    ex_g = idx.query(q, w, tapi.QuerySpec(k=10, mode="exact"))
+    ex_c = cpu.query(q, w, tapi.QuerySpec(k=10, mode="exact"))
+    _check_topk((ex_g.dists, ex_g.ids), (ex_c.dists, ex_c.ids), decoded, torch.from_numpy(q),
+                torch.from_numpy(w))
+    pr_g, pr_c = idx.query(q, w, tapi.QuerySpec(k=10)), cpu.query(q, w, tapi.QuerySpec(k=10))
+    assert (pr_g.n_candidates.cpu() == pr_c.n_candidates).float().mean() >= 0.9
+    assert torch.all(pr_g.dists.cpu() >= ex_c.dists - 1e-4)
+
+
 # (n_main, cap, b, P, d, k): odd d, cap = 1, a delta larger than main
 TWO_SEG_SHAPES = [
     (50, 20, 3, 17, 7, 5),
