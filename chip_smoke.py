@@ -113,6 +113,17 @@ Phases, each of which fails the run (exit code 1) when it fails:
         seconds and the bytes on disk beside the card's name and power
         limit; a flipped payload byte and a removed COMMIT raise their
         named errors; msgpack and ml_dtypes are never imported;
+     h. planning (see ``phase_plan_path``): a ``QualitySpec`` build at the
+        service width with the default planner, then one calibrating on
+        the workload's weights (its geometry, attempts and seconds, each
+        calibration rung's ms), ``query(quality)`` bit-equal to
+        ``query(plan)`` with its ms, device time and held-out recall beside
+        the explicit SERVICE index's, the ladder and ``explain``, the int8
+        index's plan through the blocked gather, the memo through
+        save/load (no calibration after the load), the tuner over the
+        service's rows inline and on two spawned workers (equal records,
+        equal launches) with its table as a prior at the 0.9 target, and
+        the candidates per ms the card re-ranks;
   6. check: on a small input, the card's answers agree with the plain
      PyTorch path on the CPU over the same index state (f32 probe and
      exact, int8 screened probe).
@@ -127,6 +138,7 @@ from __future__ import annotations
 
 import hashlib
 import json
+import math
 import subprocess
 import sys
 import time
@@ -170,7 +182,7 @@ KERNEL_META = {
     "wl1_rerank": ("src/repro_torch/kernels/csrc/wl1_distance.cu",
                    "src/repro/kernels/wl1_distance.py:112"),
 }
-PATHS = ("f32", "quantized", "multiprobe", "stream", "unfused", "early_exit", "persist")
+PATHS = ("f32", "quantized", "multiprobe", "stream", "unfused", "early_exit", "persist", "plan")
 # The stream path: the reference service's defaults (serve --mode stream)
 STREAM_CAP = 8192  # --delta-capacity
 STREAM_THRESHOLD = 0.75  # --compact-threshold
@@ -192,6 +204,14 @@ BASELINE_P = (512, 1024, 2048, 4096)
 # Early exit: serve's --exit-group and --exit-slack defaults
 EXIT_GROUP = 8
 EXIT_SLACK = 0.1
+# Quality-first planning: the target the plan path builds from, the held-out
+# queries its recall is measured on, and the tuner's workers
+PLAN_K, PLAN_RECALL = 10, 0.9
+PLAN_HELD_OUT = 64
+TUNE_WORKERS = 2
+# The tuner's weight skew for the service's weights: |N(0,1)|**0.05 + 0.1
+# spans ~[1.0, 1.13], as 1 + 0.1 |N(0,1)| spans ~[1.0, 1.16]
+PLAN_SKEW = 0.05
 
 
 def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
@@ -2007,6 +2027,331 @@ def phase_persist_path(svc, card):
     return counts, rows
 
 
+def _timed_planner(tapi, weights):
+    """A ``Planner`` calibrating with ``weights`` that stamps when
+    ``plan_config`` and each calibrated attempt start and end (host clock,
+    after a device sync)."""
+    import torch
+
+    class TimedPlanner(tapi.Planner):
+        def _mark(self, label):
+            torch.cuda.synchronize()
+            self.__dict__.setdefault("marks", []).append((label, time.perf_counter()))
+
+        def plan_config(self, *args, **kwargs):
+            self._mark("config start")
+            cfg = super().plan_config(*args, **kwargs)
+            self._mark("config end")
+            return cfg
+
+        def plan_query(self, index, quality):
+            self._mark(f"calibration start K={index.config.K} L={index.config.L} "
+                       f"C={index.config.max_candidates}")
+            plan = super().plan_query(index, quality)
+            self._mark("calibration end")
+            return plan
+
+    return TimedPlanner(weights=weights)
+
+
+def _attempts(marks):
+    """(geometry, build seconds, calibration seconds) per attempt from the
+    planner's marks; each build runs from the end of the step before it."""
+    out, prev_end = [], None
+    for i, (label, t) in enumerate(marks):
+        if label in ("config end", "calibration end"):
+            prev_end = t
+        elif label.startswith("calibration start"):
+            out.append((label[len("calibration start "):], t - prev_end, marks[i + 1][1] - t))
+    return out
+
+
+def phase_plan_path(run, svc, card):
+    """Quality-first planning and the offline tuner at the SERVICE width
+    (n=262,144, d=128, batches of 1024), launch counts zeroed before its
+    builds:
+
+    1. ``Index.build(seed, data, QualitySpec(k=10, recall_target=0.9),
+       family="theta", M=32)`` on the card with the default planner (its
+       calibration weights |N(0,1)| + 0.1): its geometry, plan, seconds and
+       held-out recall, or the planner's own refusal when the theory solve
+       finds no usable collision probabilities (any other error fails);
+       then the same build with a planner that calibrates on the service's
+       own query weights (64 rows of 1 + 0.1·|N(0,1)|), which the rest of
+       the path uses: the derived config, the attempts, the seconds of
+       ``plan_config``, of each build and of each calibration, and
+       ``plan_build_s``;
+    2. ``query(q, w, quality)`` equals ``query(q, w, index.plan(quality))``
+       bit for bit with equal launch counts on the service batch; its ms and
+       device busy time beside the explicit SERVICE index's, and its
+       recall@10 against exact mode on 64 held-out queries beside the
+       plan's ``predicted_recall``;
+    3. ``plan_ladder``: rung 0 is the plan and the costs strictly fall;
+       ``explain`` reports "calibrated", ``plan_build_s``, the query's answer;
+    4. the int8 SERVICE index plans (its screened rungs run the blocked
+       gather): the chosen rung and its ``screen_alpha``;
+    5. save and ``Index.load`` onto the card: the plans are equal, and a
+       quality query launches no ``wl1_scan_topk`` (no calibration ran);
+    6. the tuner over the SERVICE geometry (theta, K=12, L=32, probes 1, 2,
+       4, 8, windows 64, 128) on a profile of the service's own rows
+       (``source="sampled"``, weight skew ``PLAN_SKEW``), inline and with
+       2 spawned workers (equal deterministic fields, equal launch counts:
+       the workers' launches are added to this process's), its table, and
+       ``Planner(table=...)`` on the SERVICE index at the path's target
+       0.9: a prior plan's confirmation recall and its recall on the
+       held-out queries meet the target less ``confirm_slack``, a
+       calibrated one equals the table-less plan; the confirmation's
+       seconds beside the full calibration's;
+    7. the candidates per ms the card re-ranks on the f32 probe batch beside
+       the planner's ``candidates_per_ms`` default (unchanged: both packages
+       must choose alike)."""
+    import dataclasses
+    import os
+    import tempfile
+    import warnings
+
+    import torch
+
+    import repro_torch.api as tapi
+    from repro_torch import tuner
+    from repro_torch.configs.paper_alsh import SERVICE
+    from repro_torch.distance import recall_at_k
+    from repro_torch.kernels import _build
+
+    wl, q, w = svc.wl, svc.q, svc.w
+    k, b = SERVICE.topk, SERVICE.query_batch
+    quality = tapi.QualitySpec(k=PLAN_K, recall_target=PLAN_RECALL)
+    rows = {"card": card}
+    weights = wl.batch(64, SEED + 9000)[1]  # the service's query-weight distribution
+    hq, hw = wl.batch(PLAN_HELD_OUT, SEED + 9100)
+    exact = tapi.QuerySpec(k=k, mode="exact")
+    _build.reset_launch_counts()
+
+    # 1. the quality build: the default planner, then the workload's weights
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            default = tapi.Index.build(SEED + 2, wl.data, quality, family="theta", M=32)
+    except ValueError as e:
+        if "no hash family yields usable" not in str(e):
+            raise
+        print(f"  [plan] default planner (weights |N(0,1)|+0.1): the theory solve refused "
+              f"after {time.perf_counter() - t0:.3f} s: {str(e)[:110]}")
+        rows.update(default_planner="refused: no usable collision probabilities")
+    else:
+        torch.cuda.synchronize()
+        dplan = default.plans[quality]
+        dheld = recall_at_k(default.query(hq, hw, dplan).ids, default.query(hq, hw, exact).ids, k)
+        print(f"  [plan] default planner (weights |N(0,1)|+0.1): {time.perf_counter() - t0:.3f} s; "
+              f"K={default.config.K} L={default.config.L} C={default.config.max_candidates}; "
+              f"{dplan.mode} probes {dplan.n_probes} window {dplan.max_candidates} early_exit "
+              f"{dplan.early_exit}, predicted_recall {dplan.predicted_recall:.4f}, held-out "
+              f"recall@{k} {dheld:.4f}; plan_build_s {default.plan_times[quality]:.3f} s; "
+              f"warnings: {[str(x.message)[:100] for x in caught] or 'none'}")
+        if default.device.type != "cuda":
+            raise AssertionError(f"the default quality build ran on {default.device}")
+        rows.update(default_planner=str(dplan), default_config=str(default.config),
+                    default_held_out_recall=dheld, default_plan_build_s=default.plan_times[quality])
+        del default
+    planner = _timed_planner(tapi, weights)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        index = tapi.Index.build(SEED + 2, wl.data, quality, family="theta", M=32,
+                                 planner=planner)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    cfg, plan = index.config, index.plans[quality]
+    marks = planner.marks
+    config_s = marks[1][1] - marks[0][1]
+    attempts = _attempts(marks)
+    print(f"  [plan] Index.build(QualitySpec(k={PLAN_K}, recall_target={PLAN_RECALL})) on "
+          f"{index.device}: {build_s:.3f} s in all; plan_config {config_s:.3f} s -> {cfg}")
+    for i, (geom, bs, cs) in enumerate(attempts):
+        print(f"  [plan]   attempt {i + 1}: {geom}: build {bs:.3f} s, calibration {cs:.3f} s")
+    print(f"  [plan] plan: {plan}; plan_build_s {index.plan_times[quality]:.3f} s; "
+          f"warnings: {[str(x.message)[:100] for x in caught] or 'none'}")
+    if index.device.type != "cuda":
+        raise AssertionError(f"the quality build ran on {index.device}")
+    # where the calibration's time goes: each rung once more on its sample
+    qs, ws, _ = planner._calibration_sample(index, quality)
+    per_rung = [(r, _timed_query(index, qs, ws, r)[1])
+                for r in planner._plan_ladder(cfg, quality.k, exit_slack=quality.fail_prob)]
+    streamed = [ms for r, ms in per_rung if r.early_exit]
+    mono = [ms for r, ms in per_rung if not r.early_exit]
+    print(f"  [plan] calibration rungs on {qs.shape[0]} queries: {len(mono)} monolithic "
+          f"{sum(mono):.1f} ms, {len(streamed)} streamed (early exit) {sum(streamed):.1f} ms; "
+          + ", ".join(f"{r.mode[0]}{r.n_probes}/{r.max_candidates}{'/ee' if r.early_exit else ''}"
+                      f" {ms:.1f}" for r, ms in per_rung))
+    rows.update(rungs_monolithic_ms=sum(mono), rungs_streamed_ms=sum(streamed))
+    rows.update(build_s=build_s, plan_config_s=config_s, attempts=[
+        {"geometry": g, "build_s": bs, "calibration_s": cs} for g, bs, cs in attempts],
+        plan_build_s=index.plan_times[quality], config=str(cfg), plan=str(plan))
+
+    # 2. the planned answer
+    a, la = _launched(lambda: index.query(q, w, quality))
+    c, lc = _launched(lambda: index.query(q, w, index.plan(quality)))
+    same = all(torch.equal(getattr(a, f), getattr(c, f)) for f in ("ids", "dists",
+                                                                 "n_candidates"))
+    print(f"  [plan] query(quality) vs query(plan): bit-equal {same}; launches {la} / {lc}")
+    if not same or la != lc:
+        raise AssertionError("query(q, w, quality) differs from query(q, w, index.plan(quality))")
+    _check_result(a, b, k)
+    explicit = tapi.QuerySpec(k=k)
+    ms_plan = _median_ms(index, q, w, plan)
+    ms_service = _median_ms(svc.index, q, w, explicit)
+    busy_plan = profile("of one planned batch", lambda: index.query(q, w, plan), top=6)
+    busy_service = profile("of one explicit SERVICE batch",
+                           lambda: svc.index.query(q, w, explicit), top=6)
+    held = recall_at_k(index.query(hq, hw, plan).ids, index.query(hq, hw, exact).ids, k)
+    held_service = recall_at_k(svc.index.query(hq, hw, explicit).ids,
+                               svc.index.query(hq, hw, exact).ids, k)
+    print(f"  [plan] batch of {b}: planned {ms_plan:.3f} ms (device busy {_fmt_us(busy_plan)}), "
+          f"explicit SERVICE {ms_service:.3f} ms (device busy {_fmt_us(busy_service)}); held-out "
+          f"recall@{k} on {PLAN_HELD_OUT} queries {held:.4f} (predicted_recall "
+          f"{plan.predicted_recall:.4f}; SERVICE {held_service:.4f}); {card}")
+    rows.update(ms=ms_plan, ms_service=ms_service, busy_us=busy_plan,
+                busy_us_service=busy_service, held_out_recall=held,
+                held_out_recall_service=held_service, predicted_recall=plan.predicted_recall)
+
+    # 3. the ladder and explain
+    t0 = time.perf_counter()
+    ladder = index.plan_ladder(quality, planner=planner)
+    ladder_s = time.perf_counter() - t0
+    costs = [planner._plan_cost(cfg, r, r.expected_candidates) for r in ladder]
+    print(f"  [plan] plan_ladder: {len(ladder)} rungs in {ladder_s:.3f} s, costs "
+          f"{[round(x, 1) for x in costs]}, recalls "
+          f"{[round(r.predicted_recall, 3) for r in ladder]}")
+    if ladder[0] != index.plan(quality):
+        raise AssertionError("plan_ladder rung 0 is not index.plan(quality)")
+    if not all(x > y for x, y in zip(costs, costs[1:])):
+        raise AssertionError(f"ladder costs do not strictly fall: {costs}")
+    rep = index.explain(q, w, quality)
+    if rep.provenance != "calibrated" or rep.plan_build_s is None:
+        raise AssertionError(f"explain: provenance {rep.provenance}, plan_build_s "
+                             f"{rep.plan_build_s}")
+    if not (torch.equal(rep.result.ids, a.ids) and torch.equal(rep.result.dists, a.dists)):
+        raise AssertionError("explain changed the answer")
+    print(f"  [plan] explain: provenance {rep.provenance}, plan_build_s {rep.plan_build_s:.3f} s,"
+          f" mean predicted success {float(rep.predicted_success.mean()):.4f}, truncated "
+          f"windows in {int((rep.truncated_tables > 0).sum())}/{b} queries")
+    rows.update(ladder_rungs=len(ladder), ladder_s=ladder_s)
+
+    # 4. a quantized index plans: its screened rungs run the blocked gather
+    int8 = tapi.Index.build(SEED + 2, wl.data,
+                            dataclasses.replace(SERVICE.index_config, storage="int8"))
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        (p8, l8) = _launched(lambda: int8.plan(quality, planner=tapi.Planner(weights=weights)))
+    int8_s = time.perf_counter() - t0
+    print(f"  [plan] int8 SERVICE index planned in {int8_s:.3f} s: {p8.mode}, window "
+          f"{p8.max_candidates}, probes {p8.n_probes}, early_exit {p8.early_exit}, "
+          f"screen_alpha {p8.screen_alpha}; predicted_recall {p8.predicted_recall:.4f}; "
+          f"launches {l8}; warnings: {[str(x.message)[:100] for x in caught] or 'none'}")
+    if not l8.get("gather_rerank_topk_blocked"):
+        raise AssertionError("the int8 calibration never ran the blocked gather")
+    rows.update(int8_plan=str(p8), int8_s=int8_s)
+    del int8
+
+    # 5. the plan memo persists
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_plan_") as tmp:
+        loaded, _ = _round_trip("planned index", index, os.path.join(tmp, "planned"), card)
+        if loaded.plans != index.plans:
+            raise AssertionError(f"loaded plans {loaded.plans} != saved {index.plans}")
+        c, lc = _launched(lambda: loaded.query(q, w, quality))
+        if lc.get("wl1_scan_topk") or not torch.equal(c.ids, a.ids):
+            raise AssertionError(f"the loaded index recalibrated or answered differently: {lc}")
+        print(f"  [plan] loaded plans equal the saved ones; quality query on the loaded index: "
+              f"launches {lc} (no wl1_scan_topk: no calibration), ids equal")
+        del loaded
+
+        # 6. the tuner over the SERVICE geometry, on the service's own rows
+        space = tuner.ScanSpace(
+            profiles=(tuner.DataProfile(n=SERVICE.n_per_shard, d=SERVICE.d, skew=PLAN_SKEW,
+                                        source="sampled"),),
+            families=("theta",), K=(SERVICE.K,), L=(SERVICE.L,), n_probes=(1, 2, 4, 8),
+            window=(64, 128))
+        real = wl.data.cpu().numpy()
+        t0 = time.perf_counter()
+        inline, inline_l = _launched(lambda: tuner.run_scan(
+            space, os.path.join(tmp, "inline.jsonl"), real_data=real))
+        inline_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pooled, pooled_l = _launched(lambda: tuner.run_scan(
+            space, os.path.join(tmp, "pooled.jsonl"), workers=TUNE_WORKERS, real_data=real))
+        pooled_s = time.perf_counter() - t0
+        del real
+        fields = ("trial_id", "status", "recall", "cand_frac", "cost", "mem_bytes", "W",
+                  "tables_probed")
+        differ = [(r["trial_id"], f) for r, p in zip(inline, pooled) for f in fields
+                  if r.get(f) != p.get(f)]
+        for r in inline:
+            print(f"  [plan]   trial {r['trial_id']}: probes {r['n_probes']} window "
+                  f"{r['window']}: recall {r['recall']:.4f} cand_frac {r['cand_frac']:.5f} "
+                  f"cost {r['cost']:.1f} {r['us_per_query']:.2f} us/query")
+        print(f"  [plan] tuner: {len(inline)} trials inline in {inline_s:.3f} s (launches "
+              f"{inline_l}), with {TUNE_WORKERS} spawned workers in {pooled_s:.3f} s (their "
+              f"launches {pooled_l}); deterministic fields differing: {differ or 'none'}")
+        if len(inline) != len(space.trials()) or len(pooled) != len(inline) or differ:
+            raise AssertionError(f"the spawn scan differs from the inline one: {differ}")
+        if pooled_l != inline_l or not inline_l.get("wl1_scan_topk"):
+            raise AssertionError(f"the workers' launches {pooled_l} differ from the inline "
+                                 f"scan's {inline_l}")
+    table = tuner.build_table(inline, space)
+    bucket = table.nearest_bucket("theta", svc.index.n, svc.index.config.d, PLAN_SKEW)
+    best = max(e["recall"] for e in bucket["entries"])
+    prior_planner = tapi.Planner(table=table, weights=weights, profile_skew=PLAN_SKEW)
+    bare_planner = tapi.Planner(weights=weights)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (prior, prior_l) = _launched(lambda: prior_planner.plan_query(svc.index, quality))
+        torch.cuda.synchronize()
+        prior_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        bare = bare_planner.plan_query(svc.index, quality)
+        torch.cuda.synchronize()
+        bare_s = time.perf_counter() - t0
+    prior_held = recall_at_k(svc.index.query(hq, hw, prior).ids,
+                             svc.index.query(hq, hw, exact).ids, k)
+    costs = [bare_planner._plan_cost(svc.index.config, p, p.expected_candidates)
+             for p in (prior, bare)]
+    print(f"  [plan] table: {len(table.buckets)} bucket(s), best frontier recall {best:.4f}; "
+          f"Planner(table) on the SERVICE index at recall_target {quality.recall_target}: "
+          f"{prior.provenance} in {prior_s:.3f} s (launches {prior_l}; {prior}; cost "
+          f"{costs[0]:.1f}; held-out recall@{k} {prior_held:.4f}); full calibration "
+          f"{bare_s:.3f} s ({bare}; cost {costs[1]:.1f})")
+    if prior.provenance == "prior":
+        bar = quality.recall_target - prior_planner.confirm_slack
+        if prior.predicted_recall < bar or prior_held < bar:
+            raise AssertionError(f"a prior plan under its bar {bar} was accepted: confirmation "
+                                 f"{prior.predicted_recall}, held-out {prior_held}")
+    elif prior != bare:
+        raise AssertionError("a calibrated fallback differs from the table-less plan")
+    rows.update(tune_inline_s=inline_s, tune_pooled_s=pooled_s, prior_provenance=prior.provenance,
+                prior_s=prior_s, full_calibration_s=bare_s, prior_held_out_recall=prior_held,
+                prior_cost=costs[0], full_calibration_cost=costs[1], tune_best_recall=best)
+
+    # 7. candidates per ms on the f32 probe batch
+    gather_ms = run.kernels.get("gather_rerank_topk", {}).get("ms")
+    per_ms = svc.valid / ms_service
+    print(f"  [plan] the f32 probe batch re-ranks {svc.valid} candidates: {per_ms:.0f} per ms of "
+          f"batch wall time"
+          + (f", {svc.valid / gather_ms:.0f} per ms of gather_rerank_topk" if gather_ms else "")
+          + f" (Planner.candidates_per_ms default {tapi.Planner().candidates_per_ms:.0f}); "
+          f"{card}")
+    rows.update(candidates_per_ms=per_ms,
+                candidates_per_gather_ms=svc.valid / gather_ms if gather_ms else None)
+    counts = _path_counts("plan", ("alsh_project", "gather_rerank_topk",
+                                   "gather_rerank_topk_blocked", "wl1_scan_topk"))
+    return counts, rows
+
+
 def phase_small_check():
     """The card's answers against the plain PyTorch path on the CPU, over
     one index state (built on the card, copied to the CPU)."""
@@ -2103,6 +2448,8 @@ def main() -> int:
                   phase_early_exit_path, svc),
         run.phase("main path (SERVICE, persistence: save, load, query)", phase_persist_path, svc,
                   dev["card"]),
+        run.phase("main path (SERVICE, quality-first planning and the offline tuner)",
+                  phase_plan_path, run, svc, dev["card"]),
     ]
     run.phase("check against the CPU path", phase_small_check)
     if run.failures or any(p is None for p in paths):

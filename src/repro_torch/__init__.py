@@ -13,8 +13,10 @@ two-segment query, compact); the streamed early-exit query
 (``engine/stream.py``, with the paper's theory in ``core/theory.py``) and
 ``Index.explain`` with its ``QueryReport``; the materializing scan and
 re-rank (``ops.wl1_scan``/``ops.wl1_rerank``); ``Index.save``/``Index.load``
-in the reference's directory format (``api/persist.py``, ``ckpt/``); and
-the paper's unary embedding, the naive projection and the wl2 baseline.
+in the reference's directory format (``api/persist.py``, ``ckpt/``); the
+paper's unary embedding, the naive projection and the wl2 baseline; and
+quality-first planning (``QualitySpec`` → ``Planner`` → ``PlannedSpec``,
+``api/planner.py``) with the offline tuner (``tuner/``, ``launch/tune.py``).
 Its eight kernels are hand-written in CUDA for Hopper (``kernels/csrc``):
 every Pallas kernel of the reference has a counterpart. Entry points run on the CUDA card unless
 the caller asks for ``device="cpu"``; on CPU tensors the kernels' plain

@@ -30,21 +30,34 @@ probe windows G at a time and stops each query early;
 caller passes ``device="cpu"``; without a card they raise rather than carry
 on on the CPU. ``Index.query`` runs on the index's device.
 ``Index.from_numpy`` carries an index built by the JAX package across (the
-parity tests' entry point). Quality-first planning and sharding are not
-ported yet and raise ``NotImplementedError``.
+parity tests' entry point).
+
+Quality first: state what, not how, and the planner derives the rest —
+
+    index = Index.build(seed, data, QualitySpec(k=10, recall_target=0.9))
+    res   = index.query(q, w, quality)          # == query(q, w, index.plan(quality))
+    ladder = index.plan_ladder(quality)         # rung 0 == index.plan(quality)
+
+The geometry comes from theory inversion on the data, the execution plan
+from a calibration pass on the built index (memoized in ``index.plans``);
+when even the best plan misses the target, L is doubled (twice at most,
+within ``Planner.max_L``) and the index rebuilt from the same generator
+state. Sharding is not ported yet and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
+import warnings
 
 import numpy as np
 import torch
 
 from repro_torch import engine, not_ported
 from repro_torch.api import persist
-from repro_torch.api.planner import QueryReport
-from repro_torch.api.spec import QualitySpec, QuerySpec, UpdateSpec
+from repro_torch.api.planner import Planner, QueryReport
+from repro_torch.api.spec import PlannedSpec, QualitySpec, QuerySpec, UpdateSpec
 from repro_torch.core import theory
 from repro_torch.core.families import n_flip_subsets
 from repro_torch.core.index import (
@@ -147,12 +160,15 @@ class Index:
     ``live_ids``. The lifecycle methods are functional: each returns a new
     ``Index`` and leaves this one as it was.
 
-    Three fields travel through ``save``/``load`` untouched: ``build_key``,
-    the reference's JAX PRNG key as a numpy uint32 array (None for an index
-    this package built, which saves ``persist.PORT_BUILT_KEY``); ``plans``,
-    the manifest's plan memo; ``tuning``, its tuning stamp (plain JSON
-    until the planner is ported). ``insert`` and ``delete`` keep all three;
-    ``compact`` keeps ``build_key`` and drops the other two.
+    Three fields travel through ``save``/``load``: ``build_key``, the
+    reference's JAX PRNG key as a numpy uint32 array (None for an index this
+    package built, which saves ``persist.PORT_BUILT_KEY``); ``plans``, the
+    memo ``QualitySpec -> PlannedSpec``; ``tuning``, the provenance stamp of
+    the tuning table behind a prior plan. Two host-side memos do not:
+    ``ladders`` (``plan_ladder``'s resolutions) and ``plan_times`` (each
+    resolution's wall seconds in this process). ``insert`` and ``delete``
+    share every memo with the index they came from; ``compact`` keeps
+    ``build_key`` and drops the rest.
     """
 
     state: ALSHIndex
@@ -161,8 +177,10 @@ class Index:
     delta: DeltaSegment | None = None
     tombstones: torch.Tensor | None = None
     build_key: np.ndarray | None = dataclasses.field(default=None, compare=False)
-    plans: list = dataclasses.field(default_factory=list, compare=False)
+    plans: dict = dataclasses.field(default_factory=dict, compare=False)
     tuning: dict | None = dataclasses.field(default=None, compare=False)
+    ladders: dict = dataclasses.field(default_factory=dict, compare=False)
+    plan_times: dict = dataclasses.field(default_factory=dict, compare=False)
 
     def __post_init__(self):
         # empty mutation state when constructed without it (sealed indexes)
@@ -181,22 +199,55 @@ class Index:
         config: "IndexConfig | QualitySpec",
         update: UpdateSpec = UpdateSpec(),
         device=None,
+        family: str = "auto",
+        M: int = 32,
+        planner: Planner | None = None,
     ) -> "Index":
         """Hash every row and sort each table (Theorem 1 preprocessing) on
         ``device`` (default: the CUDA card). The tables are drawn from the
         seed or generator on the CPU, so a seed gives the same index on
         every device. ``update=UpdateSpec(delta_capacity=C)`` reserves C
-        delta slots and makes the index mutable."""
-        if isinstance(config, QualitySpec):
-            raise not_ported("Index.build(QualitySpec) — quality-first planning", "Queue A item 10")
+        delta slots and makes the index mutable.
+
+        ``config`` is an explicit :class:`IndexConfig` or a
+        :class:`QualitySpec`; then ``planner`` (default ``Planner()``)
+        derives the geometry from the data (``family``, ``M``), calibrates
+        and memoizes the execution plan, and while the best plan misses
+        ``recall_target`` doubles L (at most twice, within
+        ``planner.max_L``) and rebuilds from the same generator state. The
+        last attempt's planner warnings are re-raised."""
         dev = resolve_device(device)
         gen = as_generator(seed_or_generator)
         data = torch.as_tensor(data).to(device=dev, dtype=torch.float32)
-        if data.ndim != 2 or data.shape[1] != config.d:
-            raise ValueError(
-                f"data must be (n, d) with d=config.d={config.d}, got {tuple(data.shape)}"
-            )
-        return cls(state=build_index(gen, data, config), config=config, update=update)
+        d = config.d if isinstance(config, IndexConfig) else data.shape[-1]
+        if data.ndim != 2 or data.shape[1] != d:
+            raise ValueError(f"data must be (n, d) with d=config.d={d}, got {tuple(data.shape)}")
+        if not isinstance(config, QualitySpec):
+            return cls(state=build_index(gen, data, config), config=config, update=update)
+
+        quality = config
+        planner = planner or Planner()
+        cfg = planner.plan_config(data, quality, family=family, M=M)
+        start = gen.get_state()
+        last_round = 2  # escalation attempts: L x2 each, then accept the best
+        for attempt in range(last_round + 1):
+            gen.set_state(start)  # every attempt draws the tables a fresh build would
+            index = cls(state=build_index(gen, data, cfg), config=cfg, update=update)
+            at_cap = cfg.L >= planner.max_L
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                t0 = time.perf_counter()
+                planned = planner.plan_query(index, quality)
+                index._record_plan(quality, planned, planner, time.perf_counter() - t0)
+            if planned.predicted_recall >= quality.recall_target - 1e-9 or (
+                attempt == last_round or at_cap
+            ):
+                # this attempt's plan is the caller's: its warnings are real
+                for w in caught:
+                    warnings.warn(w.message, w.category, stacklevel=2)
+                return index
+            # a miss with room to escalate: the rebuild supersedes the warnings
+            cfg = dataclasses.replace(cfg, L=min(2 * cfg.L, planner.max_L))
 
     @classmethod
     def from_numpy(cls, arrays: dict, config: IndexConfig, update: UpdateSpec = UpdateSpec(),
@@ -256,50 +307,103 @@ class Index:
             total += self.state.scales.nbytes
         return int(total)
 
+    def resolve(self, spec) -> tuple[QuerySpec, IndexConfig, PlannedSpec | None]:
+        """Any spec kind as (mechanism QuerySpec, effective config, the
+        PlannedSpec or None): a QualitySpec goes through the memoized
+        planner, a PlannedSpec applies its window to the config. ``query``
+        and ``explain`` both resolve here, which is what makes ``query(q,
+        w, quality)`` equal ``query(q, w, index.plan(quality))``."""
+        if isinstance(spec, QualitySpec):
+            spec = self.plan(spec)
+        if isinstance(spec, PlannedSpec):
+            return spec.to_query_spec(), spec.effective_config(self.config), spec
+        if not isinstance(spec, QuerySpec):
+            raise TypeError(
+                f"spec must be a QuerySpec, QualitySpec, or PlannedSpec; "
+                f"got {type(spec).__name__}"
+            )
+        return spec, self.config, None
+
+    def plan(self, quality: QualitySpec, planner: Planner | None = None) -> PlannedSpec:
+        """Resolve ``quality`` to a :class:`PlannedSpec`, memoized on this
+        index (and shared with the indexes ``insert``/``delete`` derive
+        from it). Deterministic given (index, ``quality.seed``); persists
+        through ``save``/``load``."""
+        planned = self.plans.get(quality)
+        if planned is None:
+            planner = planner or Planner()
+            t0 = time.perf_counter()
+            planned = planner.plan_query(self, quality)
+            self._record_plan(quality, planned, planner, time.perf_counter() - t0)
+        return planned
+
+    def _record_plan(self, quality, planned, planner, elapsed: float) -> None:
+        """Memoize a resolution with its wall seconds and, for a prior plan,
+        the provenance stamp of the tuning table behind it."""
+        self.plans[quality] = planned
+        self.plan_times[quality] = elapsed
+        if planned.provenance == "prior" and getattr(planner, "table", None) is not None:
+            self.tuning = planner.table.provenance()
+
+    def plan_ladder(self, quality: QualitySpec, planner: Planner | None = None) -> tuple:
+        """The degradation ladder for ``quality`` (memoized): rung 0 is what
+        ``plan(quality)`` returns, every later rung strictly cheaper, each
+        with its calibrated ``predicted_recall``. One calibration pass; it
+        also seeds the ``plans`` memo."""
+        ladder = self.ladders.get(quality)
+        if ladder is None:
+            ladder = (planner or Planner()).plan_ladder(self, quality)
+            self.ladders[quality] = ladder
+            self.plans.setdefault(quality, ladder[0])
+        return ladder
+
     def query(self, queries, weights, spec=QuerySpec()) -> QueryResult:
         """Batched k-NN under d_w^l1 on the index's device. ``spec`` is a
-        :class:`QuerySpec` (mode "probe", "multiprobe" or "exact"). A mutable
-        index adds the delta key match and the tombstone mask to the sealed
-        window source. Invalid result slots are ``ids == -1`` /
-        ``dists == +inf``."""
-        if isinstance(spec, QualitySpec):
-            raise not_ported("Index.query(QualitySpec) — quality-first planning", "Queue A item 10")
-        if not isinstance(spec, QuerySpec):
-            raise TypeError(f"spec must be a QuerySpec; got {type(spec).__name__}")
+        :class:`QuerySpec` (mode "probe", "multiprobe" or "exact"), a
+        :class:`PlannedSpec`, or a :class:`QualitySpec` (planned on first
+        use, memoized after). A mutable index adds the delta key match and
+        the tombstone mask to the sealed window source. Invalid result
+        slots are ``ids == -1`` / ``dists == +inf``."""
         queries = torch.as_tensor(queries)
         weights = torch.as_tensor(weights)
         validate_query_args(self.config.d, queries, weights)
-        _check_probe_reach(self.config, spec)
+        qspec, cfg, _ = self.resolve(spec)
+        _check_probe_reach(cfg, qspec)
         return engine.query(
             self.state,
             self.delta if self.mutable else None,
             self.tombstones if self.mutable else None,
-            queries, weights, self.config, k=spec.k, mode=spec.mode,
-            n_probes=spec.n_probes, max_flips=spec.max_flips, screen_alpha=spec.screen_alpha,
-            early_exit=spec.early_exit, exit_group=spec.exit_group, exit_slack=spec.exit_slack,
+            queries, weights, cfg, k=qspec.k, mode=qspec.mode,
+            n_probes=qspec.n_probes, max_flips=qspec.max_flips, screen_alpha=qspec.screen_alpha,
+            early_exit=qspec.early_exit, exit_group=qspec.exit_group, exit_slack=qspec.exit_slack,
+            impl=qspec.impl,
         )
 
     def explain(self, queries, weights, spec=QuerySpec()) -> QueryReport:
         """Run ``query`` and return a :class:`QueryReport` wrapping the result
-        with per-query diagnostics: the Thm 1 success probability predicted
-        from Eq 25/27 at each query's own weights, candidate counts, window
-        truncation, sentinel slots, the storage tier's byte accounting and,
-        for a streamed early-exit query, ``tables_probed``/``stop_reason``.
-        The answer is the one a plain ``query`` with the same spec gives."""
-        if isinstance(spec, QualitySpec):
-            raise not_ported("Index.explain(QualitySpec) — quality-first planning",
-                             "Queue A item 10")
-        res = self.query(queries, weights, spec)
-        cfg, dev = self.config, self.device
-        queries = torch.as_tensor(queries).to(device=dev, dtype=torch.float32).contiguous()
-        weights = torch.as_tensor(weights).to(device=dev, dtype=torch.float32).contiguous()
+        with per-query diagnostics: the spec that ran (and the QualitySpec,
+        provenance and planning seconds of a planned one), the Thm 1
+        success probability predicted from Eq 25/27 at each query's own
+        weights, candidate counts, window truncation, sentinel slots, the
+        storage tier's byte accounting and, for a streamed early-exit query,
+        ``tables_probed``/``stop_reason``. The answer is the one a plain
+        ``query`` with the same spec gives."""
+        queries = torch.as_tensor(queries)
+        weights = torch.as_tensor(weights)
+        validate_query_args(self.config.d, queries, weights)
+        quality = spec if isinstance(spec, QualitySpec) else None
+        qspec, cfg, planned = self.resolve(spec)
+        res = self.query(queries, weights, planned if planned is not None else qspec)
+        dev = self.device
+        queries = queries.to(device=dev, dtype=torch.float32).contiguous()
+        weights = weights.to(device=dev, dtype=torch.float32).contiguous()
         b = queries.shape[0]
-        if spec.mode == "exact":
+        if qspec.mode == "exact":
             truncated = np.zeros((b,), np.int32)
         else:
-            if spec.mode == "multiprobe":
-                keys = multiprobe_keys_for(self.state, queries, weights, cfg, spec.n_probes,
-                                           spec.max_flips)  # (b, L, P)
+            if qspec.mode == "multiprobe":
+                keys = multiprobe_keys_for(self.state, queries, weights, cfg, qspec.n_probes,
+                                           qspec.max_flips)  # (b, L, P)
             else:
                 keys = query_keys_for(self.state, queries, weights, cfg)  # (b, L)
             over = table_window_sizes(self.state.sorted_keys, keys) > cfg.max_candidates
@@ -324,12 +428,12 @@ class Index:
         # the screen is off).
         n_cand = res.n_candidates.cpu().numpy().astype(np.int64)
         row_bytes = self.state.data.element_size() * cfg.d
-        if spec.mode != "exact" and self.state.data.dtype != torch.float32:
-            p_slots = spec.n_probes if spec.mode == "multiprobe" else 1
+        if qspec.mode != "exact" and self.state.data.dtype != torch.float32:
+            p_slots = qspec.n_probes if qspec.mode == "multiprobe" else 1
             n_slots = cfg.L * p_slots * cfg.max_candidates + (
                 self.delta.capacity if self.mutable else 0
             )
-            keep = screen_keep(spec.k, spec.screen_alpha, n_slots)
+            keep = screen_keep(qspec.k, qspec.screen_alpha, n_slots)
         else:
             keep = 0
         rows_screened = n_cand if keep else np.zeros_like(n_cand)
@@ -340,13 +444,15 @@ class Index:
             return None if t is None else t.cpu().numpy().astype(np.int32)
 
         return QueryReport(
-            spec=spec,
-            quality=None,
+            spec=planned if planned is not None else qspec,
+            quality=quality,
             result=res,
             predicted_success=success.cpu().numpy(),
             n_candidates=res.n_candidates.cpu().numpy(),
             truncated_tables=truncated,
             n_invalid=(res.ids < 0).sum(dim=1).to(torch.int32).cpu().numpy(),
+            provenance=planned.provenance if planned is not None else None,
+            plan_build_s=self.plan_times.get(quality) if quality is not None else None,
             storage=cfg.storage,
             rows_screened=rows_screened,
             rows_reranked=rows_reranked,

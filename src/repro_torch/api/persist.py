@@ -25,8 +25,11 @@ reference's byte for byte:
 
 A version-1 directory has no ``delta`` or ``tombstones`` and loads as an
 immutable index; pre-v3 directories have no ``plans``, pre-v4 no
-``tuning``, pre-v5 no ``storage`` (they load as f32). The plan memo and the
-tuning stamp are carried as the manifest's plain JSON, unchanged.
+``tuning``, pre-v5 no ``storage`` (they load as f32). The plan memo is the
+manifest's list of {quality, planned} records (``plans_to_list``); it loads
+as a dict ``QualitySpec -> PlannedSpec`` (``plans_from_list``), and floats
+round-trip exactly through JSON, so a reloaded plan compares equal. The
+tuning stamp is carried as plain JSON.
 
 ``build_key`` is the JAX PRNG key the reference drew its tables from. A key
 loaded from a reference directory is carried through as opaque bytes. An
@@ -40,6 +43,7 @@ shard a directory this package built.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 
@@ -47,7 +51,7 @@ import numpy as np
 import torch
 
 from repro_torch import ckpt
-from repro_torch.api.spec import UpdateSpec
+from repro_torch.api.spec import PlannedSpec, QualitySpec, UpdateSpec
 from repro_torch.core.hash_families import PrefixTables
 from repro_torch.core.index import ALSHIndex, DeltaSegment, IndexConfig
 from repro_torch.core.transforms import BoundedSpace
@@ -139,6 +143,19 @@ def _leaf_names(scaled: bool, lifecycle: bool) -> list:
     return names
 
 
+def plans_to_list(plans: dict) -> list:
+    """The manifest's ``plans`` entry: one {quality, planned} record per
+    memoized resolution, dataclass fields in declaration order."""
+    return [
+        {"quality": dataclasses.asdict(q), "planned": dataclasses.asdict(p)}
+        for q, p in plans.items()
+    ]
+
+
+def plans_from_list(entries: list) -> dict:
+    return {QualitySpec(**e["quality"]): PlannedSpec(**e["planned"]) for e in entries}
+
+
 def save_index(
     directory: str | os.PathLike,
     state: ALSHIndex,
@@ -147,7 +164,7 @@ def save_index(
     update: UpdateSpec = UpdateSpec(),
     delta: DeltaSegment | None = None,
     tombstones: torch.Tensor | None = None,
-    plans: list | None = None,
+    plans: dict | None = None,
     tuning: dict | None = None,
 ) -> str:
     """Write a self-describing index directory (format version 5); a
@@ -194,7 +211,7 @@ def save_index(
             },
         ],
         "tombstone_count": int(leaves["tombstones"].sum()),
-        "plans": list(plans or []),
+        "plans": plans_to_list(plans or {}),
         "tuning": tuning,
     }
     tmp = os.path.join(directory, _META + ".tmp")
@@ -208,7 +225,8 @@ def save_index(
 def load_index(directory: str | os.PathLike, device):
     """Restore (state, build_key, config, update, delta, tombstones, plans,
     tuning) from a directory alone, every tensor on ``device``;
-    ``build_key`` stays a numpy array, ``plans`` the manifest's list."""
+    ``build_key`` stays a numpy array, ``plans`` a dict ``QualitySpec ->
+    PlannedSpec``."""
     directory = os.fspath(directory)
     meta_path = os.path.join(directory, _META)
     if not os.path.exists(meta_path):
@@ -255,7 +273,7 @@ def load_index(directory: str | os.PathLike, device):
         delta = DeltaSegment.empty(cfg, 0, dtype=state.data.dtype, device=device)
         tombstones = torch.zeros((state.n,), dtype=torch.bool, device=device)
     _check_consistent(state, delta, tombstones, cfg, update, meta, meta_path)
-    plans = list(meta.get("plans", [])) if version >= 3 else []
+    plans = plans_from_list(meta.get("plans", [])) if version >= 3 else {}
     tuning = meta.get("tuning") if version >= 4 else None
     return state, leaves["build_key"], cfg, update, delta, tombstones, plans, tuning
 

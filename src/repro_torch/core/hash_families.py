@@ -9,7 +9,10 @@ table b' of shape (H, d, M+1):
     a^T Q_w(q) = sum_i  w_i * b'[h, i, q_i]
 
 The lookup runs in ``repro_torch.kernels.ops.alsh_project`` (the CUDA kernel
-on the card, its plain version on the CPU).
+on the card, its plain version on the CPU). The query side also takes the
+reference's two plain formulations, ``impl="gather"`` (per-coordinate
+gather + reduce, the plain version of ``ops.alsh_project``) and ``impl="onehot"`` (a one-hot contraction), on CPU
+tensors only: on the card the kernel is the one projection.
 """
 
 from __future__ import annotations
@@ -117,10 +120,34 @@ def project_data(levels: torch.Tensor, tables: PrefixTables) -> torch.Tensor:
 
 
 def project_query(
-    levels: torch.Tensor, w: torch.Tensor, tables: PrefixTables
+    levels: torch.Tensor, w: torch.Tensor, tables: PrefixTables, impl: str = "auto"
 ) -> torch.Tensor:
-    """a^T Q_w(q): the asymmetric (weighted) projection, (b, d) -> (b, H)."""
-    return ops.alsh_project(levels, tables.folded, weights=w, tiled=tables.tiled)
+    """a^T Q_w(q): the asymmetric (weighted) projection, (b, d) -> (b, H).
+    ``impl`` "auto" runs ``ops.alsh_project``; "gather" and "onehot" run the
+    reference's plain formulations and raise on a CUDA tensor."""
+    if impl == "auto":
+        return ops.alsh_project(levels, tables.folded, weights=w, tiled=tables.tiled)
+    if levels.device.type != "cpu":
+        raise ValueError(
+            f"impl={impl!r} selects a plain projection, which runs on CPU tensors only; "
+            f"on {levels.device} the query projection is the alsh_project kernel "
+            f"(impl='auto')"
+        )
+    if impl == "onehot":
+        return _project_onehot(levels, tables.folded, w)
+    # On a CPU tensor ops.alsh_project is the plain gather + reduce.
+    return ops.alsh_project(levels, tables.folded, weights=w)
+
+
+def _project_onehot(levels, folded, weights):
+    """The one-hot contraction: (n, d·(M+1)) @ (d·(M+1), H)."""
+    M1 = folded.shape[-1]
+    onehot = torch.nn.functional.one_hot(levels.long(), M1).to(folded.dtype)  # (n, d, M+1)
+    if weights is not None:
+        onehot = onehot * weights[..., None]
+    lhs = onehot.reshape(levels.shape[0], -1)
+    rhs = folded.permute(1, 2, 0).reshape(-1, folded.shape[0])
+    return lhs @ rhs
 
 
 def l2_hash(projections: torch.Tensor, tables: PrefixTables, W: float) -> torch.Tensor:
@@ -140,8 +167,9 @@ def hash_data(levels: torch.Tensor, tables: PrefixTables, params: LSHParams) -> 
 
 
 def hash_query(
-    levels: torch.Tensor, w: torch.Tensor, tables: PrefixTables, params: LSHParams
+    levels: torch.Tensor, w: torch.Tensor, tables: PrefixTables, params: LSHParams,
+    impl: str = "auto",
 ) -> torch.Tensor:
     """g(q) = h(Q_w(q)) for a batch: (b, d) + (b, d) weights -> (b, H) int32."""
-    proj = project_query(levels, w, tables)
+    proj = project_query(levels, w, tables, impl=impl)
     return get_family(params.family).codes_from_projections(proj, tables.offsets, params.W)

@@ -174,13 +174,15 @@ def _keys_for(
     tables: hf.PrefixTables,
     cfg: IndexConfig,
     mixers: torch.Tensor,
+    impl: str = "auto",
 ) -> torch.Tensor:
-    """Hash points/queries to per-table keys: (b, d)[, (b, d) w] -> (b, L) int32."""
+    """Hash points/queries to per-table keys: (b, d)[, (b, d) w] -> (b, L)
+    int32; ``impl`` picks the query projection (``hf.project_query``)."""
     params = cfg.lsh_params
     if weights is None:
         codes = hf.hash_data(levels, tables, params)
     else:
-        codes = hf.hash_query(levels, weights, tables, params)
+        codes = hf.hash_query(levels, weights, tables, params, impl=impl)
     codes = codes.reshape(*codes.shape[:-1], cfg.L, cfg.K)
     return get_family(cfg.family).combine_codes(codes, mixers, cfg.K)
 

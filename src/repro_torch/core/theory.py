@@ -16,8 +16,8 @@ Tensors are computed in their own floating dtype; Python numbers become
 f32 tensors, which is what the reference computes in (JAX without x64), so
 the engine's early-exit stop decisions compare in the same precision. Integer
 powers multiply by repeated squaring in the order ``x ** K`` takes in JAX
-(``int_pow``). The planner that drives the inverse solvers is not ported
-yet (ROADMAP.md Queue A item 10).
+(``int_pow``). ``repro_torch.api.planner`` drives ``solve_K`` and
+``invert_p_l2``.
 """
 
 from __future__ import annotations

@@ -59,17 +59,18 @@ def probe_keys(
     mode: str = "probe",
     n_probes: int = N_PROBES,
     max_flips: int = MAX_FLIPS,
+    impl: str = "auto",
 ) -> torch.Tensor:
     """The (b, L, P) probing sequence of a query batch: mode "probe" gives
-    each query's own bucket key per table (P = 1); mode "multiprobe" the
-    query-directed perturbation sequence (P <= n_probes, clamped by the
-    family's reachable-subset count)."""
+    each query's own bucket key per table (P = 1), hashed with the ``impl``
+    projection; mode "multiprobe" the query-directed perturbation sequence
+    (P <= n_probes, clamped by the family's reachable-subset count)."""
     if mode == "multiprobe":
         return multiprobe_keys_for(state, queries, weights, cfg, n_probes, max_flips)
     if mode != "probe":
         raise ValueError(f"probe_keys: mode must be 'probe' or 'multiprobe', got {mode!r}")
     qlevels = transforms.discretize(queries, cfg.space)
-    keys = _keys_for(qlevels, weights, state.tables, cfg, state.mixers)
+    keys = _keys_for(qlevels, weights, state.tables, cfg, state.mixers, impl=impl)
     return keys[:, :, None]
 
 
@@ -181,6 +182,7 @@ def dispatch(
     early_exit: bool = False,
     exit_group: int = 8,
     exit_slack: float = 0.0,
+    impl: str = "auto",
 ) -> QueryResult:
     """One query over one index view: ``mode`` "probe", "multiprobe" (ALSH)
     or "exact". ``delta``/``tombstones`` are None for a sealed index; then
@@ -206,7 +208,7 @@ def dispatch(
         return execute([src], state.data, delta_data, queries, weights, k,
                        n_valid=n_main + cap, scales=state.scales)
     keys = probe_keys(state, queries, weights, cfg, mode=mode, n_probes=n_probes,
-                      max_flips=max_flips)
+                      max_flips=max_flips, impl=impl)
     if early_exit:
         return execute_streamed(state, delta, tombstones, queries, weights, cfg, keys, k,
                                 exit_group=exit_group, exit_slack=exit_slack)
@@ -230,10 +232,13 @@ def query(
     early_exit: bool = False,
     exit_group: int = 8,
     exit_slack: float = 0.0,
+    impl: str = "auto",
 ) -> QueryResult:
-    """The engine entry every consumer shares (same signature as the
-    reference's, less ``impl``). Queries move to the index's device as
-    contiguous f32.
+    """The engine entry every consumer shares (the reference's arguments;
+    ``impl`` last). Queries move to the index's device as contiguous f32.
+    ``impl`` picks the probe mode's query projection (see
+    ``hash_families.project_query``); the other modes ignore it, as the
+    reference's normalization does.
 
     The port has no compile cache to key, but the reference's
     ``normalize_static_args`` folds also decide which tail runs, so they are
@@ -242,6 +247,8 @@ def query(
     once), under an active quantized screen (a global candidate-set stage),
     and when one group covers the whole L·P window lattice (that group IS
     the monolithic tail)."""
+    if mode != "probe":
+        impl = "auto"
     if mode == "exact" or state.data.dtype == torch.float32:
         screen_alpha = 0.0
     if early_exit:
@@ -257,4 +264,5 @@ def query(
     weights = weights.to(device=dev, dtype=torch.float32).contiguous()
     return dispatch(state, delta, tombstones, queries, weights, cfg, k=k, mode=mode,
                     n_probes=n_probes, max_flips=max_flips, screen_alpha=screen_alpha,
-                    early_exit=early_exit, exit_group=exit_group, exit_slack=exit_slack)
+                    early_exit=early_exit, exit_group=exit_group, exit_slack=exit_slack,
+                    impl=impl)

@@ -219,6 +219,13 @@ def launch_counts() -> dict[str, int]:
     return {name: k.launches for name, k in KERNELS.items()}
 
 
+def add_launch_counts(counts: dict[str, int]) -> None:
+    """Add the launches another process counted (a spawned tuner worker's,
+    read there with :func:`launch_counts`) to this process's counts."""
+    for name, n in counts.items():
+        KERNELS[name].launches += n
+
+
 def stream_of(t) -> int:
     """The current CUDA stream of ``t``'s device, as a pointer-sized int."""
     import torch

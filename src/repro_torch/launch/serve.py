@@ -1,6 +1,6 @@
 """Serving launcher — the ALSH vector-search service on the GPU.
 
-Counterpart of ``repro.launch.serve`` on the explicit-knob path:
+Counterpart of ``repro.launch.serve``:
 
   * ``--mode alsh``: build the index over n uniform rows (stored as
     ``--storage``), then serve query batches in single-probe or
@@ -10,7 +10,14 @@ Counterpart of ``repro.launch.serve`` on the explicit-knob path:
     miss budget) — and spot-check recall against the exact scan on the
     first 16 queries of each batch; ``--stats`` adds the storage-tier
     accounting and, for a streamed query, the windows probed and the mix of
-    stop reasons (``Index.explain`` on those 16 queries);
+    stop reasons (``Index.explain`` on those 16 queries). With
+    ``--recall-target R`` (and optionally ``--latency-budget-ms B``) the
+    configuration is quality first: the index is built from
+    ``QualitySpec(k=--topk, recall_target=R, latency_budget_ms=B)`` (the
+    planner derives family, K, L, W and the window; ``--K``/``--L``/
+    ``--multiprobe``/``--probes``/``--storage`` are then ignored), the
+    resolved plan is printed and served, and each batch line adds the
+    predicted success and the truncated windows of its first 16 queries;
   * ``--mode stream``: the mutable-index service. Build the f32 index with
     ``UpdateSpec(delta_capacity=--delta-capacity,
     compact_threshold=--compact-threshold)``, then per tick insert
@@ -27,11 +34,14 @@ The printed lines match the reference's.
     python -m repro_torch.launch.serve --mode alsh --device cpu --n 4096 --d 16 \
         --early-exit --stats
     python -m repro_torch.launch.serve --mode stream --n 262144 --d 128 --query-batch 1024
+    python -m repro_torch.launch.serve --mode alsh --n 262144 --d 128 --query-batch 1024 \
+        --recall-target 0.9
+    python -m repro_torch.launch.serve --mode alsh --device cpu --n 4096 --d 16 \
+        --query-batch 64 --recall-target 0.9 --latency-budget-ms 1
 
 The data and queries come from a seeded ``torch.Generator`` (the reference
 draws them with ``jax.random``, so the two services see different data).
-The other modes and ``--recall-target`` (quality-first planning) raise
-``NotImplementedError`` naming their ROADMAP.md item.
+The other modes raise ``NotImplementedError`` naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -60,13 +70,10 @@ def serve_alsh(args):
     import numpy as np
     import torch
 
-    from repro_torch.api import Index, QuerySpec
+    from repro_torch.api import Index, QualitySpec, QuerySpec
     from repro_torch.api.index import resolve_device
     from repro_torch.configs.paper_alsh import ALSHServiceConfig
     from repro_torch.distance import recall_at_k
-
-    if args.recall_target is not None:
-        raise not_ported("--recall-target (quality-first planning)", "Queue A item 10")
 
     device = resolve_device(args.device)
     svc = ALSHServiceConfig(
@@ -75,16 +82,30 @@ def serve_alsh(args):
     )
     gen = torch.Generator().manual_seed(0)
     data = torch.rand((svc.n_per_shard, svc.d), generator=gen).to(device)
-    cfg = dataclasses.replace(svc.index_config, storage=args.storage)
+    # quality-first: a stated recall target plans BOTH the geometry and the
+    # serving policy; explicit knobs skip planning entirely
+    quality = None
+    if args.recall_target is not None:
+        quality = QualitySpec(k=svc.topk, recall_target=args.recall_target,
+                              latency_budget_ms=args.latency_budget_ms)
+        build_cfg = quality
+    else:
+        build_cfg = dataclasses.replace(svc.index_config, storage=args.storage)
     t0 = time.time()
-    index = Index.build(2, data, cfg, device=device)
+    index = Index.build(2, data, build_cfg, device=device)
     _sync(device)
+    cfg = index.config
     print(f"[alsh] built index over n={svc.n_per_shard} d={svc.d} "
           f"family={cfg.family} K={cfg.K} L={cfg.L} storage={cfg.storage} "
-          f"in {time.time()-t0:.2f}s")
+          f"in {time.time()-t0:.2f}s"
+          + (" (planned from QualitySpec)" if quality is not None else ""))
 
     # serving policy is a spec value, not a code path
-    if args.multiprobe:
+    if quality is not None:
+        t0 = time.time()
+        spec = index.plan(quality)  # memoized by the build's calibration
+        print(f"[alsh] planned in {time.time()-t0:.2f}s: {spec}")
+    elif args.multiprobe:
         spec = QuerySpec(k=svc.topk, mode="multiprobe", n_probes=args.probes)
     else:
         spec = QuerySpec(k=svc.topk)
@@ -111,10 +132,16 @@ def serve_alsh(args):
         ref = index.query(q[:16], w[:16], exact)
         rec = recall_at_k(res.ids[:16], ref.ids, svc.topk)
         cand_frac = float(res.n_candidates.float().mean()) / svc.n_per_shard
-        print(f"[alsh] batch {b}: {svc.query_batch} queries in {dt*1e3:.1f} ms "
-              f"({dt/svc.query_batch*1e6:.1f} us/query) "
-              f"cand_frac={cand_frac:.4f} "
-              f"recall@{svc.topk}~{rec:.2f}")
+        line = (f"[alsh] batch {b}: {svc.query_batch} queries in {dt*1e3:.1f} ms "
+                f"({dt/svc.query_batch*1e6:.1f} us/query) "
+                f"cand_frac={cand_frac:.4f} "
+                f"recall@{svc.topk}~{rec:.2f}")
+        if quality is not None:
+            # per-query diagnostics: predicted success + truncation pressure
+            rep = index.explain(q[:16], w[:16], spec)
+            line += (f" pred_success~{float(rep.predicted_success.mean()):.2f} "
+                     f"truncated={int((rep.truncated_tables > 0).sum())}/16")
+        print(line)
         if args.stats:
             # storage-tier accounting: bytes moved by the gather tail
             rep = index.explain(q[:16], w[:16], spec)
@@ -232,7 +259,12 @@ def main(argv=None):
     ap.add_argument("--multiprobe", action="store_true",
                     help="serve with QuerySpec(mode='multiprobe')")
     ap.add_argument("--probes", type=int, default=8, help="multiprobe buckets per table")
-    ap.add_argument("--recall-target", type=float, default=None, help="not ported")
+    ap.add_argument("--recall-target", type=float, default=None,
+                    help="alsh mode: quality-first serving — plan geometry and policy for "
+                         "this recall@topk (overrides --K/--L/--multiprobe/--probes/--storage)")
+    ap.add_argument("--latency-budget-ms", type=float, default=None,
+                    help="alsh mode: optional per-query latency budget for the planner's "
+                         "cost model (with --recall-target)")
     ap.add_argument("--ingest", type=int, default=512,
                     help="stream mode: rows inserted per tick")
     ap.add_argument("--retire", type=int, default=128,

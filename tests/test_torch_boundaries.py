@@ -2,13 +2,14 @@
 ``msgpack`` or ``ml_dtypes``, which the reference's persistence needs), its
 entry points default to the CUDA card and refuse to carry on without one,
 every mode it does not port yet raises ``NotImplementedError``, and the
-modes a slice ported (early exit, ``--stats``, persistence) run on the
-CPU."""
+modes a slice ported (early exit, ``--stats``, persistence, quality-first
+planning, the tuner, ``serve --recall-target``) run on the CPU."""
 
 import inspect
 import os
 import subprocess
 import sys
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -59,7 +60,9 @@ def test_port_imports_no_jax_and_no_reference():
     mods = list(_port_modules())
     for m in ("repro_torch.kernels.ops", "repro_torch.launch.serve", "repro_torch.ckpt",
               "repro_torch.ckpt.checkpoint", "repro_torch.ckpt._msgpack",
-              "repro_torch.api.persist"):
+              "repro_torch.api.persist", "repro_torch.api.planner", "repro_torch.tuner",
+              "repro_torch.tuner.space", "repro_torch.tuner.scan", "repro_torch.tuner.pareto",
+              "repro_torch.launch.tune"):
         assert m in mods, m
     _run_clean("import importlib, sys\n"
                f"for m in {mods!r}: importlib.import_module(m)\n" + _FORBIDDEN_CHECK)
@@ -131,8 +134,21 @@ def test_query_runs_on_the_index_device():
     ids=["impl", "impl_gather"],
 )
 def test_unported_specs_raise(make):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        make()
+    """``impl`` is ported: the plain projections it names run on CPU
+    tensors, and anywhere else (the card) raise instead of running. (The
+    name dates from when these specs raised everywhere.)"""
+    from repro_torch.core import hash_families as thf
+
+    spec = make()
+    rs = np.random.default_rng(3)
+    idx = tapi.Index.build(0, rs.uniform(0, 1, (16, 4)).astype(np.float32), _cfg(), device="cpu")
+    q, w = torch.rand((2, 4)), torch.ones((2, 4))
+    assert torch.equal(idx.query(q, w, spec).ids, idx.query(q, w, tapi.QuerySpec(k=5)).ids)
+    meta = thf.PrefixTables(folded=torch.zeros((6, 4, 9), device="meta"),
+                            offsets=torch.zeros((6,), device="meta"))
+    with pytest.raises(ValueError, match="runs on CPU tensors only"):
+        thf.project_query(torch.zeros((2, 4), dtype=torch.int32, device="meta"),
+                          torch.ones((2, 4), device="meta"), meta, impl=spec.impl)
 
 
 @pytest.mark.parametrize("mutable", [False, True], ids=["sealed", "mutable"])
@@ -159,19 +175,72 @@ def test_early_exit_runs_on_cpu(mutable):
     assert torch.equal(eng.ids, res.ids) and torch.equal(eng.tables_probed, res.tables_probed)
 
 
-def test_unported_index_modes_raise():
+def test_unported_index_modes_raise(one_torch_thread):
+    """Sharding still raises; a QualitySpec (Queue A item 10) now builds,
+    queries and explains on the CPU, and needs the card by default. (The
+    name dates from when a QualitySpec raised too.)"""
     rs = np.random.default_rng(2)
     data = rs.uniform(0, 1, (16, 4)).astype(np.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tapi.Index.build(0, data, tapi.QualitySpec(k=3), device="cpu")
+    quality = tapi.QualitySpec(k=3, calibration_queries=8)
+    built = tapi.Index.build(0, data, quality, device="cpu")
     idx = tapi.Index.build(0, data, _cfg(), device="cpu")
     q = rs.uniform(0, 1, (2, 4))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        idx.query(q, np.ones((2, 4)), tapi.QualitySpec(k=3))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # two tables: best effort
+        res = idx.query(q, np.ones((2, 4)), quality)
+    assert torch.equal(res.ids, idx.query(q, np.ones((2, 4)), idx.plan(quality)).ids)
+    assert built.plans[quality].provenance == "calibrated"
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         idx.shard(None)
-    with pytest.raises(NotImplementedError, match="Queue A item 10"):
-        idx.explain(q, np.ones((2, 4)), tapi.QualitySpec(k=3))
+    rep = idx.explain(q, np.ones((2, 4)), quality)
+    assert rep.quality == quality and rep.spec == idx.plan(quality)
+
+
+def test_planner_and_tuner_need_the_card_by_default(monkeypatch):
+    from repro_torch import tuner
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    data = np.random.default_rng(0).uniform(0, 1, (16, 4)).astype(np.float32)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        tapi.Index.build(0, data, tapi.QualitySpec(k=3))
+    space = tuner.ScanSpace(profiles=(tuner.DataProfile(n=16, d=4),), families=("theta",),
+                            K=(3,), L=(2,), n_probes=(1,), window=(8,), k=2, queries=4)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        tuner.run_trial(space.trials()[0].to_dict())
+
+
+@pytest.fixture
+def one_torch_thread():
+    """A planning run is many small torch ops: one intra-op thread keeps it
+    from oversubscribing the CPU when the suite runs in parallel workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_serve_recall_target_runs_on_cpu(capsys, one_torch_thread):
+    from repro_torch.launch import serve
+
+    serve.main(["--mode", "alsh", "--device", "cpu", "--n", "512", "--d", "8",
+                "--query-batch", "16", "--batches", "1", "--recall-target", "0.8",
+                "--latency-budget-ms", "5"])
+    out = capsys.readouterr().out
+    assert "(planned from QualitySpec)" in out and "serving policy: PlannedSpec(" in out
+    assert "pred_success~" in out and "truncated=" in out
+
+
+def test_tune_cli_runs_on_cpu(tmp_path, capsys, one_torch_thread):
+    from repro_torch.launch import tune
+
+    args = ["--device", "cpu", "--out", str(tmp_path), "--family", "theta", "--n", "256",
+            "--d", "4", "--K", "4", "--L", "4", "--probes", "1", "2", "--window", "16",
+            "--k", "3", "--queries", "8"]
+    assert tune.main(args + ["--max-trials", "1"]) == 0
+    assert "PARTIAL: 1/2" in capsys.readouterr().out
+    assert tune.main(args) == 0
+    out = capsys.readouterr().out
+    assert "tuning table: 1 bucket(s)" in out and (tmp_path / "tuning_table.json").exists()
 
 
 def test_shard_still_raises_naming_item_12(tmp_path):

@@ -978,3 +978,96 @@ def test_alsh_project_branches_match_plain_and_repeat(dev, n, d, H, M, weighted)
     assert torch.equal(got.view(torch.int32), again.view(torch.int32))
     want = ops.alsh_project(levels.clamp(0, M), folded, w, force="plain")
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# quality-first planning and the tuner on the card
+# ---------------------------------------------------------------------------
+
+
+def _plan_problem():
+    rs = np.random.default_rng(20)
+    data = rs.uniform(0, 1, (3000, 16)).astype(np.float32)
+    q = rs.uniform(0, 1, (64, 16)).astype(np.float32)
+    w = (np.abs(rs.normal(size=(64, 16))) + 0.1).astype(np.float32)
+    return data, q, w
+
+
+def test_quality_query_equals_planned_query_on_the_card(dev):
+    import warnings
+
+    import repro_torch.api as tapi
+
+    data, q, w = _plan_problem()
+    quality = tapi.QualitySpec(k=10, recall_target=0.9, calibration_queries=32)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        idx = tapi.Index.build(3, data, quality, family="theta")
+    assert idx.device.type == "cuda"
+    plan = idx.plan(quality)
+    a, b = idx.query(q, w, quality), idx.query(q, w, plan)
+    for f in ("ids", "dists", "n_candidates"):
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+    ladder = idx.plan_ladder(quality)
+    assert ladder[0] == plan
+    rep = idx.explain(q, w, quality)
+    assert rep.provenance == "calibrated" and rep.plan_build_s > 0
+    assert torch.equal(rep.result.ids, a.ids)
+
+
+@pytest.mark.parametrize("storage", ["f32", "int8"])
+def test_same_index_plans_the_same_on_cpu_and_card(dev, storage):
+    """One index state, on the CPU (plain versions) and on the card (the
+    hand kernels): the same samples (CPU generators) give the same plan."""
+    import dataclasses
+    import warnings
+
+    import repro_torch.api as tapi
+
+    data, _, _ = _plan_problem()
+    cfg = tapi.IndexConfig(d=16, M=16, K=10, L=16, max_candidates=64, storage=storage,
+                           space=tapi.BoundedSpace(0.0, 1.0, 16.0))
+    cpu = tapi.Index.build(4, data, cfg, device="cpu")
+    card = tapi.Index(state=cpu.state.to("cuda"), config=cfg)
+    quality = tapi.QualitySpec(k=10, recall_target=0.9, calibration_queries=32)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        a, b = cpu.plan(quality), card.plan(quality)
+    fa, fb = dataclasses.asdict(a), dataclasses.asdict(b)
+    sa, sb = fa.pop("predicted_success"), fb.pop("predicted_success")
+    assert fa == fb
+    np.testing.assert_allclose(sa, sb, rtol=1e-6)
+
+
+def test_spawn_scan_equals_inline_on_the_card(dev, tmp_path):
+    from repro_torch import tuner
+
+    from repro_torch.kernels import _build
+
+    space = tuner.ScanSpace(profiles=(tuner.DataProfile(n=4096, d=16),), families=("theta",),
+                            K=(8,), L=(8,), n_probes=(1, 2, 4), window=(64,), k=5, queries=32)
+    _build.reset_launch_counts()
+    inline = tuner.run_scan(space, tmp_path / "inline.jsonl")
+    inline_launches = _build.launch_counts()
+    _build.reset_launch_counts()
+    pooled = tuner.run_scan(space, tmp_path / "pooled.jsonl", workers=2)
+    # the workers' launches reach the parent's counts
+    assert _build.launch_counts() == inline_launches
+    assert inline_launches["wl1_scan_topk"] and inline_launches["gather_rerank_topk"]
+    assert len(inline) == len(pooled) == 3
+    for a, b in zip(inline, pooled):
+        for key in ("trial_id", "recall", "cand_frac", "cost", "mem_bytes", "W"):
+            assert a[key] == b[key], key
+
+
+@pytest.mark.parametrize("impl", ["gather", "onehot"])
+def test_impl_spec_raises_on_the_card(dev, impl):
+    """On the card the query projection is the hand kernel only."""
+    import repro_torch.api as tapi
+
+    data, q, w = _plan_problem()
+    cfg = tapi.IndexConfig(d=16, M=16, K=10, L=4, max_candidates=64,
+                           space=tapi.BoundedSpace(0.0, 1.0, 16.0))
+    idx = tapi.Index.build(4, data, cfg)
+    with pytest.raises(ValueError, match="runs on CPU tensors only"):
+        idx.query(q, w, tapi.QuerySpec(k=5, impl=impl))

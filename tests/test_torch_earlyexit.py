@@ -374,7 +374,17 @@ def test_explain_matches_reference(family, view, storage, spec):
 
 
 def test_explain_refuses_a_quality_spec():
+    """Quality-first planning is ported (Queue A item 10): explain resolves
+    a QualitySpec to its plan and reports the quality and its provenance.
+    (The name dates from when explain refused a QualitySpec.)"""
     _, tidx = _cached_pair("theta", "sealed", "f32")
-    with pytest.raises(NotImplementedError, match="Queue A item 10"):
-        tidx.explain(np.zeros((2, D), np.float32), np.ones((2, D), np.float32),
-                     tapi.QualitySpec(k=3))
+    quality = tapi.QualitySpec(k=3, calibration_queries=8)
+    q, w = np.zeros((2, D), np.float32), np.ones((2, D), np.float32)
+    try:
+        rep = tidx.explain(q, w, quality)
+        assert rep.quality == quality and rep.spec == tidx.plans[quality]
+        assert rep.provenance == "calibrated" and rep.plan_build_s > 0
+        assert torch.equal(rep.result.ids, tidx.query(q, w, rep.spec).ids)
+    finally:
+        tidx.plans.clear()
+        tidx.plan_times.clear()

@@ -218,7 +218,8 @@ def test_reference_directory_loads_leaf_for_leaf(refs, storage, kind):
     assert tidx.update == tapi.UpdateSpec(delta_capacity=CAP if kind == "mutable" else 0)
     assert isinstance(tidx.delta.fill, int) and tidx.delta_fill == int(jidx.delta.fill)
     assert tidx.n_live == jidx.n_live and tidx.table_bytes == jidx.table_bytes
-    assert tidx.plans == jpersist.plans_to_list(jidx.plans) and tidx.tuning == TUNING
+    assert tpersist.plans_to_list(tidx.plans) == jpersist.plans_to_list(jidx.plans)
+    assert tidx.tuning == TUNING
     assert tidx.state.tables.tiled is None  # the kernel's relayout exists on the card only
 
 
@@ -279,10 +280,11 @@ def test_index_fields_follow_the_reference_lifecycle(refs):
     for j, t in ((jidx.insert(extra[:3])[0], tidx.insert(torch.from_numpy(extra[:3]))[0]),
                  (jidx.delete(jnp.arange(2)), tidx.delete(torch.arange(2)))):
         assert np.array_equal(t.build_key, np.asarray(j.build_key))
-        assert t.plans == jpersist.plans_to_list(j.plans) and t.tuning == j.tuning == TUNING
+        assert tpersist.plans_to_list(t.plans) == jpersist.plans_to_list(j.plans)
+        assert t.plans is tidx.plans and t.tuning == j.tuning == TUNING
     jc, tc = jidx.compact(), tidx.compact()
     assert np.array_equal(tc.build_key, np.asarray(jc.build_key))
-    assert tc.plans == [] and jc.plans == {} and tc.tuning is None and jc.tuning is None
+    assert tc.plans == {} and jc.plans == {} and tc.tuning is None and jc.tuning is None
 
 
 def test_plans_and_tuning_round_trip(refs, tmp_path):
@@ -290,11 +292,65 @@ def test_plans_and_tuning_round_trip(refs, tmp_path):
     unchanged."""
     jidx, d = refs("int8", "mutable")
     tidx = tapi.Index.load(d, device="cpu")
-    assert tidx.plans == _meta(d)["plans"] and len(tidx.plans) == 1
+    assert tpersist.plans_to_list(tidx.plans) == _meta(d)["plans"] and len(tidx.plans) == 1
     tidx.save(tmp_path / "again")
     back = japi.Index.load(str(tmp_path / "again"))
     assert back.plans == {QUALITY: PLANNED} and back.tuning == TUNING
     assert _meta(str(tmp_path / "again")) == _meta(d)
+
+
+def _typed(plans):
+    """A plan memo as {quality fields: planned fields}, whichever package's."""
+    return {tuple(dataclasses.asdict(q).items()): dataclasses.asdict(p) for q, p in plans.items()}
+
+
+@pytest.mark.parametrize("storage", STORAGES)
+def test_reference_plans_load_typed(refs, storage):
+    """The reference's plan memo loads as typed ``QualitySpec ->
+    PlannedSpec`` entries equal to the reference's."""
+    jidx, d = refs(storage, "sealed")
+    tidx = tapi.Index.load(d, device="cpu")
+    (tq, tplan), = tidx.plans.items()
+    assert isinstance(tq, tapi.QualitySpec) and isinstance(tplan, tapi.PlannedSpec)
+    assert _typed(tidx.plans) == _typed(jidx.plans) == _typed({QUALITY: PLANNED})
+    assert tidx.plan(tq) is tplan  # the memo answers without a calibration
+    assert tidx.tuning == TUNING and tidx.plan_times == {} and tidx.ladders == {}
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_port_plans_load_typed_in_reference(tmp_path, kind):
+    """A port-built index with a plan memo and a tuning stamp: the reference
+    loads equal PlannedSpecs, and both packages' manifests are byte-equal
+    after a reload and a save on each side."""
+    tidx = _port_index("f32", kind, n=600)
+    tq = tapi.QualitySpec(**dataclasses.asdict(QUALITY))
+    tidx.plans[tq] = tapi.PlannedSpec(**dataclasses.asdict(PLANNED))
+    tidx.plans[dataclasses.replace(tq, seed=3, latency_budget_ms=2.5)] = tapi.PlannedSpec(
+        k=TOPK, mode="probe", max_candidates=16, predicted_recall=0.5, predicted_success=0.25,
+        expected_candidates=10.0, early_exit=True, exit_group=4, exit_slack=0.1,
+        expected_tables=6.5)
+    tidx.tuning = dict(TUNING)
+    d = tidx.save(tmp_path / "port")
+    jidx = japi.Index.load(d)
+    assert _typed(jidx.plans) == _typed(tidx.plans) and jidx.tuning == TUNING
+    assert all(isinstance(p, japi.PlannedSpec) for p in jidx.plans.values())
+    jidx.save(str(tmp_path / "ref_again"))
+    tapi.Index.load(d, device="cpu").save(tmp_path / "port_again")
+    manifest = (tmp_path / "port" / "index.json").read_bytes()
+    assert (tmp_path / "ref_again" / "index.json").read_bytes() == manifest
+    assert (tmp_path / "port_again" / "index.json").read_bytes() == manifest
+    assert tapi.Index.load(tmp_path / "port_again", device="cpu").plans == tidx.plans
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("storage", STORAGES)
+def test_resaved_manifest_with_plans_is_byte_equal(refs, tmp_path, storage, kind):
+    """A reference directory with a plan memo and a tuning stamp, loaded and
+    saved by the port: ``index.json`` equals the reference's byte for byte."""
+    _, d = refs(storage, kind)
+    out = tapi.Index.load(d, device="cpu").save(tmp_path / "resaved")
+    assert open(os.path.join(out, "index.json"), "rb").read() == open(
+        os.path.join(d, "index.json"), "rb").read()
 
 
 def _as_version(d, version, keep_storage):
@@ -330,7 +386,7 @@ def test_old_versions_load_as_the_reference_loads_them(refs, tmp_path, storage, 
     assert tidx.update == tapi.UpdateSpec(**dataclasses.asdict(jidx.update))
     assert tidx.mutable == jidx.mutable == (version >= 2)
     assert tidx.tuning == jidx.tuning == (TUNING if version >= 4 else None)
-    assert tidx.plans == jpersist.plans_to_list(jidx.plans)
+    assert tpersist.plans_to_list(tidx.plans) == jpersist.plans_to_list(jidx.plans)
     assert len(tidx.plans) == (1 if version >= 3 else 0)
     _assert_leaves_equal(_port_leaves(tidx), _reference_leaves(jidx))
     _, _, q, w = _problem(5)
