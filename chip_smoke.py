@@ -124,6 +124,16 @@ Phases, each of which fails the run (exit code 1) when it fails:
         service's rows inline and on two spawned workers (equal records,
         equal launches) with its table as a prior at the 0.9 target, and
         the candidates per ms the card re-ranks;
+     i. serving (see ``phase_broker_path``): a ``QualitySpec`` build at the
+        service width with the default planner and its degradation ladder
+        (at least two rungs, each rung's held-out recall), each rung timed
+        through the ``Broker`` at buckets 1, 8 and 64, a Poisson and a
+        bursty trace of 2000 requests at rates derived from rung 0's time,
+        a 4-shard ``ShardSet`` whose exact mode equals the single index's,
+        and its chaos drill (a shard killed mid-trace, two failed reloads,
+        recovery, bit-identical answers after it); no kernel built after
+        warmup; then ``alsh_project`` and ``gather_rerank_topk`` timed at
+        rung 0's shapes (b=1, b=64, the b=64 calibration batch);
   6. check: on a small input, the card's answers agree with the plain
      PyTorch path on the CPU over the same index state (f32 probe and
      exact, int8 screened probe).
@@ -182,7 +192,8 @@ KERNEL_META = {
     "wl1_rerank": ("src/repro_torch/kernels/csrc/wl1_distance.cu",
                    "src/repro/kernels/wl1_distance.py:112"),
 }
-PATHS = ("f32", "quantized", "multiprobe", "stream", "unfused", "early_exit", "persist", "plan")
+PATHS = ("f32", "quantized", "multiprobe", "stream", "unfused", "early_exit", "persist", "plan",
+         "broker")
 # The stream path: the reference service's defaults (serve --mode stream)
 STREAM_CAP = 8192  # --delta-capacity
 STREAM_THRESHOLD = 0.75  # --compact-threshold
@@ -212,6 +223,16 @@ TUNE_WORKERS = 2
 # The tuner's weight skew for the service's weights: |N(0,1)|**0.05 + 0.1
 # spans ~[1.0, 1.13], as 1 + 0.1 |N(0,1)| spans ~[1.0, 1.16]
 PLAN_SKEW = 0.05
+# The broker path: serve --mode broker's batch and queue bounds, the buckets
+# each rung is timed at (median of BROKER_REPS), the traces' length, the
+# shard count and the arrival at which the chaos drill kills shard 1
+BROKER_MAX_BATCH, BROKER_MAX_QUEUE = 64, 256
+BROKER_TARGETS = (PLAN_RECALL, 0.95, 0.99)  # raised while the ladder has one rung
+BROKER_BUCKETS = (1, 8, 64)
+BROKER_REPS = 5
+BROKER_REQUESTS = 2000
+BROKER_SHARDS = 4
+BROKER_KILL_AT = 500
 
 
 def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
@@ -2352,6 +2373,388 @@ def phase_plan_path(run, svc, card):
     return counts, rows
 
 
+def _capture_kernel_calls(fn):
+    """Run ``fn`` with ``ops.alsh_project`` and ``ops.gather_rerank_topk``
+    spied on (the streamed tail's group entry reaches the latter too) and
+    return ``{name: [arguments, ...]}`` of their calls, in order, each a
+    dict of every parameter by name."""
+    import inspect
+
+    from repro_torch.kernels import ops
+
+    calls = {"alsh_project": [], "gather_rerank_topk": []}
+    orig = {name: getattr(ops, name) for name in calls}
+
+    def spy(name):
+        sig = inspect.signature(orig[name])
+
+        def call(*args, **kwargs):
+            bound_args = sig.bind(*args, **kwargs)
+            bound_args.apply_defaults()
+            calls[name].append(dict(bound_args.arguments))
+            return orig[name](*args, **kwargs)
+        return call
+
+    for name in calls:
+        setattr(ops, name, spy(name))
+    try:
+        fn()
+    finally:
+        for name, f in orig.items():
+            setattr(ops, name, f)
+    return calls
+
+
+def _broker_kernel_shapes(run, calls_by_label, launches):
+    """``alsh_project`` and ``gather_rerank_topk`` timed on the inputs the
+    broker path gave them (rung 0 at b=1 and b=64, and rung 0 on the
+    planner's b=64 calibration batch): kernel and plain times, the bound,
+    the kernel's agreement with its plain version, and launches x (time -
+    bound) with the broker path's launch count of the kernel."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+
+    out = {"alsh_project": {}, "gather_rerank_topk": {}}
+    for label, calls in calls_by_label.items():
+        if calls["alsh_project"]:
+            a = calls["alsh_project"][-1]
+            levels, folded, weights, tiled = a["levels"], a["folded"], a["weights"], a["tiled"]
+            n, d = levels.shape
+            H, _, m1 = folded.shape
+            got = ops.alsh_project(levels, folded, weights, tiled=tiled)
+            want = ops.alsh_project(levels, folded, weights, force="plain")
+            err = float((got - want).abs().max())
+            if err > PROJ_ATOL:
+                raise AssertionError(f"alsh_project at {label}: kernel disagrees ({err})")
+            ms = time_ms(lambda: ops.alsh_project(levels, folded, weights, tiled=tiled),
+                         iters=20, warmup=2)
+            plain_ms = time_ms(lambda: ops.alsh_project(levels, folded, weights,
+                                                        force="plain"), iters=3)
+            # library yardstick, as phase_alsh_project: the one-hot f32 product
+            onehot = F.one_hot(levels.long(), m1).float()
+            if weights is not None:
+                onehot = onehot * weights[..., None]
+            lhs = onehot.reshape(n, d * m1)
+            rhs = folded.permute(1, 2, 0).reshape(d * m1, H).contiguous()
+            lib_ms = time_ms(lambda: torch.matmul(lhs, rhs), iters=20, warmup=2)
+            dev_us = device_us_per_call(f"alsh_project at {label}", lambda: ops.alsh_project(
+                levels, folded, weights, tiled=tiled))
+            wgt = weights is not None
+            b_ms, b_by = bound(4 * (n * d * (2 if wgt else 1) + H * d * m1 + n * H),
+                               n * H * d * (2 if wgt else 1))
+            n_l = launches["alsh_project"]
+            print(f"  [broker] alsh_project at {label}: levels ({n}, {d}), H={H}: kernel "
+                  f"{ms:.4f} ms (device per call {_fmt_us(dev_us)}), plain {plain_ms:.4f} ms, "
+                  f"one-hot matmul {lib_ms:.4f} ms, bound {b_ms * 1e3:.2f} us by {b_by}; "
+                  f"max_abs_err {err:.3g}; broker-path launches {n_l} x (kernel - bound) = "
+                  f"{n_l * (ms - b_ms):.1f} ms")
+            out["alsh_project"][label] = {"n": n, "H": H, "ms": ms, "device_us": dev_us,
+                                          "plain_ms": plain_ms, "library_ms": lib_ms,
+                                          "bound_ms": b_ms, "bound_by": b_by,
+                                          "max_abs_err": err}
+        if calls["gather_rerank_topk"]:
+            # the last call: a monolithic rung's only one, a streamed rung's
+            # last per-group merge (the heap plus one group's windows)
+            a = calls["gather_rerank_topk"][-1]
+            data, ids, q, w, k = (a[x] for x in ("data", "ids", "queries", "weights", "k"))
+            if a["delta"] is not None or a["scales"] is not None:
+                raise AssertionError(f"{label}: the broker's f32 sealed index gathered "
+                                     f"with a delta or scales")
+            got = ops.gather_rerank_topk(data, ids, q, w, k)
+            want = ops.gather_rerank_topk(data, ids, q, w, k, force="plain")
+            torch.cuda.synchronize()
+            err = _check_topk(f"[broker] gather_rerank_topk at {label}", got, want, data, q, w)
+            ms = time_ms(lambda: ops.gather_rerank_topk(data, ids, q, w, k), iters=20, warmup=2)
+            dev_us = device_us_per_call(f"gather_rerank_topk at {label}",
+                                        lambda: ops.gather_rerank_topk(data, ids, q, w, k))
+            plain_ms = time_ms(lambda: ops.gather_rerank_topk(data, ids, q, w, k,
+                                                              force="plain"), iters=1)
+            b, P = ids.shape
+            b_ms, b_by, *_ = gather_bound(ids, data.shape[0], data.shape[1], k, 4, scaled=False)
+            n_g = launches["gather_rerank_topk"]
+            n_calls = len(calls["gather_rerank_topk"])
+            print(f"  [broker] gather_rerank_topk at {label}: ids ({b}, {P}) (the last of "
+                  f"{n_calls} calls in the query), {int((ids < data.shape[0]).sum()) / b:.1f} "
+                  f"valid per query: kernel {ms:.4f} ms (device per call {_fmt_us(dev_us)}), "
+                  f"plain {plain_ms:.4f} ms, library: none; bound "
+                  f"{b_ms * 1e3:.2f} us by {b_by}; broker-path launches {n_g} x (kernel - "
+                  f"bound) = {n_g * (ms - b_ms):.1f} ms")
+            out["gather_rerank_topk"][label] = {"b": b, "P": P, "calls_in_query": n_calls,
+                                                "ms": ms, "device_us": dev_us,
+                                                "plain_ms": plain_ms, "library_ms": None,
+                                                "bound_ms": b_ms, "bound_by": b_by,
+                                                "max_abs_err": err}
+    for name, shapes in out.items():
+        run.kernels.setdefault(name, {})["broker_shapes"] = shapes
+    return out
+
+
+def _broker_stats(label, responses, stats, n_requests, ladder):
+    """Checks every broker run holds — one response per request, a degraded
+    answer labeled with its rung's prediction — and prints its figures."""
+    rids = sorted(r.rid for r in responses)
+    if rids != list(range(n_requests)):
+        raise AssertionError(f"{label}: {len(responses)} responses for {n_requests} requests "
+                             f"(every request must get exactly one)")
+    for r in responses:
+        if r.rung > 0 and r.status != "shed":
+            spec = ladder[r.rung]
+            if (r.status != "degraded" or r.predicted_recall != float(spec.predicted_recall)
+                    or r.predicted_success != float(spec.predicted_success)):
+                raise AssertionError(f"{label}: response {r.rid} at rung {r.rung} is not "
+                                     f"labeled with its rung's prediction")
+    print(f"  [broker] {label}: p50 {stats.p50_ms:.3f} ms, p99 {stats.p99_ms:.3f} ms, "
+          f"throughput {stats.throughput_rps:.0f} req/s, served {stats.served}, shed rate "
+          f"{stats.shed_rate:.4f}, degraded fraction {stats.degraded_frac:.4f}, rung counts "
+          f"{dict(sorted(stats.rung_counts.items()))}, degrades {stats.degrades}, recoveries "
+          f"{stats.recoveries}, mean coverage {stats.mean_coverage:.4f}")
+    return {"p50_ms": stats.p50_ms, "p99_ms": stats.p99_ms,
+            "throughput_rps": stats.throughput_rps, "served": stats.served,
+            "shed_rate": stats.shed_rate, "degraded_frac": stats.degraded_frac,
+            "rung_counts": {str(k): v for k, v in sorted(stats.rung_counts.items())},
+            "degrades": stats.degrades, "recoveries": stats.recoveries,
+            "mean_coverage": stats.mean_coverage}
+
+
+def phase_broker_path(run, svc, card):
+    """The serving tier at the SERVICE width (n=262,144, d=128, k=10) on one
+    card, launch counts zeroed before its build (``serve --mode broker``'s
+    flow, with the rates derived as ``benchmarks/serving_bench.py`` derives
+    them):
+
+    1. ``Index.build(seed, rows, QualitySpec(k=10, recall_target=0.9),
+       family="theta", M=32)`` with the default planner and its ladder
+       (the target raised to 0.95, then 0.99, while the ladder has one
+       rung): each rung's mode, probes, window, early exit, predicted
+       recall and recall@10 against exact mode on 64 held-out queries; a
+       ladder of one rung at the last target fails the path;
+    2. a ``Broker`` (``max_batch=64, max_queue=256``) warms every (bucket,
+       rung); then each rung is timed at buckets 1, 8 and 64 through the
+       broker's own ``_execute`` (the answer copied to the host inside the
+       window), the device busy time of each rung at b=64, and every rung
+       the card serves slower than the rung above it;
+    3. two traces of 2000 requests, rates from rung 0's b=64 time t
+       (capacity 64 / t): Poisson at 0.6x capacity and bursty at 0.3x
+       base / 2.4x bursts, period max(0.05 s, 50 t); SLO p99 = max(5 ms,
+       4 t); measured service time. Each: no kernel built after warmup,
+       one response per request, every degraded answer labeled;
+    4. a ``ShardSet`` of 4 shards (65,536 rows each) on the card: its build
+       and save seconds, exact mode equal to the single index's (ids equal,
+       dists within 1e-5), then the chaos drill on the Poisson trace: shard
+       1 killed at the 500th arrival, 2 injected recovery failures, backoff
+       base 2 t, cap 0.5 s. Checks: coverage 0.75 seen, the recovery log
+       ``killed, recover_failed, recover_failed, recovered``, no row of the
+       dead shard while it is down, answers after recovery bit-identical to
+       those before;
+    5. after the path's counts are read: ``alsh_project`` and
+       ``gather_rerank_topk`` timed at rung 0's shapes (b=1, b=64, and the
+       planner's b=64 calibration batch), see ``_broker_kernel_shapes``."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import repro_torch.api as tapi
+    from repro_torch import serving
+    from repro_torch.analysis import RetraceGuard
+    from repro_torch.configs.paper_alsh import SERVICE
+    from repro_torch.distance import recall_at_k
+    from repro_torch.kernels import _build
+
+    wl = svc.wl
+    k = SERVICE.topk
+    exact = tapi.QuerySpec(k=k, mode="exact")
+    hq, hw = wl.batch(BROKER_MAX_BATCH, SEED + 9200)
+    hq_np, hw_np = hq.cpu().numpy(), hw.cpu().numpy()
+    tq, tw = (t.cpu().numpy() for t in wl.batch(256, SEED + 9300))
+    rows = {"card": card}
+    _build.reset_launch_counts()
+
+    # 1. the quality build and its ladder: the first target whose ladder
+    # leaves the broker a rung to degrade to
+    for target in BROKER_TARGETS:
+        quality = tapi.QualitySpec(k=PLAN_K, recall_target=target)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        index = tapi.Index.build(SEED + 2, wl.data, quality, family="theta", M=32)
+        ladder = index.plan_ladder(quality)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        print(f"  [broker] recall_target {target}: built+planned n={index.n} d={index.d} on "
+              f"{index.device} in {build_s:.3f} s: {index.config}; ladder has {len(ladder)} "
+              f"rung(s)")
+        if len(ladder) >= 2:
+            break
+    ref = index.query(hq, hw, exact)
+    rungs = []
+    for r, spec in enumerate(ladder):
+        held = recall_at_k(index.query(hq, hw, spec).ids, ref.ids, k)
+        print(f"  [broker]   rung {r}: {spec.mode} probes {spec.n_probes} window "
+              f"{spec.max_candidates} early_exit {spec.early_exit}; predicted_recall "
+              f"{spec.predicted_recall:.4f}, held-out recall@{k} {held:.4f}")
+        rungs.append({"mode": spec.mode, "n_probes": spec.n_probes,
+                      "window": spec.max_candidates, "early_exit": spec.early_exit,
+                      "predicted_recall": spec.predicted_recall, "held_out_recall": held})
+    if len(ladder) < 2:
+        raise AssertionError("the ladder has one rung: the broker has nothing to degrade to")
+    rows.update(recall_target=quality.recall_target, build_s=build_s, config=str(index.config),
+                rungs=rungs)
+
+    # 2. warmup, then every rung at buckets 1, 8, 64
+    cfg = serving.BrokerConfig(max_batch=BROKER_MAX_BATCH, max_queue=BROKER_MAX_QUEUE)
+    slo_probe = serving.SLOConfig(p99_ms=1e9)
+    loads0 = RetraceGuard().snapshot()
+    t0 = time.perf_counter()
+    broker = serving.Broker(index, quality, slo_probe, cfg)
+    warm_s = time.perf_counter() - t0
+    print(f"  [broker] warmup of {len(broker.buckets)} buckets x {len(ladder)} rungs: "
+          f"{warm_s:.3f} s; kernel libraries loaded since the path began: "
+          f"{_build.library_loads() - loads0}")
+    grid = {}
+    for r, spec in enumerate(ladder):
+        for b in BROKER_BUCKETS:
+            times = sorted(broker._execute(hq_np[:b], hw_np[:b], spec, 0.0)[3] * 1e3
+                           for _ in range(BROKER_REPS))
+            grid[(r, b)] = times[BROKER_REPS // 2]
+    busy = {}
+    for r, spec in enumerate(ladder):
+        busy[r] = profile(f"of rung {r} at b={BROKER_MAX_BATCH}",
+                          lambda: index.query(hq, hw, spec), top=4)
+    for r in range(len(ladder)):
+        print(f"  [broker] rung {r}: ms per batch "
+              + ", ".join(f"b={b} {grid[(r, b)]:.3f}" for b in BROKER_BUCKETS)
+              + f"; device busy at b={BROKER_MAX_BATCH} {_fmt_us(busy[r])}")
+    inversions = {b: [r for r in range(1, len(ladder)) if grid[(r, b)] > grid[(r - 1, b)]]
+                  for b in BROKER_BUCKETS}
+    print(f"  [broker] rungs served slower than the rung above them, by bucket: {inversions}; "
+          f"{card}")
+    t_s = grid[(0, BROKER_MAX_BATCH)] / 1e3
+    capacity = BROKER_MAX_BATCH / t_s
+    slo_ms = max(5.0, 4e3 * t_s)
+    print(f"  [broker] rung 0 at b={BROKER_MAX_BATCH}: t = {t_s * 1e3:.3f} ms -> capacity "
+          f"{capacity:.0f} req/s; SLO p99 {slo_ms:.3f} ms")
+    rows.update(warmup_s=warm_s, ms_by_rung_bucket={f"{r}/{b}": v for (r, b), v in grid.items()},
+                busy_us_b64=busy, inversions=inversions, t_ms=t_s * 1e3, capacity_rps=capacity,
+                slo_p99_ms=slo_ms)
+    del broker
+
+    # 3. the two traces
+    slo = serving.SLOConfig(p99_ms=slo_ms)
+    poisson = serving.poisson_trace(0.6 * capacity, BROKER_REQUESTS, seed=0)
+    bursty = serving.bursty_trace(0.3 * capacity, 2.4 * capacity, BROKER_REQUESTS, seed=1,
+                                  period_s=max(0.05, 50 * t_s))
+    for label, trace in (("poisson 0.6x", poisson), ("bursty 0.3x/2.4x", bursty)):
+        broker = serving.Broker(index, quality, slo, cfg)
+        t0 = time.perf_counter()
+        responses, stats = broker.run(serving.requests_from_trace(trace, tq, tw))
+        wall_s = time.perf_counter() - t0
+        broker.assert_no_retrace()
+        print(f"  [broker] {label} trace: {BROKER_REQUESTS} requests over {trace[-1]:.3f} s "
+              f"of arrivals, served in {wall_s:.3f} s wall; no kernel built after warmup")
+        rows[label] = _broker_stats(label, responses, stats, BROKER_REQUESTS, ladder)
+        rows[label]["wall_s"] = wall_s
+        del broker, responses
+
+    # 4. the shard set and the chaos drill
+    timed = {"save": 0.0, "load": 0.0}
+    orig_save, orig_load = tapi.Index.save, tapi.Index.load.__func__
+
+    def timed_save(self, directory):
+        t = time.perf_counter()
+        try:
+            return orig_save(self, directory)
+        finally:
+            timed["save"] += time.perf_counter() - t
+
+    def timed_load(cls, directory, device=None):
+        t = time.perf_counter()
+        try:
+            return orig_load(cls, directory, device=device)
+        finally:
+            torch.cuda.synchronize()
+            timed["load"] += time.perf_counter() - t
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_shards_") as tmp:
+        tapi.Index.save, tapi.Index.load = timed_save, classmethod(timed_load)
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ss = serving.ShardSet.build(index, BROKER_SHARDS, os.path.join(tmp, "shards"))
+            torch.cuda.synchronize()
+            total_s = time.perf_counter() - t0
+            built = dict(timed)
+            sizes = [sum(f.stat().st_size for f in Path(dr).rglob("*") if f.is_file())
+                     for dr in ss.dirs]
+            print(f"  [broker] ShardSet of {ss.n_shards} x {index.n // ss.n_shards} rows on "
+                  f"{ss.device}: {total_s:.3f} s in all, of it save {built['save']:.3f} s and "
+                  f"load {built['load']:.3f} s (build {total_s - built['save'] - built['load']:.3f}"
+                  f" s); {sum(sizes)} B on disk; {card}")
+            got = ss.query(hq_np, hw_np, exact)
+            same_ids = np.array_equal(got.ids, ref.ids.cpu().numpy())
+            dist_ok = np.allclose(got.dists, ref.dists.cpu().numpy(), rtol=DIST_RTOL,
+                                  atol=DIST_ATOL)
+            print(f"  [broker] shard-exact + host merge vs the single index's exact mode on "
+                  f"{BROKER_MAX_BATCH} queries: ids equal {same_ids}, dists within "
+                  f"{DIST_RTOL}: {dist_ok}, coverage {got.coverage}")
+            if not (same_ids and dist_ok and got.coverage == 1.0):
+                raise AssertionError("the shard set's exact mode differs from the single index's")
+            pre = ss.query(hq_np, hw_np, ladder[0])
+            kill_at = float(poisson[BROKER_KILL_AT - 1])
+            ss.chaos = serving.ChaosPlan(kill_shard=1, kill_at_s=kill_at, recovery_failures=2,
+                                         backoff_base_s=2 * t_s, backoff_cap_s=0.5)
+            broker = serving.Broker(index, quality, slo, cfg, shardset=ss)
+            t0 = time.perf_counter()
+            responses, stats = broker.run(serving.requests_from_trace(poisson, tq, tw))
+            wall_s = time.perf_counter() - t0
+            broker.assert_no_retrace()
+            chaos = _broker_stats("chaos (poisson 0.6x, 4 shards)", responses, stats,
+                                  BROKER_REQUESTS, ladder)
+            served = [r for r in responses if r.status != "shed"]
+            covs = sorted({round(r.coverage, 6) for r in served})
+            events = [e["event"] for e in ss.recovery_log]
+            lo, hi = ss.offsets[1], ss.offsets[1] + index.n // ss.n_shards
+            leaked = sum(int(((r.ids >= lo) & (r.ids < hi)).any()) for r in served
+                         if r.coverage < 1.0)
+            post = ss.query(hq_np, hw_np, ladder[0])
+            same = np.array_equal(pre.ids, post.ids) and np.array_equal(pre.dists, post.dists)
+            print(f"  [broker] chaos: kill shard 1 at t={kill_at:.4f} s (arrival "
+                  f"{BROKER_KILL_AT}); coverages seen {covs}; recovery log "
+                  + ", ".join(f"{e['event']}@{e['t_s']:.4f}" for e in ss.recovery_log)
+                  + f"; answers with a dead-shard row while it was down: {leaked}; after "
+                  f"recovery bit-identical to before: {same}; {wall_s:.3f} s wall")
+            if 0.75 not in covs or events != ["killed", "recover_failed", "recover_failed",
+                                             "recovered"]:
+                raise AssertionError(f"chaos drill: coverages {covs}, events {events}")
+            if leaked or not same or ss.coverage != 1.0:
+                raise AssertionError("chaos drill: a dead shard's row answered, or the "
+                                     "recovered set answers differently")
+            chaos.update(coverages=covs, events=events, kill_at_s=kill_at, wall_s=wall_s)
+            rows.update(shards_s=total_s, shards_save_s=built["save"],
+                        shards_load_s=built["load"], shards_bytes=sum(sizes), chaos=chaos)
+            del broker, responses, ss
+        finally:
+            tapi.Index.save, tapi.Index.load = orig_save, classmethod(orig_load)
+    counts = _path_counts("broker", ("alsh_project", "gather_rerank_topk", "wl1_scan_topk"))
+    if _build.library_loads() != loads0:
+        raise AssertionError("the broker path built or loaded a kernel library")
+
+    # 5. the kernels at rung 0's shapes (launch counts already read)
+    qs, ws, _ = tapi.Planner()._calibration_sample(index, quality)
+    calls = {
+        f"rung 0, b={b}": _capture_kernel_calls(lambda b=b: index.query(hq[:b], hw[:b],
+                                                                        ladder[0]))
+        for b in (1, BROKER_MAX_BATCH)
+    }
+    calls[f"rung 0, calibration batch b={qs.shape[0]}"] = _capture_kernel_calls(
+        lambda: index.query(qs, ws, ladder[0]))
+    rows["kernel_shapes"] = _broker_kernel_shapes(run, calls, counts)
+    print(f"  [broker] summary {json.dumps(rows, default=str)}")
+    return counts, rows
+
+
 def phase_small_check():
     """The card's answers against the plain PyTorch path on the CPU, over
     one index state (built on the card, copied to the CPU)."""
@@ -2450,6 +2853,8 @@ def main() -> int:
                   dev["card"]),
         run.phase("main path (SERVICE, quality-first planning and the offline tuner)",
                   phase_plan_path, run, svc, dev["card"]),
+        run.phase("main path (SERVICE, the serving broker: ladder, traces, shard chaos)",
+                  phase_broker_path, run, svc, dev["card"]),
     ]
     run.phase("check against the CPU path", phase_small_check)
     if run.failures or any(p is None for p in paths):

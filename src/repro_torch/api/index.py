@@ -267,6 +267,10 @@ class Index:
         return self.state.n
 
     @property
+    def d(self) -> int:
+        return self.config.d
+
+    @property
     def device(self) -> torch.device:
         return self.state.device
 

@@ -476,3 +476,45 @@ def query_keys_for(
     ``repro_torch.engine.probe_keys``)."""
     qlevels = transforms.discretize(queries, cfg.space)
     return _keys_for(qlevels, weights, index.tables, cfg, index.mixers)
+
+
+def query_index(
+    index: ALSHIndex,
+    queries: torch.Tensor,
+    weights: torch.Tensor,
+    cfg: IndexConfig,
+    k: int = 1,
+    impl: str = "auto",
+) -> QueryResult:
+    """Batched ALSH query: probe L tables → dedupe → fused rerank/top-k (the
+    reference's legacy entry; ``Index.query`` runs the same engine call).
+
+    Args:
+      queries: (b, d) float query points.
+      weights: (b, d) float per-query weight vectors (the paper's w — may be negative).
+      k: neighbours to return.
+    """
+    from repro_torch.engine import query
+
+    return query(index, None, None, queries, weights, cfg, k=k, impl=impl)
+
+
+def query_index_segmented(
+    index: ALSHIndex,
+    delta: DeltaSegment,
+    tombstones: torch.Tensor,
+    queries: torch.Tensor,
+    weights: torch.Tensor,
+    cfg: IndexConfig,
+    k: int = 1,
+    impl: str = "auto",
+) -> QueryResult:
+    """Two-segment ALSH query: sorted-window probe of the sealed main tables
+    + key-match probe of the delta segment, tombstoned ids masked before
+    dedupe/re-rank (a deleted row can never appear in a result), then one
+    fused rerank/top-k tail gathering from both segment tables. Returned ids
+    are global: main rows keep their build ids ``[0, n_main)``; delta slot
+    ``s`` is ``n_main + s``."""
+    from repro_torch.engine import query
+
+    return query(index, delta, tombstones, queries, weights, cfg, k=k, impl=impl)

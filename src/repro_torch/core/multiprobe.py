@@ -15,7 +15,7 @@ import torch
 
 from repro_torch.core import transforms
 from repro_torch.core.families import get_family
-from repro_torch.core.index import ALSHIndex, IndexConfig
+from repro_torch.core.index import ALSHIndex, IndexConfig, QueryResult
 from repro_torch.kernels import ops
 
 # The probing defaults: QuerySpec's fields and the engine's keyword
@@ -57,3 +57,25 @@ def multiprobe_keys_for(
         return keys
     ranks = torch.arange(keys.shape[2], dtype=torch.int32, device=keys.device)
     return keys, ranks[None, None, :].expand(keys.shape)
+
+
+def query_multiprobe(
+    index: ALSHIndex,
+    queries: torch.Tensor,
+    weights: torch.Tensor,
+    cfg: IndexConfig,
+    k: int = 1,
+    n_probes: int = N_PROBES,
+    max_flips: int = MAX_FLIPS,
+) -> QueryResult:
+    """Multiprobe query: per table, probe the n_probes most likely buckets
+    (query bucket + low-margin perturbations, ordered by the family's
+    ``multiprobe_keys`` strategy). The reference's legacy entry;
+    ``Index.query`` with ``QuerySpec(mode="multiprobe")`` runs the same
+    engine call."""
+    from repro_torch.engine import query
+
+    return query(
+        index, None, None, queries, weights, cfg,
+        k=k, mode="multiprobe", n_probes=n_probes, max_flips=max_flips,
+    )

@@ -37,6 +37,18 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
+# Libraries built or loaded by ``Kernel.lib`` in this process: the count a
+# server snapshots after warmup (``repro_torch.analysis.retrace_guard``),
+# since a build or load while serving is paid by the request that hit it.
+_LIBRARY_LOADS = 0
+
+
+def library_loads() -> int:
+    """How many kernel libraries ``Kernel.lib`` has built or loaded in this
+    process (each kernel's first use counts once; later calls reuse it)."""
+    return _LIBRARY_LOADS
+
+
 def nvcc_path() -> str:
     """The CUDA compiler: ``$CUDA_HOME/bin/nvcc``, ``nvcc`` on the PATH, or
     the toolkit's default location."""
@@ -112,8 +124,11 @@ class Kernel:
         os.replace(self._tmp, self.library_path)
 
     def lib(self) -> ctypes.CDLL:
-        """The loaded library, building it first if needed."""
+        """The loaded library, building it first if needed (counted by
+        :func:`library_loads`)."""
+        global _LIBRARY_LOADS
         if self._lib is None:
+            _LIBRARY_LOADS += 1
             proc = self.start_build()
             if proc is not None:
                 self.finish_build(proc)

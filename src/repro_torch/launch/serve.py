@@ -23,7 +23,16 @@ Counterpart of ``repro.launch.serve``:
     compact_threshold=--compact-threshold)``, then per tick insert
     ``--ingest`` rows, retire the ``--retire`` oldest main rows (FIFO),
     serve one query batch over both segments, spot-check recall against
-    exact mode on 16 queries, and compact when ``needs_compact``.
+    exact mode on 16 queries, and compact when ``needs_compact``;
+  * ``--mode broker``: the fault-tolerant serving drill. Build from
+    ``QualitySpec(k=--topk, recall_target=--recall-target or 0.9)``, print
+    the degradation ladder, optionally split the index into ``--shards``
+    persisted shards with ``--kill-shard`` killed at virtual time
+    ``--kill-at``, then serve a ``--arrival`` trace of ``--requests``
+    requests at ``--rate`` through the ``Broker`` (``--slo-p99-ms``,
+    ``--max-batch``, ``--max-queue``), assert no kernel was built after
+    warmup, print the latency, shedding and degradation figures and, for a
+    chaos run, assert the labeled coverage loss and the recovery.
 
 The printed lines match the reference's.
 
@@ -38,10 +47,12 @@ The printed lines match the reference's.
         --recall-target 0.9
     python -m repro_torch.launch.serve --mode alsh --device cpu --n 4096 --d 16 \
         --query-batch 64 --recall-target 0.9 --latency-budget-ms 1
+    python -m repro_torch.launch.serve --mode broker --device cpu --n 4096 --d 16 \
+        --shards 4 --kill-shard 1
 
 The data and queries come from a seeded ``torch.Generator`` (the reference
 draws them with ``jax.random``, so the two services see different data).
-The other modes raise ``NotImplementedError`` naming their ROADMAP.md item.
+``--mode lm`` raises ``NotImplementedError`` naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -52,7 +63,6 @@ import time
 from repro_torch import not_ported
 
 UNPORTED_MODES = {
-    "broker": "Queue A item 11",
     "lm": "Queue A item 14",
 }
 
@@ -224,6 +234,91 @@ def serve_alsh_stream(args):
                   f"in {time.time()-t0:.2f}s")
 
 
+def serve_broker(args):
+    """Fault-tolerant broker drill: arrival trace -> batched queries under
+    an SLO, with an optional scripted shard failure."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.api import Index, QualitySpec
+    from repro_torch.api.index import resolve_device
+    from repro_torch.serving import (
+        Broker,
+        BrokerConfig,
+        ChaosPlan,
+        ShardSet,
+        SLOConfig,
+        make_trace,
+        requests_from_trace,
+    )
+
+    device = resolve_device(args.device)
+    gen = torch.Generator().manual_seed(0)
+    data = torch.rand((args.n, args.d), generator=gen).to(device)
+    quality = QualitySpec(
+        k=args.topk,
+        recall_target=args.recall_target if args.recall_target is not None else 0.9,
+    )
+    t0 = time.time()
+    index = Index.build(2, data, quality, device=device)
+    ladder = index.plan_ladder(quality)
+    _sync(device)
+    print(f"[broker] built+planned n={args.n} d={args.d} in {time.time()-t0:.2f}s; "
+          f"ladder has {len(ladder)} rungs "
+          f"(recalls {[round(float(r.predicted_recall), 3) for r in ladder]})")
+
+    shardset = None
+    tmp = None
+    if args.shards > 1:
+        tmp = tempfile.TemporaryDirectory(prefix="repro_torch_shards_")
+        t0 = time.time()
+        shardset = ShardSet.build(index, args.shards, tmp.name)
+        print(f"[broker] built {args.shards} shards (persisted for recovery) "
+              f"in {time.time()-t0:.2f}s")
+        if args.kill_shard is not None:
+            shardset.chaos = ChaosPlan(kill_shard=args.kill_shard, kill_at_s=args.kill_at)
+            print(f"[broker] chaos armed: kill shard {args.kill_shard} "
+                  f"at t={args.kill_at}s")
+
+    slo = SLOConfig(p99_ms=args.slo_p99_ms)
+    broker = Broker(
+        index, quality, slo,
+        BrokerConfig(max_batch=args.max_batch, max_queue=args.max_queue),
+        shardset=shardset,
+    )
+    q = torch.rand((256, args.d), generator=gen).numpy()
+    w = (torch.randn((256, args.d), generator=gen).abs() + 0.1).numpy()
+    trace = make_trace(args.arrival, args.rate, args.requests, seed=0)
+    reqs = requests_from_trace(trace, q, w)
+    t0 = time.time()
+    responses, stats = broker.run(reqs)
+    broker.assert_no_retrace()
+    print(f"[broker] {args.arrival} trace: {len(reqs)} requests at ~{args.rate}/s "
+          f"served in {time.time()-t0:.2f}s wall")
+    print(f"[broker] p50={stats.p50_ms:.2f}ms p99={stats.p99_ms:.2f}ms "
+          f"(SLO {slo.p99_ms}ms) throughput={stats.throughput_rps:.0f} req/s")
+    print(f"[broker] shed_rate={stats.shed_rate:.3f} "
+          f"degraded_frac={stats.degraded_frac:.3f} rungs={stats.rung_counts} "
+          f"mean_coverage={stats.mean_coverage:.3f}")
+    if shardset is not None and args.kill_shard is not None:
+        served = [r for r in responses if r.status != "shed"]
+        covs = sorted({round(r.coverage, 6) for r in served})
+        expect = (args.shards - 1) / args.shards
+        events = [e["event"] for e in shardset.recovery_log]
+        print(f"[broker] chaos: coverages seen {covs}; recovery log events {events}")
+        assert any(abs(c - expect) < 1e-9 for c in covs), (
+            f"expected some survivors-only answers at coverage {expect}, got {covs}"
+        )
+        assert "killed" in events, "scripted kill never fired"
+        assert "recovered" in events, "shard never recovered within the trace"
+        assert shardset.coverage == 1.0, "shard set did not return to full coverage"
+        print("[broker] chaos assertions passed: labeled degraded coverage + recovery")
+    if tmp is not None:
+        tmp.cleanup()
+    return responses, stats
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--mode", choices=["alsh", "stream", "broker", "lm"], default="alsh")
@@ -261,7 +356,8 @@ def main(argv=None):
     ap.add_argument("--probes", type=int, default=8, help="multiprobe buckets per table")
     ap.add_argument("--recall-target", type=float, default=None,
                     help="alsh mode: quality-first serving — plan geometry and policy for "
-                         "this recall@topk (overrides --K/--L/--multiprobe/--probes/--storage)")
+                         "this recall@topk (overrides --K/--L/--multiprobe/--probes/--storage); "
+                         "broker mode: the QualitySpec's target (default 0.9)")
     ap.add_argument("--latency-budget-ms", type=float, default=None,
                     help="alsh mode: optional per-query latency budget for the planner's "
                          "cost model (with --recall-target)")
@@ -273,11 +369,32 @@ def main(argv=None):
                     help="stream mode: delta segment slots (UpdateSpec.delta_capacity)")
     ap.add_argument("--compact-threshold", type=float, default=0.75,
                     help="stream mode: delta fill fraction that triggers compact()")
+    ap.add_argument("--slo-p99-ms", type=float, default=50.0,
+                    help="broker mode: target p99 latency; breaches walk down the "
+                         "degradation ladder")
+    ap.add_argument("--arrival", choices=["poisson", "bursty"], default="poisson",
+                    help="broker mode: arrival trace shape")
+    ap.add_argument("--rate", type=float, default=500.0,
+                    help="broker mode: mean arrival rate (req/s)")
+    ap.add_argument("--requests", type=int, default=1000,
+                    help="broker mode: trace length")
+    ap.add_argument("--shards", type=int, default=1,
+                    help="broker mode: >1 serves a host-side ShardSet")
+    ap.add_argument("--kill-shard", type=int, default=None,
+                    help="broker mode: chaos — shard to kill mid-stream (needs --shards > 1)")
+    ap.add_argument("--kill-at", type=float, default=0.5,
+                    help="broker mode: virtual time (s) of the shard kill")
+    ap.add_argument("--max-batch", type=int, default=64,
+                    help="broker mode: largest dynamic-batch bucket")
+    ap.add_argument("--max-queue", type=int, default=256,
+                    help="broker mode: admission queue bound (overflow sheds)")
     args = ap.parse_args(argv)
     if args.mode == "stream":
         serve_alsh_stream(args)
     elif args.mode == "alsh":
         serve_alsh(args)
+    elif args.mode == "broker":
+        return serve_broker(args)
     else:
         raise not_ported(f"--mode {args.mode}", UNPORTED_MODES[args.mode])
 

@@ -3,7 +3,8 @@
 entry points default to the CUDA card and refuse to carry on without one,
 every mode it does not port yet raises ``NotImplementedError``, and the
 modes a slice ported (early exit, ``--stats``, persistence, quality-first
-planning, the tuner, ``serve --recall-target``) run on the CPU."""
+planning, the tuner, ``serve --recall-target``) run on the CPU (``serve
+--mode broker`` is held in ``test_torch_serving.py``)."""
 
 import inspect
 import os
@@ -133,10 +134,9 @@ def test_query_runs_on_the_index_device():
     ],
     ids=["impl", "impl_gather"],
 )
-def test_unported_specs_raise(make):
+def test_impl_specs_run_on_cpu_and_refuse_the_card(make):
     """``impl`` is ported: the plain projections it names run on CPU
-    tensors, and anywhere else (the card) raise instead of running. (The
-    name dates from when these specs raised everywhere.)"""
+    tensors, and anywhere else (the card) raise instead of running."""
     from repro_torch.core import hash_families as thf
 
     spec = make()
@@ -175,10 +175,9 @@ def test_early_exit_runs_on_cpu(mutable):
     assert torch.equal(eng.ids, res.ids) and torch.equal(eng.tables_probed, res.tables_probed)
 
 
-def test_unported_index_modes_raise(one_torch_thread):
-    """Sharding still raises; a QualitySpec (Queue A item 10) now builds,
-    queries and explains on the CPU, and needs the card by default. (The
-    name dates from when a QualitySpec raised too.)"""
+def test_quality_spec_builds_on_cpu_and_shard_raises(one_torch_thread):
+    """Sharding still raises; a QualitySpec (Queue A item 10) builds,
+    queries and explains on the CPU, and needs the card by default."""
     rs = np.random.default_rng(2)
     data = rs.uniform(0, 1, (16, 4)).astype(np.float32)
     quality = tapi.QualitySpec(k=3, calibration_queries=8)
@@ -254,7 +253,7 @@ def test_shard_still_raises_naming_item_12(tmp_path):
         loaded.shard(None)
 
 
-@pytest.mark.parametrize("mode", ["broker", "lm"])
+@pytest.mark.parametrize("mode", ["lm"])
 def test_serve_unported_modes_raise(mode):
     from repro_torch.launch import serve
 

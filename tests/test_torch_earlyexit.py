@@ -373,10 +373,9 @@ def test_explain_matches_reference(family, view, storage, spec):
             assert got_d[key] == want_d[key], key
 
 
-def test_explain_refuses_a_quality_spec():
+def test_explain_resolves_a_quality_spec():
     """Quality-first planning is ported (Queue A item 10): explain resolves
-    a QualitySpec to its plan and reports the quality and its provenance.
-    (The name dates from when explain refused a QualitySpec.)"""
+    a QualitySpec to its plan and reports the quality and its provenance."""
     _, tidx = _cached_pair("theta", "sealed", "f32")
     quality = tapi.QualitySpec(k=3, calibration_queries=8)
     q, w = np.zeros((2, D), np.float32), np.ones((2, D), np.float32)

@@ -1,0 +1,52 @@
+"""The PyTorch twins of the ALSH examples (``examples/torch_*.py``) run end
+to end on the CPU at a tiny size; each asserts its own invariants (the
+quality path equals the planned path bit for bit, the lifecycle equals a
+fresh build, save/load answers alike)."""
+
+import runpy
+from pathlib import Path
+
+import pytest
+import torch
+
+EXAMPLES = Path(__file__).resolve().parents[1] / "examples"
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _main(name):
+    return runpy.run_path(str(EXAMPLES / f"{name}.py"), run_name="example")["main"]
+
+
+def test_torch_quickstart_runs_on_cpu(capsys):
+    recall = _main("torch_quickstart")(["--device", "cpu", "--n", "1024"])
+    out = capsys.readouterr().out
+    assert "bit-identical" in out and "save/load round-trip" in out
+    assert 0.0 <= recall <= 1.0
+
+
+def test_torch_streaming_updates_runs_on_cpu(capsys):
+    recall = _main("torch_streaming_updates")(["--device", "cpu", "--n", "2048"])
+    out = capsys.readouterr().out
+    assert "compact() == fresh build (bit-identical)" in out
+    assert recall > 0.5
+
+
+def test_torch_weighted_knn_classify_runs_on_cpu(capsys):
+    acc_unw, acc_w, acc_alsh = _main("torch_weighted_knn_classify")(
+        ["--device", "cpu", "--n", "4000"])
+    assert "ALSH weighted kNN" in capsys.readouterr().out
+    assert acc_w >= acc_unw and acc_alsh > 0.5
+
+
+def test_torch_examples_need_the_card_by_default(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for name in ("torch_quickstart", "torch_streaming_updates", "torch_weighted_knn_classify"):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            _main(name)(["--n", "64"])
