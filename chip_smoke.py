@@ -134,6 +134,17 @@ Phases, each of which fails the run (exit code 1) when it fails:
         recovery, bit-identical answers after it); no kernel built after
         warmup; then ``alsh_project`` and ``gather_rerank_topk`` timed at
         rung 0's shapes (b=1, b=64, the b=64 calibration batch);
+     j. sharded (see ``phase_sharded_path``): 8 x 262,144 clustered rows
+        (permuted before the partition) on a (2, 2, 2) mesh of the one
+        card, ``Index.shard`` of a single-host index over all of them:
+        probe (hierarchical equal to flat merge bit for bit, candidate
+        counts the shards' sum, shard 0 equal to a single-host index over
+        its rows, recall@10 held to the floor), multiprobe, exact mode
+        against the single-host index's, then a mutable index after two
+        stream ticks, sharded: exact mode, a lockstep insert, deletes, and
+        the sharded compact equal to the single-host compact leaf for leaf;
+        the ``Index.shard`` seconds and the sharded and single-host batch
+        times beside the card;
   6. check: on a small input, the card's answers agree with the plain
      PyTorch path on the CPU over the same index state (f32 probe and
      exact, int8 screened probe).
@@ -193,7 +204,7 @@ KERNEL_META = {
                    "src/repro/kernels/wl1_distance.py:112"),
 }
 PATHS = ("f32", "quantized", "multiprobe", "stream", "unfused", "early_exit", "persist", "plan",
-         "broker")
+         "broker", "sharded")
 # The stream path: the reference service's defaults (serve --mode stream)
 STREAM_CAP = 8192  # --delta-capacity
 STREAM_THRESHOLD = 0.75  # --compact-threshold
@@ -233,6 +244,14 @@ BROKER_REPS = 5
 BROKER_REQUESTS = 2000
 BROKER_SHARDS = 4
 BROKER_KILL_AT = 500
+# The sharded path: the reference's (2, 2, 2) mesh, all eight shards on the
+# one card, SERVICE.n_per_shard rows each; the mutable index's delta and its
+# two stream ticks
+SHARD_MESH = (2, 2, 2)
+SHARD_AXES = ("pod", "data", "model")
+SHARD_CAP = 8 * 1024
+SHARD_TICKS = 2
+SHARD_CHECK = 64  # queries of the exact and recall checks
 
 
 def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
@@ -2755,6 +2774,209 @@ def phase_broker_path(run, svc, card):
     return counts, rows
 
 
+def _at_least(label, launches, names, S):
+    """Fails unless each named kernel launched at least ``S`` times (once
+    per shard) in the call whose ``launches`` are given."""
+    low = {n: launches.get(n, 0) for n in names if launches.get(n, 0) < S}
+    print(f"  [sharded] {label}: launches {launches}")
+    if low:
+        raise AssertionError(f"{label}: fewer than {S} launches (one per shard): {low}")
+
+
+def _exact_pair(label, sharded_res, single_res):
+    """Exact mode sharded against single-host: ids equal, dists within
+    DIST_RTOL/DIST_ATOL; prints whether the dists are also bit-equal."""
+    import torch
+
+    same_ids = torch.equal(sharded_res.ids, single_res.ids)
+    close = torch.allclose(sharded_res.dists, single_res.dists, rtol=DIST_RTOL, atol=DIST_ATOL)
+    bits = torch.equal(sharded_res.dists, single_res.dists)
+    err = float((sharded_res.dists - single_res.dists).nan_to_num(0, 0, 0).abs().max())
+    print(f"  [sharded] {label}: ids equal {same_ids}, dists within rtol/atol {DIST_RTOL} "
+          f"{close} (max_abs_err {err:.3g}), bit-equal {bits}")
+    if not (same_ids and close):
+        raise AssertionError(f"{label}: the sharded exact answer differs from the single host's")
+    return bits
+
+
+def phase_sharded_path(svc, card):
+    """The sharded service on the card: SERVICE.n_per_shard rows on each of
+    the eight shards of a (2, 2, 2) mesh of the one card, against the
+    single-host index over all 2,097,152 rows (see the module docstring)."""
+    import dataclasses
+
+    import torch
+
+    import repro_torch.api as tapi
+    from repro_torch.configs.paper_alsh import SERVICE
+    from repro_torch.core import distributed as tdist
+    from repro_torch.core.index import build_index
+    from repro_torch.distance import recall_at_k
+    from repro_torch.kernels import _build
+
+    cfg = svc.index.config
+    S = math.prod(SHARD_MESH)
+    n_local, k, b = SERVICE.n_per_shard, SERVICE.topk, SERVICE.query_batch
+    _build.reset_launch_counts()
+    wl = Workload(S * n_local, cfg.d, seed=SEED + 60)
+    # permute before the partition: otherwise every cluster sits in one shard
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 61)
+    wl.data = wl.data[torch.randperm(wl.data.shape[0], generator=gen, device="cuda")]
+    q, w = wl.batch(b, SEED + 62)
+    mesh = tdist.make_mesh(SHARD_MESH, SHARD_AXES, devices=[torch.device("cuda", 0)] * S)
+    spec = tapi.QuerySpec(k=k)
+    mspec = tapi.QuerySpec(k=k, mode="multiprobe", n_probes=8, max_flips=3)
+    exact = tapi.QuerySpec(k=k, mode="exact")
+    out = {"card": card, "n": S * n_local, "shards": S}
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    single = tapi.Index.build(SEED + 2, wl.data, cfg)
+    torch.cuda.synchronize()
+    out["single_build_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sharded = single.shard(mesh)
+    torch.cuda.synchronize()
+    out["shard_s"] = time.perf_counter() - t0
+    print(f"  [sharded] single-host index over n={single.n} in {out['single_build_s']:.3f} s; "
+          f"Index.shard onto {mesh} ({S} x {n_local} rows) in {out['shard_s']:.3f} s ({card})")
+
+    # 1. probe: both merges, the shards' own answers, recall
+    res, launches = _launched(lambda: sharded.query(q, w, spec))
+    _check_result(res, b, k)
+    _at_least("probe batch", launches, ("alsh_project", "gather_rerank_topk"), S)
+    flat = dataclasses.replace(sharded, merge_hierarchical=False).query(q, w, spec)
+    same_flat = all(torch.equal(getattr(res, f), getattr(flat, f))
+                    for f in ("ids", "dists", "n_candidates"))
+    local = tdist.local_results(sharded.index_sharded, q, w, cfg, spec)
+    summed = torch.stack([r.n_candidates for r in local]).sum(0, dtype=torch.int32)
+    same_nc = torch.equal(res.n_candidates, summed)
+    alone = tapi.Index(state=build_index(None, wl.data[:n_local], cfg, tables=single.state.tables,
+                                         mixers=single.state.mixers), config=cfg)
+    own = alone.query(q, w, spec)
+    g0 = tdist.globalize_ids(local[0].ids, 0, S, n_local)
+    same_0 = (torch.equal(g0, own.ids) and torch.equal(local[0].dists, own.dists)
+              and torch.equal(local[0].n_candidates, own.n_candidates))
+    ex64 = sharded.query(q[:SHARD_CHECK], w[:SHARD_CHECK], exact)
+    rec = recall_at_k(res.ids[:SHARD_CHECK], ex64.ids, k)
+    single_res = single.query(q, w, spec)
+    rec_single = recall_at_k(single_res.ids[:SHARD_CHECK],
+                             single.query(q[:SHARD_CHECK], w[:SHARD_CHECK], exact).ids, k)
+    out["probe_ms"] = _median_ms(sharded, q, w, spec)
+    out["single_probe_ms"] = _median_ms(single, q, w, spec)
+    out["probe_busy_us"] = profile("of one sharded probe batch (8 shards, one card)",
+                                   lambda: sharded.query(q, w, spec), unprofiled_wall=True)
+    out["single_probe_busy_us"] = profile("of one single-host probe batch (n=2,097,152)",
+                                          lambda: single.query(q, w, spec), top=6)
+    cand = float(res.n_candidates.float().mean())
+    out.update(recall=rec, recall_single=rec_single, cand_frac=cand / single.n,
+               cand_frac_single=float(single_res.n_candidates.float().mean()) / single.n)
+    print(f"  [sharded] probe: {b} queries in {out['probe_ms']:.2f} ms (median of 5; single-host "
+          f"{out['single_probe_ms']:.2f} ms), cand_frac {out['cand_frac']:.5f} (single-host "
+          f"{out['cand_frac_single']:.5f}), recall@{k} {rec:.3f} (single-host {rec_single:.3f}, "
+          f"floor {THETA_RECALL_FLOOR}); hierarchical == flat bit for bit: {same_flat}; "
+          f"n_candidates == the shards' sum: {same_nc}; shard 0 == a single-host index over its "
+          f"rows: {same_0}")
+    if not (same_flat and same_nc and same_0):
+        raise AssertionError("sharded probe: merge, candidate count or shard 0 disagrees")
+    if rec < THETA_RECALL_FLOOR:
+        raise AssertionError(f"sharded probe recall@{k} {rec:.3f} under {THETA_RECALL_FLOOR}")
+
+    # 2. multiprobe
+    mp, launches = _launched(lambda: sharded.query(q, w, mspec))
+    _check_result(mp, b, k)
+    _at_least("multiprobe batch", launches, ("alsh_project", "gather_rerank_topk"), S)
+    worse = int((mp.dists > res.dists + 1e-6).sum())
+    out["multiprobe_ms"] = _median_ms(sharded, q, w, mspec, reps=3)
+    print(f"  [sharded] multiprobe (8 probes, 3 flips): {out['multiprobe_ms']:.2f} ms (median "
+          f"of 3), cand_frac {float(mp.n_candidates.float().mean()) / single.n:.5f}; slots "
+          f"worse than probe: {worse}")
+    if worse or not bool((mp.n_candidates >= res.n_candidates).all()):
+        raise AssertionError("sharded multiprobe must see a superset of the probe's candidates")
+
+    # 3. exact mode against the single-host index over all rows
+    ex, launches = _launched(lambda: sharded.query(q, w, exact))
+    _at_least("exact batch", launches, ("wl1_scan_topk",), S)
+    out["exact_bit_equal"] = _exact_pair(f"exact, b={b}", ex, single.query(q, w, exact))
+    out["exact_ms"] = _median_ms(sharded, q, w, exact, reps=3)
+    out["single_exact_ms"] = _median_ms(single, q, w, exact, reps=3)
+    print(f"  [sharded] exact: {out['exact_ms']:.2f} ms (single-host {out['single_exact_ms']:.2f})")
+    del sharded, single, alone, local, flat
+
+    # 4. mutable: two stream ticks on one host, then shard; lockstep after
+    update = tapi.UpdateSpec(delta_capacity=SHARD_CAP)
+    host = tapi.Index.build(SEED + 2, wl.data, cfg, update=update)
+    for t in range(1, SHARD_TICKS + 1):
+        centres, rows = stream_rows(SEED + 5000 + t, STREAM_INGEST // CLUSTER, cfg.d)
+        host = host.insert(rows)[0].delete(torch.arange((t - 1) * STREAM_RETIRE,
+                                                        t * STREAM_RETIRE, device="cuda"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    msh = host.shard(mesh)
+    torch.cuda.synchronize()
+    out["shard_mutable_s"] = time.perf_counter() - t0
+    fills = [d.fill for d in msh.delta_sharded]
+    print(f"  [sharded] mutable: delta {host.delta_fill}/{SHARD_CAP}, "
+          f"{int(host.tombstones.sum())} tombstones; sharded in {out['shard_mutable_s']:.3f} s, "
+          f"fills {fills}")
+    if msh.delta_fill != host.delta_fill or len(set(fills)) != 1:
+        raise AssertionError(f"the replayed delta is not striped evenly: {fills}")
+    q2, w2 = stream_batch(wl, centres, SEED + 6000)
+    qc, wc = q2[:SHARD_CHECK], w2[:SHARD_CHECK]
+    mex, launches = _launched(lambda: msh.query(qc, wc, exact))
+    _at_least("mutable exact", launches, ("gather_rerank_topk_two_seg",), S)
+    out["mutable_exact_bit_equal"] = _exact_pair(f"mutable exact, b={SHARD_CHECK}", mex,
+                                                 host.query(qc, wc, exact))
+    rows = stream_rows(SEED + 5100, STREAM_INGEST // CLUSTER, cfg.d)[1]
+    host, ids_h = host.insert(rows)
+    msh, ids_s = msh.insert(rows)
+    same_ids = torch.equal(ids_h, ids_s) and bool((ids_s >= 0).all())
+    dels = torch.cat([ids_h[:16].long(), torch.arange(1024, 1152, device="cuda")])
+    host, msh = host.delete(dels), msh.delete(dels)
+    mp_res, launches = _launched(lambda: msh.query(q2, w2, spec))
+    _check_result(mp_res, b, k)
+    _at_least("mutable probe", launches, ("alsh_project", "gather_rerank_topk_two_seg"), S)
+    mex2 = msh.query(qc, wc, exact)
+    bits2 = _exact_pair("mutable exact after the lockstep insert and deletes", mex2,
+                        host.query(qc, wc, exact))
+    for label, r in (("mutable probe", mp_res), ("mutable exact", mex2)):
+        _no_dead_ids(f"sharded {label}", r, host.tombstones)
+    hit = float((mp_res.ids[:STREAM_ON_NEW] >= host.n).any(dim=1).float().mean())
+    out["mutable_probe_ms"] = _median_ms(msh, q2, w2, spec)
+    print(f"  [sharded] lockstep insert of {rows.shape[0]}: gids equal {same_ids}; deleted "
+          f"{dels.numel()} ids, none in a result; mutable probe {out['mutable_probe_ms']:.2f} ms, "
+          f"delta hits {hit:.3f} of the {STREAM_ON_NEW} queries on new centres")
+    if not same_ids:
+        raise AssertionError("the sharded insert assigned other gids than the single host")
+    out["mutable_exact_bit_equal_after"] = bits2
+
+    # compact: sharded against single-host, leaf for leaf by bits
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cs = msh.compact()
+    torch.cuda.synchronize()
+    out["compact_sharded_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ch = host.compact()
+    torch.cuda.synchronize()
+    out["compact_single_s"] = time.perf_counter() - t0
+    pairs = [(f, getattr(cs.state, f), getattr(ch.state, f))
+             for f in ("mixers", "sorted_keys", "perm", "data", "levels")]
+    pairs += [(f"tables.{f}", getattr(cs.state.tables, f), getattr(ch.state.tables, f))
+              for f in ("folded", "offsets", "tiled")]
+    bad = [name for name, x, y in pairs
+           if (x is None) != (y is None) or (x is not None and not torch.equal(x, y))]
+    print(f"  [sharded] compact: sharded {out['compact_sharded_s']:.3f} s, single-host "
+          f"{out['compact_single_s']:.3f} s, n={cs.n}; {len(pairs)} leaves compared, unequal: "
+          f"{bad or 'none'}")
+    if bad or cs.n != ch.n:
+        raise AssertionError(f"the sharded compact differs from the single-host one: {bad}")
+    counts = _path_counts("sharded", ("alsh_project", "gather_rerank_topk",
+                                      "gather_rerank_topk_two_seg", "wl1_scan_topk"))
+    print(f"  [sharded] numbers: {json.dumps(out)}")
+    return counts, out
+
+
 def phase_small_check():
     """The card's answers against the plain PyTorch path on the CPU, over
     one index state (built on the card, copied to the CPU)."""
@@ -2855,6 +3077,7 @@ def main() -> int:
                   phase_plan_path, run, svc, dev["card"]),
         run.phase("main path (SERVICE, the serving broker: ladder, traces, shard chaos)",
                   phase_broker_path, run, svc, dev["card"]),
+        run.phase("main path (SERVICE x8 shards, sharded)", phase_sharded_path, svc, dev["card"]),
     ]
     run.phase("check against the CPU path", phase_small_check)
     if run.failures or any(p is None for p in paths):

@@ -19,7 +19,9 @@ quality-first planning (``QualitySpec`` → ``Planner`` → ``PlannedSpec``,
 ``api/planner.py``) with the offline tuner (``tuner/``, ``launch/tune.py``);
 and the serving tier (``serving/``: the broker, SLO degradation, shard
 chaos; ``serve --mode broker``) with its rebuild guard
-(``analysis/retrace_guard.py``).
+(``analysis/retrace_guard.py``); and the sharded index (``Index.shard``,
+``ShardedIndex``, ``core/distributed.py``: one process drives every shard
+of a ``make_mesh`` mesh, whose devices may repeat).
 Its eight kernels are hand-written in CUDA for Hopper (``kernels/csrc``):
 every Pallas kernel of the reference has a counterpart. Entry points run on the CUDA card unless
 the caller asks for ``device="cpu"``; on CPU tensors the kernels' plain

@@ -1,6 +1,6 @@
 """The public facade: ``Index`` and the specs."""
 
-from repro_torch.api.index import Index, validate_query_args
+from repro_torch.api.index import Index, ShardedIndex, validate_query_args
 from repro_torch.api.planner import Planner, QueryReport
 from repro_torch.api.spec import PlannedSpec, QualitySpec, QuerySpec, UpdateSpec
 from repro_torch.core.families import (
@@ -13,8 +13,8 @@ from repro_torch.core.families import (
 from repro_torch.core.index import DeltaSegment, IndexConfig, QueryResult
 from repro_torch.core.transforms import BoundedSpace
 
-# The reference's names but ShardedIndex (ROADMAP Queue A item 12), and
-# validate_query_args, which the port also exports here.
+# The reference's names, and validate_query_args, which the port also
+# exports here.
 __all__ = [
     "BoundedSpace",
     "DeltaSegment",
@@ -29,6 +29,7 @@ __all__ = [
     "QueryReport",
     "QueryResult",
     "QuerySpec",
+    "ShardedIndex",
     "ThetaFamily",
     "UpdateSpec",
     "get_family",

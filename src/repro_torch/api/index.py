@@ -42,7 +42,14 @@ The geometry comes from theory inversion on the data, the execution plan
 from a calibration pass on the built index (memoized in ``index.plans``);
 when even the best plan misses the target, L is doubled (twice at most,
 within ``Planner.max_L``) and the index rebuilt from the same generator
-state. Sharding is not ported yet and raises ``NotImplementedError``.
+state.
+
+Sharded serving (one process drives every shard; a device may repeat):
+
+    mesh    = make_mesh((2, 2, 2), ("pod", "data", "model"),
+                        devices=[torch.device("cuda", 0)] * 8)
+    sharded = index.shard(mesh)                  # a ShardedIndex
+    res     = sharded.query(q, w, QuerySpec(k=10))   # global ids, merged
 """
 
 from __future__ import annotations
@@ -54,7 +61,7 @@ import warnings
 import numpy as np
 import torch
 
-from repro_torch import engine, not_ported
+from repro_torch import engine
 from repro_torch.api import persist
 from repro_torch.api.planner import Planner, QueryReport
 from repro_torch.api.spec import PlannedSpec, QualitySpec, QuerySpec, UpdateSpec
@@ -575,5 +582,222 @@ class Index:
         return cls(state=state, config=cfg, update=update, delta=delta, tombstones=tombstones,
                    build_key=build_key, plans=plans, tuning=tuning)
 
-    def shard(self, *args, **kwargs):
-        raise not_ported("Index.shard — the sharded service", "Queue A item 12")
+    # -- distribution -------------------------------------------------------
+    def shard(self, mesh, merge_hierarchical: bool = True) -> "ShardedIndex":
+        """Partition the main rows over ``mesh`` (a
+        :class:`~repro_torch.core.distributed.Mesh`, see ``make_mesh``) for
+        the sharded service. Each shard's local index is built once, with
+        this index's tables and mixers, on its own device. A mutable index
+        replays its delta rows through the sharded insert (the same tables
+        hash them to the same keys, so ids are kept: ``n_main + i`` for the
+        i-th insert) and then its tombstones through ``delete``; each shard
+        gets ``update.delta_capacity / S`` delta slots. Returns a
+        :class:`ShardedIndex` with the same query/insert/delete surface."""
+        from repro_torch.core.distributed import Mesh, build_local_indexes, make_sharded_delta
+
+        if not isinstance(mesh, Mesh):
+            raise TypeError(
+                f"Index.shard(mesh) takes a repro_torch.core.distributed.Mesh "
+                f"(make_mesh(shape, axis_names, devices=...)), got {type(mesh).__name__}"
+            )
+        if self.config.storage != "f32":
+            raise ValueError(
+                f"Index.shard() supports storage='f32' only (this index was "
+                f"built with storage={self.config.storage!r}) — the mesh path "
+                f"re-discretizes raw rows per shard, and per-shard re-encoding "
+                f"would drift the quantization grid away from the single-host "
+                f"index it must answer bit-identically to. Use the host-side "
+                f"serving shard set (repro_torch.serving.chaos.ShardSet), which "
+                f"re-encodes each shard self-consistently, or build with "
+                f"storage='f32' before sharding"
+            )
+        S = mesh.size
+        if self.mutable and self.update.delta_capacity % S:
+            raise ValueError(
+                f"UpdateSpec.delta_capacity={self.update.delta_capacity} must "
+                f"be a multiple of the mesh size ({S} devices) — each shard "
+                f"owns an equal slice of the delta segment"
+            )
+        index_sharded = build_local_indexes(self.state.tables, self.state.mixers,
+                                            self.state.data, self.config, mesh)
+        sharded = ShardedIndex(
+            index_sharded=index_sharded, config=self.config, mesh=mesh,
+            merge_hierarchical=merge_hierarchical, update=self.update,
+            build_key=self.build_key, plans=dict(self.plans),
+        )
+        if self.mutable:
+            sharded.delta_sharded, sharded.tombstones_sharded = make_sharded_delta(
+                self.config, mesh, self.update.delta_capacity // S, self.state.data.dtype,
+                n_local=self.n // S,
+            )
+            if self.delta_fill:
+                sharded, _ = sharded.insert(self.delta.data[: self.delta_fill])
+            gids = torch.nonzero(self.tombstones).flatten()
+            if gids.numel():
+                sharded = sharded.delete(gids)
+        return sharded
+
+
+@dataclasses.dataclass
+class ShardedIndex:
+    """Row-sharded view of an :class:`Index` for the sharded service.
+
+    Shard s owns a contiguous block of n_local main rows and a complete
+    local index over it on ``mesh.devices.flat[s]``; the hash tables are the
+    parent's on every shard. ``query()`` returns globally merged results
+    with global row ids, on ``mesh.devices.flat[0]``.
+
+    A mutable index shards too: each shard owns a private
+    ``update.delta_capacity / n_shards``-slot delta slice, inserts route
+    round-robin by global id, deletes tombstone on the owning shard, and the
+    ids are the single-host :class:`Index`'s (main row i <-> gid i; the i-th
+    inserted row <-> gid n_main + i) — so a sharded and a single-host index
+    fed the same update stream return the same ids.
+    """
+
+    index_sharded: list  # ALSHIndex per shard, in rank order
+    config: IndexConfig
+    mesh: object
+    merge_hierarchical: bool = True
+    update: UpdateSpec = UpdateSpec()
+    build_key: np.ndarray | None = dataclasses.field(default=None, compare=False)
+    delta_sharded: list | None = None  # DeltaSegment per shard
+    tombstones_sharded: list | None = None  # (n_local + cap,) bool per shard
+    plans: dict = dataclasses.field(default_factory=dict, compare=False)  # from the parent
+
+    @property
+    def n(self) -> int:
+        return sum(state.n for state in self.index_sharded)
+
+    @property
+    def n_shards(self) -> int:
+        return self.mesh.size
+
+    @property
+    def mutable(self) -> bool:
+        return self.update.mutable and self.delta_sharded is not None
+
+    @property
+    def _cap_local(self) -> int:
+        """Delta slots per shard (delta_capacity is the index-wide total)."""
+        return self.update.delta_capacity // self.n_shards
+
+    @property
+    def delta_fill(self) -> int:
+        """Delta slots used across shards (host ints: no device sync)."""
+        if self.delta_sharded is None:
+            return 0
+        return sum(d.fill for d in self.delta_sharded)
+
+    @property
+    def needs_compact(self) -> bool:
+        """Advisory: ANY shard's delta slice reached the compact threshold
+        (that shard starts dropping inserts first)."""
+        if self.delta_sharded is None:
+            return False
+        limit = self.update.compact_threshold * self._cap_local
+        return any(d.fill >= limit for d in self.delta_sharded)
+
+    def query(self, queries, weights, spec=QuerySpec()):
+        """``Index.query``'s contract over the shards, with the same argument
+        validation; each shard runs the engine over its slice and the top-k
+        merge composes the answers (a ``ShardedQueryResult``). A QualitySpec
+        resolves against the plan memo the parent carried into ``shard()``;
+        an unplanned one is refused (planning needs the single-host index).
+        As in the reference, each shard gets only the spec's k, mode,
+        n_probes, max_flips and impl: early exit and the screen stay off."""
+        from repro_torch.core.distributed import sharded_index_query
+
+        cfg = self.config
+        queries = torch.as_tensor(queries)
+        weights = torch.as_tensor(weights)
+        validate_query_args(cfg.d, queries, weights)
+        if isinstance(spec, QualitySpec):
+            planned = self.plans.get(spec)
+            if planned is None:
+                raise ValueError(
+                    "ShardedIndex cannot calibrate a new QualitySpec (planning "
+                    "needs the single-host index) — call index.plan(quality) "
+                    "BEFORE index.shard(mesh), or pass the resolved "
+                    "PlannedSpec/QuerySpec explicitly"
+                )
+            spec = planned
+        if isinstance(spec, PlannedSpec):
+            cfg = spec.effective_config(cfg)
+            spec = spec.to_query_spec()
+        if not isinstance(spec, QuerySpec):
+            raise TypeError(
+                f"spec must be a QuerySpec, QualitySpec, or PlannedSpec; "
+                f"got {type(spec).__name__}"
+            )
+        _check_probe_reach(cfg, spec)
+        return sharded_index_query(
+            self.index_sharded, queries, weights, cfg, self.mesh, spec=spec,
+            merge_hierarchical=self.merge_hierarchical, delta_sharded=self.delta_sharded,
+            tombstones_sharded=self.tombstones_sharded,
+        )
+
+    def _require_mutable(self, op: str) -> None:
+        if not self.mutable:
+            raise ValueError(
+                f"ShardedIndex.{op}() requires a mutable index — build the "
+                f"source Index with update=UpdateSpec(delta_capacity=...) "
+                f"before .shard()"
+            )
+
+    def insert(self, rows) -> tuple["ShardedIndex", torch.Tensor]:
+        """Insert rows across shards, routed round-robin by global id.
+        Returns (new sharded index, (m,) int32 global ids; -1 where the
+        owning shard's delta is full). The ids are those a single-host
+        mutable Index assigns to the same stream."""
+        self._require_mutable("insert")
+        from repro_torch.core.distributed import sharded_delta_insert
+
+        rows = torch.as_tensor(rows)
+        if rows.ndim != 2 or rows.shape[-1] != self.config.d:
+            raise ValueError(
+                f"insert rows must be (m, d) with trailing dim "
+                f"config.d={self.config.d}; got rows.shape={tuple(rows.shape)}"
+            )
+        deltas, ids = sharded_delta_insert(self.index_sharded, self.delta_sharded, rows,
+                                           self.config, self.mesh)
+        return dataclasses.replace(self, delta_sharded=deltas), ids
+
+    def delete(self, ids) -> "ShardedIndex":
+        """Tombstone global ids on their owning shards (unknown ids ignored)."""
+        self._require_mutable("delete")
+        from repro_torch.core.distributed import sharded_tombstone
+
+        ts = sharded_tombstone(
+            self.tombstones_sharded, ids, [d.fill for d in self.delta_sharded], self.mesh,
+            n_local=self.n // self.n_shards, cap=self._cap_local,
+        )
+        return dataclasses.replace(self, tombstones_sharded=ts)
+
+    def compact(self) -> Index:
+        """Gather the surviving rows in global-id order and build a fresh
+        single-host sealed :class:`Index` over them on
+        ``mesh.devices.flat[0]``, with the shards' tables and mixers, the same
+        ``update`` and ``build_key`` — equal, leaf for leaf, to the
+        single-host ``Index.compact`` of the same lifecycle. Re-shard it
+        explicitly: the survivor count must still divide the mesh."""
+        self._require_mutable("compact")
+        S, cap = self.n_shards, self._cap_local
+        n_local = self.n // S
+        dev = self.mesh.devices.flat[0]
+        rows = [state.data[~ts[:n_local]].to(dev)
+                for state, ts in zip(self.index_sharded, self.tombstones_sharded)]
+        if cap:
+            # delta gids in insertion order: e -> shard e % S, slot e // S
+            data = torch.stack([d.data.to(dev) for d in self.delta_sharded])  # (S, cap, d)
+            dead = torch.stack([ts[n_local:].to(dev) for ts in self.tombstones_sharded])
+            fills = torch.tensor([d.fill for d in self.delta_sharded], device=dev)
+            e = torch.arange(S * cap, device=dev)
+            s, t = e % S, e // S
+            live = (t < fills[s]) & ~dead[s, t]
+            rows.append(data[s[live], t[live]])
+        first = self.index_sharded[0]
+        state = build_index(None, torch.cat(rows), self.config,
+                            tables=first.tables.to(dev), mixers=first.mixers.to(dev))
+        return Index(state=state, config=self.config, update=self.update,
+                     build_key=self.build_key)

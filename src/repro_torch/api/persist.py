@@ -38,7 +38,8 @@ key: it writes the marker ``PORT_BUILT_KEY`` = [0xFFFFFFFF, 0xFFFFFFFF],
 which ``jax.random.PRNGKey(seed)`` never gives for a seed below 2**32. The
 reference loads such a directory and answers from the stored tables, but
 its ``Index.shard()`` re-derives the tables from the key, so it must not
-shard a directory this package built.
+shard a directory this package built. This package's ``Index.shard()``
+shards with the stored tables, whichever package wrote them.
 """
 
 from __future__ import annotations

@@ -72,7 +72,12 @@ class PrefixTables:
             self.tiled = tile_folded(self.folded)
 
     def to(self, device) -> "PrefixTables":
-        return PrefixTables(self.folded.to(device), self.offsets.to(device))
+        """The tables on ``device``; itself when they lie there already (so
+        shards built on one card share one table relayout)."""
+        folded = self.folded.to(device)
+        if folded is self.folded and self.offsets.device == folded.device:
+            return self
+        return PrefixTables(folded, self.offsets.to(device))
 
 
 def naive_projection_vector(a_rows: torch.Tensor) -> torch.Tensor:

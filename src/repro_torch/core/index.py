@@ -187,6 +187,16 @@ def _keys_for(
     return get_family(cfg.family).combine_codes(codes, mixers, cfg.K)
 
 
+def draw_tables(generator: torch.Generator, cfg: IndexConfig) -> tuple[hf.PrefixTables,
+                                                                       torch.Tensor]:
+    """The hash tables and key mixers of one index, drawn from ``generator``
+    (on its device: a CPU generator gives the same draw for every device)."""
+    tables = hf.make_prefix_tables(generator, cfg.lsh_params)
+    # odd int32 multipliers in [1, 2**31 - 1) (the l2 family's key mixing)
+    mixers = torch.randint(1, INT32_MAX, (cfg.L, cfg.K), generator=generator, dtype=torch.int64)
+    return tables, (mixers | 1).to(torch.int32)
+
+
 def build_index(
     generator: torch.Generator | None,
     data: torch.Tensor,
@@ -208,11 +218,7 @@ def build_index(
     if tables is None or mixers is None:
         if generator is None:
             raise ValueError("build_index needs a generator or pre-drawn tables and mixers")
-        tables = hf.make_prefix_tables(generator, cfg.lsh_params)
-        # odd int32 multipliers in [1, 2**31 - 1) (the l2 family's key mixing)
-        mixers = torch.randint(1, INT32_MAX, (cfg.L, cfg.K), generator=generator,
-                               dtype=torch.int64)
-        mixers = (mixers | 1).to(torch.int32)
+        tables, mixers = draw_tables(generator, cfg)
     tables = tables.to(dev)
     mixers = mixers.to(dev)
     levels = transforms.discretize(data, cfg.space)

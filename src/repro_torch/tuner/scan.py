@@ -19,8 +19,10 @@ and the oracle ``wl1_scan_topk``):
 interpreters, each with its own CUDA context; the parent builds the kernels
 first so no worker runs ``nvcc``; each worker's kernel launches are added to
 the parent's launch counts); only picklable dicts cross the pool. A
-trial with ``shards > 1`` is recorded with ``status="skipped"`` and its
-reason: ``Index.shard`` is not ported yet.
+trial with ``shards > 1`` runs on a ``ShardedIndex`` over the first
+``shards`` devices of the trial's kind (the CPU counts as one device, CUDA
+as every card), and is recorded with ``status="skipped"`` and the
+reference's reason when the host has fewer.
 
 The JSONL trial store holds one fsync'd line per completed trial, keyed by
 the content-addressed ``trial_id``. A resume re-enumerates the space, skips
@@ -112,6 +114,14 @@ def _trial_index(generator: torch.Generator, data: torch.Tensor, cfg, device):
     return Index.build(generator, data, cfg, device=device)
 
 
+def _host_devices(dev) -> list:
+    """The host's devices of ``dev``'s kind: every CUDA card, or the CPU
+    as one device."""
+    if dev.type == "cuda":
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return [dev]
+
+
 def _state_bytes(state) -> int:
     """Bytes of the reference's ``ALSHIndex`` leaves (the card's table
     relayout ``tables.tiled`` is not one)."""
@@ -128,20 +138,21 @@ def run_trial(trial_dict: dict, real_data=None, device=None) -> dict:
     from repro_torch.api import IndexConfig, PlannedSpec, QuerySpec
     from repro_torch.api.index import resolve_device
     from repro_torch.api.planner import mean_f32, seeded_generator
+    from repro_torch.core.distributed import make_mesh
     from repro_torch.core.transforms import BoundedSpace
     from repro_torch.distance import recall_at_k
 
     trial = TrialSpec.from_dict(trial_dict)
     rec = {"trial_id": trial.trial_id, "trial": trial.to_dict(), "status": "ok"}
-    if trial.shards > 1:
+    dev = resolve_device(device)
+    devices = _host_devices(dev)
+    if trial.shards > 1 and len(devices) < trial.shards:
         rec.update(
             status="skipped",
-            reason=f"needs {trial.shards} shards; Index.shard is not ported yet "
-                   f"(ROADMAP.md Queue A item 12)",
+            reason=f"needs {trial.shards} devices, host has {len(devices)}",
         )
         return rec
 
-    dev = resolve_device(device)
     # one CPU generator per draw: 0 data, 1 width sample, 2 tables, 3 queries, 4 weights
     gens = [seeded_generator(trial.seed, i) for i in range(5)]
     data = profile_data(trial.profile, gens[0], real_data, device=dev)
@@ -164,11 +175,17 @@ def run_trial(trial_dict: dict, real_data=None, device=None) -> dict:
         early_exit=trial.early_exit, exit_group=trial.exit_group,
         exit_slack=trial.exit_slack,
     )
-    res = index.query(qs, ws, spec)
-    exact = index.query(qs, ws, QuerySpec(k=trial.k, mode="exact"))
+    handle = index
+    if trial.shards > 1:
+        handle = index.shard(make_mesh((trial.shards,), ("data",),
+                                       devices=devices[: trial.shards]))
+    res = handle.query(qs, ws, spec)
+    exact = handle.query(qs, ws, QuerySpec(k=trial.k, mode="exact"))
     recall = float(recall_at_k(res.ids, exact.ids, trial.k))
     mean_cand = mean_f32(res.n_candidates)
-    mean_tables = mean_f32(res.tables_probed) if res.tables_probed is not None else None
+    # a sharded answer (ShardedQueryResult) carries no tables_probed
+    tables = getattr(res, "tables_probed", None)
+    mean_tables = mean_f32(tables) if tables is not None else None
 
     # advisory wall time: median of 3 warm calls
     times = []
@@ -176,7 +193,7 @@ def run_trial(trial_dict: dict, real_data=None, device=None) -> dict:
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
-        index.query(qs, ws, spec)
+        handle.query(qs, ws, spec)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         times.append(time.perf_counter() - t0)

@@ -3,7 +3,7 @@
 entry points default to the CUDA card and refuse to carry on without one,
 every mode it does not port yet raises ``NotImplementedError``, and the
 modes a slice ported (early exit, ``--stats``, persistence, quality-first
-planning, the tuner, ``serve --recall-target``) run on the CPU (``serve
+planning, the tuner, ``serve --recall-target``, sharding) run on the CPU (``serve
 --mode broker`` is held in ``test_torch_serving.py``)."""
 
 import inspect
@@ -176,8 +176,12 @@ def test_early_exit_runs_on_cpu(mutable):
 
 
 def test_quality_spec_builds_on_cpu_and_shard_raises(one_torch_thread):
-    """Sharding still raises; a QualitySpec (Queue A item 10) builds,
-    queries and explains on the CPU, and needs the card by default."""
+    """A QualitySpec (Queue A item 10) builds, queries and explains on the
+    CPU; its plan travels into ``shard()``, where the sharded index answers
+    it as the single-host index answers the same plan, and a QualitySpec
+    that was never planned raises there (planning needs one host)."""
+    from repro_torch.core.distributed import make_mesh
+
     rs = np.random.default_rng(2)
     data = rs.uniform(0, 1, (16, 4)).astype(np.float32)
     quality = tapi.QualitySpec(k=3, calibration_queries=8)
@@ -189,8 +193,15 @@ def test_quality_spec_builds_on_cpu_and_shard_raises(one_torch_thread):
         res = idx.query(q, np.ones((2, 4)), quality)
     assert torch.equal(res.ids, idx.query(q, np.ones((2, 4)), idx.plan(quality)).ids)
     assert built.plans[quality].provenance == "calibrated"
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        idx.shard(None)
+    sharded = idx.shard(make_mesh((2,), ("data",), devices=["cpu"] * 2))
+    assert sharded.plans == idx.plans and sharded.plans is not idx.plans
+    sres = sharded.query(q, np.ones((2, 4)), quality)
+    pres = sharded.query(q, np.ones((2, 4)), idx.plan(quality))
+    assert torch.equal(sres.ids, pres.ids) and torch.equal(sres.dists, pres.dists)
+    if idx.plan(quality).mode == "exact":
+        assert torch.equal(sres.ids, res.ids)
+    with pytest.raises(ValueError, match="cannot calibrate a new QualitySpec"):
+        sharded.query(q, np.ones((2, 4)), tapi.QualitySpec(k=2, calibration_queries=8))
     rep = idx.explain(q, np.ones((2, 4)), quality)
     assert rep.quality == quality and rep.spec == idx.plan(quality)
 
@@ -243,14 +254,27 @@ def test_tune_cli_runs_on_cpu(tmp_path, capsys, one_torch_thread):
 
 
 def test_shard_still_raises_naming_item_12(tmp_path):
-    """Persistence is ported; sharding is not, and a loaded index refuses it
-    as a built one does."""
-    idx = tapi.Index.build(0, np.zeros((8, 4), np.float32), _cfg(), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A item 12"):
-        idx.shard(None)
+    """Sharding is ported (Queue A item 12): a loaded index shards and
+    answers as the built one does, in every mode, and both refuse a mesh
+    that is not a ``Mesh`` alike."""
+    from repro_torch.core.distributed import make_mesh
+
+    rs = np.random.default_rng(5)
+    data = rs.uniform(0, 1, (64, 4)).astype(np.float32)
+    idx = tapi.Index.build(0, data, _cfg(L=4, max_candidates=16), device="cpu")
     loaded = tapi.Index.load(idx.save(tmp_path / "idx"), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A item 12"):
-        loaded.shard(None)
+    mesh = make_mesh((2, 2), ("data", "model"), devices=["cpu"] * 4)
+    q = rs.uniform(0, 1, (6, 4))
+    w = np.abs(rs.normal(size=(6, 4))) + 0.2
+    for spec in (tapi.QuerySpec(k=3), tapi.QuerySpec(k=3, mode="multiprobe", n_probes=4),
+                 tapi.QuerySpec(k=3, mode="exact")):
+        a = idx.shard(mesh).query(q, w, spec)
+        b = loaded.shard(mesh).query(q, w, spec)
+        assert torch.equal(a.ids, b.ids) and torch.equal(a.dists, b.dists)
+        assert torch.equal(a.n_candidates, b.n_candidates)
+    for index in (idx, loaded):
+        with pytest.raises(TypeError, match="make_mesh"):
+            index.shard(None)
 
 
 @pytest.mark.parametrize("mode", ["lm"])

@@ -1,8 +1,8 @@
 """The port's package namespaces against the reference's (CPU):
 ``repro_torch.core`` and ``repro_torch.api`` export every name
-``repro.core`` and ``repro.api`` export (but ``ShardedIndex``, ROADMAP Queue
-A item 12), the legacy shims warn as the reference's do, and each shim's
-answer equals ``Index.query``'s."""
+``repro.core`` and ``repro.api`` export (``ShardedIndex`` too), the legacy
+shims warn as the reference's do, and each shim's answer equals
+``Index.query``'s."""
 
 import warnings
 
@@ -17,14 +17,17 @@ import repro_torch.core as tcore
 
 # names the port exports beyond the reference's
 PORT_ONLY = {"core": {"index_from_numpy"}, "api": {"validate_query_args"}}
-NOT_YET = {"ShardedIndex"}  # Queue A item 12
 
 
 @pytest.mark.parametrize("name,port,ref", [("core", tcore, jcore), ("api", tapi, japi)])
 def test_all_matches_the_reference(name, port, ref):
-    assert set(port.__all__) == (set(ref.__all__) - NOT_YET) | PORT_ONLY[name]
+    assert set(port.__all__) == set(ref.__all__) | PORT_ONLY[name]
     for sym in port.__all__:
         assert getattr(port, sym) is not None, sym
+    if name == "api":
+        from repro_torch.api.index import ShardedIndex
+
+        assert "ShardedIndex" in port.__all__ and port.ShardedIndex is ShardedIndex
 
 
 def test_the_same_names_are_the_same_objects():

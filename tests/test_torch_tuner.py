@@ -17,7 +17,9 @@
   the tuning stamp through save/load.
 
 The 6-trial space at n=400 is the reference tests'. Trials run on the CPU
-(``device="cpu"``); ``shards > 1`` trials are recorded as skipped.
+(``device="cpu"``); ``shards > 1`` trials are recorded as skipped, as the
+reference records them, when the host has too few devices, and run on a
+``ShardedIndex`` when it has enough.
 """
 
 import dataclasses
@@ -290,11 +292,29 @@ def test_rerun_trial_is_deterministic(scanned):
             assert again[key] == rec[key], key
 
 
-def test_sharded_trials_are_skipped_with_a_reason():
+def test_sharded_trials_are_skipped_with_a_reason(monkeypatch):
+    """On a host with fewer devices than a trial's shards (here: the CPU, one
+    device; the reference is shown one JAX device, whatever XLA_FLAGS an
+    earlier test of the process set) both packages record the same skipped
+    trial, with the reference's reason."""
     t = dataclasses.replace(SPACE, shards=2).trials()[0]
+    jt = dataclasses.replace(JSPACE, shards=2).trials()[0]
+    monkeypatch.setattr(jax, "device_count", lambda *a, **k: 1)
     rec = ttuner.run_trial(t.to_dict(), device="cpu")
-    assert rec["status"] == "skipped" and "Index.shard" in rec["reason"]
+    assert rec["status"] == "skipped" and rec["reason"] == "needs 2 devices, host has 1"
+    assert rec == jtuner.run_trial(jt.to_dict())
     assert ttuner.pareto_front([rec]) == []
+
+
+def test_sharded_trial_runs_when_the_host_has_the_devices(monkeypatch):
+    """With two devices of its kind (here the CPU, counted twice) a
+    ``shards=2`` trial runs on a ShardedIndex over both: its record is
+    complete, and carries no ``tables_probed`` (a sharded answer has none)."""
+    t = dataclasses.replace(SPACE, shards=2).trials()[0]
+    monkeypatch.setattr(tscan, "_host_devices", lambda dev: [dev, dev])
+    rec = ttuner.run_trial(t.to_dict(), device="cpu")
+    assert rec["status"] == "ok" and rec["shards"] == 2 and 0.0 <= rec["recall"] <= 1.0
+    assert rec["cand_frac"] > 0 and rec["mem_bytes"] > 0 and rec["tables_probed"] is None
 
 
 def test_worker_pool_matches_inline(tmp_path):
