@@ -145,6 +145,19 @@ Phases, each of which fails the run (exit code 1) when it fails:
         the sharded compact equal to the single-host compact leaf for leaf;
         the ``Index.shard`` seconds and the sharded and single-host batch
         times beside the card;
+     k. static contracts (see ``phase_static_contracts``): the port's tree
+        lints clean; ``repro_torch.analysis.audit`` on the card — 146 raw
+        lattice points fold to 64 compile keys, every path under the memory
+        envelope, no dtype finding, no drift against
+        ``golden_budget_cuda.json`` — with each path's tracker and
+        allocator bytes and launches; both seeded regressions fail as named
+        (AUD001, AUD002); every compile key's answer at the audit geometry
+        (two index states, random queries) and the live probe's agree with
+        the CPU plain path's; the live normalization probe is bit-equal
+        under a ``RetraceGuard``; then the f32 probe, int8 screened, multiprobe,
+        exact, stream (tick 12) and streamed early-exit batches at the
+        SERVICE widths with their peak bytes (tracker and allocator) and
+        host syncs per batch (``torch.cuda.set_sync_debug_mode("warn")``);
   6. check: on a small input, the card's answers agree with the plain
      PyTorch path on the CPU over the same index state (f32 probe and
      exact, int8 screened probe).
@@ -204,7 +217,7 @@ KERNEL_META = {
                    "src/repro/kernels/wl1_distance.py:112"),
 }
 PATHS = ("f32", "quantized", "multiprobe", "stream", "unfused", "early_exit", "persist", "plan",
-         "broker", "sharded")
+         "broker", "sharded", "static_contracts")
 # The stream path: the reference service's defaults (serve --mode stream)
 STREAM_CAP = 8192  # --delta-capacity
 STREAM_THRESHOLD = 0.75  # --compact-threshold
@@ -706,7 +719,7 @@ def phase_alsh_project(run, svc):
             }
 
 
-def _check_topk(label, got, want, data, q, w):
+def _check_topk(label, got, want, data, q, w, quiet=False):
     import torch
 
     from repro_torch.kernels.ref import unexplained_id_mismatches
@@ -720,8 +733,9 @@ def _check_topk(label, got, want, data, q, w):
     tol_ok = bool(((gd[fin] - wd[fin]).abs() <= DIST_ATOL + DIST_RTOL * wd[fin].abs()).all())
     ties = int((gi != wi).sum())
     bad = unexplained_id_mismatches(gi, wd, wi, data, q, w, rtol=DIST_RTOL, atol=DIST_ATOL)
-    print(f"  {label}: max_abs_err={err:.3g} (rtol/atol {DIST_RTOL}); id mismatches "
-          f"{ties}, of which not genuine ties: {bad}")
+    if not quiet or not tol_ok or bad:
+        print(f"  {label}: max_abs_err={err:.3g} (rtol/atol {DIST_RTOL}); id mismatches "
+              f"{ties}, of which not genuine ties: {bad}")
     if not tol_ok or bad:
         raise AssertionError(f"{label}: kernel disagrees with the plain version")
     return err
@@ -2977,6 +2991,252 @@ def phase_sharded_path(svc, card):
     return counts, out
 
 
+# The static-contract phase: the kernels the audit lattice launches on the card
+# (wl1_scan and wl1_rerank lie only on the unfused path)
+LATTICE_KERNELS = ("alsh_project", "gather_rerank_topk", "gather_rerank_topk_two_seg",
+                   "gather_rerank_topk_blocked", "gather_rerank_topk_blocked_two_seg",
+                   "wl1_scan_topk")
+SYNC_WARNING = "called a synchronizing CUDA operation"
+
+
+def _batch_contracts(label, fn):
+    """One SERVICE batch (warmed up first) under the audit's tracker: its peak
+    live bytes, the CUDA allocator's peak above the pre-call baseline and the
+    dtype findings (a finding fails the run), then the host syncs of a second
+    call, counted as the warnings of ``torch.cuda.set_sync_debug_mode("warn")``,
+    by the line that made them (printed, not budgeted)."""
+    import collections
+    import warnings
+
+    import torch
+
+    from repro_torch.analysis import audit
+
+    fn()
+    tracker, _, alloc = audit.measure(fn, "cuda")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    # the Python line that made each synchronizing call
+    where = collections.Counter(f"{w.filename.split('/src/')[-1]}:{w.lineno}" for w in caught
+                                if SYNC_WARNING in str(w.message))
+    syncs = sum(where.values())
+    torch.cuda.synchronize()
+    dtype_findings = sorted(set(tracker.violations))
+    print(f"  [{label}] tracker peak {tracker.peak} B ({tracker.peak / 2**20:.1f} MiB), "
+          f"allocator peak {alloc} B ({alloc / 2**20:.1f} MiB), host syncs per batch {syncs} "
+          f"({', '.join(f'{k} x{n}' for k, n in sorted(where.items()))}), "
+          f"dtype findings {len(dtype_findings)}")
+    for msg in dtype_findings:
+        print(f"    AUD003 {msg}")
+    if dtype_findings:
+        raise AssertionError(f"{label}: the SERVICE batch breaks the dtype contract")
+    return {"tracker_peak_bytes": tracker.peak, "allocator_peak_bytes": alloc,
+            "syncs_per_batch": syncs, "syncs_by_line": dict(where)}
+
+
+def _against_cpu(label, got, want, table, q, w):
+    """One answer of the card against the CPU plain path's on the same
+    inputs: equal ``n_candidates`` (and, on the streamed tail, equal
+    ``tables_probed`` and ``stop_reason``), then ``_check_topk``."""
+    import torch
+
+    for f in ("n_candidates", "tables_probed", "stop_reason"):
+        a, b = getattr(got, f), getattr(want, f)
+        if (a is None) != (b is None) or (a is not None and not torch.equal(a.cpu(), b)):
+            raise AssertionError(f"{label}: {f} differs between the card and the CPU")
+    return _check_topk(label, (got.dists.cpu(), got.ids.cpu()), (want.dists, want.ids), table,
+                       q, w, quiet=True)
+
+
+def _lattice_against_cpu(device="cuda"):
+    """The answers behind the static-contract launches, held against the CPU
+    plain path on the same inputs: every compile key's first lattice point
+    at the audit geometry (n=4096, d=16, b=8, C=64/32, f32/bf16/int8, theta
+    and l2), over two index states — the audit's own (an empty delta of
+    4096 rows) and one with a quarter of the delta filled and rows of both
+    segments deleted — and the live probe's four warm calls (d=4). The
+    queries are random and non-zero (zero queries hash every row of a batch
+    alike). Returns (comparisons, worst max_abs_err)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import quant
+    from repro_torch.analysis import audit, budgets
+
+    g = budgets.AUDIT_GEOMETRY
+    gen = torch.Generator().manual_seed(SEED + 23)
+    q = torch.rand((g["b"], g["d"]), generator=gen)
+    w = 0.5 + torch.rand((g["b"], g["d"]), generator=gen)
+    rows = torch.rand((g["delta_capacity"] // 4, g["d"]), generator=gen)
+    dead = torch.randperm(g["n"], generator=gen)[:256].to(torch.int32)
+    qc, wc = q.to(device), w.to(device)
+    audited = audit.build_audit_indexes(device)
+    filled = {}
+    for key, idx in audited.items():
+        idx, ids = idx.insert(rows.to(device))
+        filled[key] = idx.delete(torch.cat([dead.to(device), ids[::16]]))
+    firsts = {}
+    for p in audit.enumerate_points():
+        firsts.setdefault(audit.compile_key(p, audited[(p.family, p.storage)], qc, wc), p)
+    n_cmp, worst = 0, 0.0
+    for state_label, indexes in (("empty delta", audited), ("delta 1024 filled, 320 deleted",
+                                                            filled)):
+        for key, idx in indexes.items():
+            cpu = dataclasses.replace(idx, state=idx.state.to("cpu"), delta=idx.delta.to("cpu"),
+                                      tombstones=idx.tombstones.cpu())
+            tables = {"sealed": quant.decode_table(cpu.state.data, cpu.state.scales),
+                      "segmented": quant.decode_table(torch.cat([cpu.state.data,
+                                                                 cpu.delta.data]),
+                                                      cpu.state.scales)}
+            for p in firsts.values():
+                if (p.family, p.storage) != key:
+                    continue
+                got = audit.query_point(p, idx, qc, wc)
+                want = audit.query_point(p, cpu, q, w)
+                err = _against_cpu(f"{p.name} ({state_label})", got, want, tables[p.view], q, w)
+                n_cmp, worst = n_cmp + 1, max(worst, err)
+    state, cfg, lq, lw = audit.live_probe_inputs(device)
+    cstate = state.to("cpu")
+    for name, args in audit.LIVE_PROBE_PROGRAMS.items():
+        got = audit.live_probe_call(state, cfg, lq, lw, *args)
+        want = audit.live_probe_call(cstate, cfg, lq.cpu(), lw.cpu(), *args)
+        err = _against_cpu(f"live probe {name}", got, want, cstate.data, lq.cpu(), lw.cpu())
+        n_cmp, worst = n_cmp + 1, max(worst, err)
+    return n_cmp, worst
+
+
+def phase_static_contracts(svc, card):
+    """The static-contract gate on the card (``repro_torch.analysis``): the
+    port's tree lints clean; the audit lattice on the card (146 raw points
+    -> 64 compile keys, every path under the envelope, no dtype finding, no
+    drift against ``golden_budget_cuda.json``), with the launch counters
+    zeroed just before it and read just after; both seeded regressions fail
+    as named (AUD001, AUD002); every compile key's answer at the audit
+    geometry, and the live probe's, agree with the CPU plain path's
+    (``_lattice_against_cpu``); the live normalization probe is bit-equal
+    under a ``RetraceGuard``. Then six SERVICE batches — f32 probe, int8
+    screened, multiprobe, exact, a stream batch at tick 12 and a streamed
+    early-exit batch — each with the tracker's and the allocator's peak
+    bytes (a dtype finding fails) and its host syncs (printed, not
+    budgeted)."""
+    import dataclasses
+
+    import torch
+
+    import repro_torch.api as tapi
+    from repro_torch.analysis import RetraceGuard, audit, budgets, lint_paths
+    from repro_torch.configs.paper_alsh import SERVICE
+    from repro_torch.kernels import _build
+
+    t_phase = time.perf_counter()
+    src = ROOT / "src"
+    findings = lint_paths([src / "repro_torch"], root=src)
+    for f in findings:
+        print(f"  {f}")
+    print(f"  lint: {len(findings)} finding(s)")
+    if findings:
+        raise AssertionError("the port's tree does not lint clean")
+
+    golden = audit.load_golden("cuda")
+    if golden is None:
+        raise AssertionError("src/repro_torch/analysis/golden_budget_cuda.json is missing")
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    report = audit.run_audit(golden=golden, live_probe=False, device="cuda")
+    audit_s = time.perf_counter() - t0
+    counts = _path_counts("static_contracts", LATTICE_KERNELS)
+    ck, mem = report["compile_keys"], report["memory"]
+    print(f"  audit (cuda): {ck['raw_points']} raw lattice points -> {ck['count']} compile keys "
+          f"(budget {ck['budget']}); worst path {mem['worst_path']} at "
+          f"{mem['max_peak_live_bytes']} B (envelope {mem['envelope_bytes']} B); "
+          f"int8 went into ops {report['int8_ops']}; {audit_s:.1f} s")
+    for row in report["paths"]:
+        extra = f" int8 into {row['int8_kernels']}" if "int8_kernels" in row else ""
+        print(f"    {row['name']:42s} tracker {row['peak_live_bytes']:>9d} B  allocator "
+              f"{row.get('allocator_peak_bytes', 0):>9d} B  x{row['raw_variants']}  "
+              f"{row['launches']}{extra}")
+    for f in report["failures"]:
+        print(f"  {f['code']} {f['path']}: {f['message']}")
+    if report["failures"] or (ck["raw_points"], ck["count"]) != (146, budgets.RETRACE_BUDGET):
+        raise AssertionError(f"the audit failed on the card: {len(report['failures'])} failures")
+    bad_int8 = [row["name"] for row in report["paths"] if "int8_kernels" in row
+                and set(row["launches"]) - {"alsh_project", "wl1_scan_topk", *audit.STORED_KERNELS}]
+    if bad_int8:
+        raise AssertionError(f"int8 paths launched a kernel outside the stored-type gathers: "
+                             f"{bad_int8}")
+
+    for inject, code in (("memory", "AUD001"), ("retrace", "AUD002")):
+        t0 = time.perf_counter()
+        seeded = audit.run_audit(inject=inject, live_probe=False, device="cuda")
+        hits = [f for f in seeded["failures"] if f["code"] == code]
+        print(f"  seeded {inject} regression: ok={seeded['ok']}, {len(hits)} {code} "
+              f"(e.g. {hits[0]['path']}: measured {hits[0]['measured']:g} vs budget "
+              f"{hits[0]['budget']:g}) in {time.perf_counter() - t0:.1f} s" if hits else
+              f"  seeded {inject} regression: no {code}")
+        if seeded["ok"] or not hits:
+            raise AssertionError(f"the seeded {inject} regression did not fail with {code}")
+        if inject == "memory" and not all("/segmented/" in f["path"] for f in hits):
+            raise AssertionError("the memory regression breached a sealed path")
+
+    t0 = time.perf_counter()
+    n_cmp, worst = _lattice_against_cpu()
+    print(f"  card vs the CPU plain path: {n_cmp} answers (64 compile keys x 2 index states "
+          f"+ the live probe's 4 programs), all with equal n_candidates, max_abs_err {worst:.3g} "
+          f"(rtol/atol {DIST_RTOL}), no id mismatch but genuine ties; "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    with RetraceGuard() as guard:
+        loads = guard.baseline
+        probe_failures = audit.live_normalization_probe("cuda")
+    for f in probe_failures:
+        print(f"  {f}")
+    print(f"  live normalization probe: {len(probe_failures)} failure(s); every variant "
+          f"bit-equal to its normalized twin with equal launches; library_loads "
+          f"{loads} -> {_build.library_loads()}")
+    if probe_failures:
+        raise AssertionError("the live normalization probe failed on the card")
+
+    # six SERVICE batches: peak bytes and host syncs
+    k, b, cfg = SERVICE.topk, SERVICE.query_batch, svc.index.config
+    q, w = svc.wl.batch(b, SEED + 100)  # the f32 path's first batch
+    int8 = tapi.Index.build(SEED + 2, svc.wl.data, dataclasses.replace(cfg, storage="int8"))
+    stream = tapi.Index.build(SEED + 2, svc.wl.data, cfg, update=tapi.UpdateSpec(
+        delta_capacity=STREAM_CAP, compact_threshold=STREAM_THRESHOLD))
+    for t in range(1, 13):  # the stream path's ticks 1-12, before its compact
+        centres, rows = stream_rows(SEED + 1000 + t, STREAM_INGEST // CLUSTER, cfg.d)
+        stream, _ = stream.insert(rows)
+        stream = stream.delete(torch.arange((t - 1) * STREAM_RETIRE, t * STREAM_RETIRE,
+                                            dtype=torch.int32, device="cuda"))
+    sq, sw = stream_batch(svc.wl, centres, SEED + 2000 + 12)
+    batches = {
+        "f32 probe": (svc.index, q, w, tapi.QuerySpec(k=k)),
+        "int8 screened": (int8, q, w, tapi.QuerySpec(k=k, screen_alpha=SCREEN_ALPHA)),
+        "multiprobe": (svc.index, q, w, tapi.QuerySpec(k=k, mode="multiprobe", n_probes=8,
+                                                       max_flips=3)),
+        "exact": (svc.index, q, w, tapi.QuerySpec(k=k, mode="exact")),
+        "stream tick 12": (stream, sq, sw, tapi.QuerySpec(k=k)),
+        "streamed early exit": (svc.index, q, w, tapi.QuerySpec(
+            k=k, early_exit=True, exit_group=EXIT_GROUP, exit_slack=EXIT_SLACK)),
+    }
+    print(f"  SERVICE batches (b={b}, n={svc.index.n}, d={cfg.d}; stream fill "
+          f"{stream.delta_fill}), {card}:")
+    out = {"audit_s": audit_s, "checked_against_cpu": n_cmp, "max_abs_err": worst,
+           "paths": {row["name"]: {
+        "tracker_peak_bytes": row["peak_live_bytes"],
+        "allocator_peak_bytes": row.get("allocator_peak_bytes")} for row in report["paths"]}}
+    out["service"] = {label: _batch_contracts(label, lambda a=args: a[0].query(*a[1:]))
+                      for label, args in batches.items()}
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  static_contracts phase: {out['phase_s']:.1f} s (the audit {audit_s:.1f} s), {card}")
+    return counts, out
+
+
 def phase_small_check():
     """The card's answers against the plain PyTorch path on the CPU, over
     one index state (built on the card, copied to the CPU)."""
@@ -3078,6 +3338,8 @@ def main() -> int:
         run.phase("main path (SERVICE, the serving broker: ladder, traces, shard chaos)",
                   phase_broker_path, run, svc, dev["card"]),
         run.phase("main path (SERVICE x8 shards, sharded)", phase_sharded_path, svc, dev["card"]),
+        run.phase("main path (static_contracts: lint, the audit lattice, seeded regressions, "
+                  "SERVICE peak bytes and syncs)", phase_static_contracts, svc, dev["card"]),
     ]
     run.phase("check against the CPU path", phase_small_check)
     if run.failures or any(p is None for p in paths):

@@ -21,8 +21,8 @@ decoded table for quantized storage) and, for a mutable index, the gather
 tail over every live row (``ExhaustiveSource``). ``early_exit=True`` routes
 the probe/multiprobe key lattice through :func:`execute_streamed` (the
 streamed tail of :mod:`repro_torch.engine.stream`) instead of ``execute``;
-``query`` folds it off exactly where the reference's
-``normalize_static_args`` does.
+``query`` folds it off exactly where the reference does, through
+:func:`normalize_static_args`.
 """
 
 from __future__ import annotations
@@ -217,6 +217,59 @@ def dispatch(
                    scales=state.scales, screen_alpha=screen_alpha)
 
 
+def normalize_static_args(
+    cfg: IndexConfig | None,
+    storage_dtype: torch.dtype,
+    k: int,
+    mode: str,
+    n_probes: int,
+    max_flips: int,
+    impl: str,
+    screen_alpha: float,
+    early_exit: bool = False,
+    exit_group: int = 8,
+    exit_slack: float = 0.0,
+) -> tuple:
+    """Canonicalize the static arguments of a query: every static a mode
+    does not read is forced to its neutral value, so two calls that run the
+    same program always present the same key — counterpart of the
+    reference's function of the same name, fold for fold. ``query`` applies
+    it on every call, and :mod:`repro_torch.analysis.audit` counts the
+    entry-point lattice's distinct programs through it (a CUDA graph
+    captured per program would key on exactly that count).
+
+    Folds: ``n_probes``/``max_flips`` outside multiprobe, ``impl`` outside
+    probe, ``cfg`` for exact mode, ``screen_alpha`` for exact mode and f32
+    storage (``storage_dtype`` is the table's torch dtype). Early exit folds
+    off for exact mode (the scan visits every row once), under an active
+    quantized screen (a global candidate-set stage) and when one group
+    covers the whole L·P window lattice (that group IS the monolithic tail);
+    whenever it is off, ``exit_group``/``exit_slack`` are 0.
+
+    Returns the normalized ``(cfg, k, mode, n_probes, max_flips, impl,
+    screen_alpha, early_exit, exit_group, exit_slack)`` tuple.
+    """
+    if mode != "multiprobe":
+        n_probes, max_flips = 1, 0
+    if mode != "probe":
+        impl = "auto"
+    if mode == "exact":
+        cfg = None
+    if mode == "exact" or storage_dtype == torch.float32:
+        screen_alpha = 0.0
+    if early_exit:
+        if mode == "exact" or screen_alpha > 0.0:
+            early_exit = False
+        else:
+            p_eff = 1 if mode == "probe" else min(n_probes, n_flip_subsets(cfg.K, max_flips))
+            if exit_group >= cfg.L * p_eff:
+                early_exit = False  # one group == the monolithic tail
+    if not early_exit:
+        exit_group, exit_slack = 0, 0.0
+    return (cfg, k, mode, n_probes, max_flips, impl, float(screen_alpha), bool(early_exit),
+            int(exit_group), float(exit_slack))
+
+
 def query(
     state: ALSHIndex,
     delta: DeltaSegment | None,
@@ -240,25 +293,14 @@ def query(
     ``hash_families.project_query``); the other modes ignore it, as the
     reference's normalization does.
 
-    The port has no compile cache to key, but the reference's
-    ``normalize_static_args`` folds also decide which tail runs, so they are
-    applied here the same way: the screen is off for exact mode and f32
-    storage; early exit is off for exact mode (the scan visits every row
-    once), under an active quantized screen (a global candidate-set stage),
-    and when one group covers the whole L·P window lattice (that group IS
-    the monolithic tail)."""
-    if mode != "probe":
-        impl = "auto"
-    if mode == "exact" or state.data.dtype == torch.float32:
-        screen_alpha = 0.0
-    if early_exit:
-        if mode == "exact" or screen_alpha > 0.0:
-            early_exit = False
-        else:
-            p_eff = 1 if mode != "multiprobe" else min(n_probes,
-                                                        n_flip_subsets(cfg.K, max_flips))
-            if exit_group >= cfg.L * p_eff:
-                early_exit = False
+    The static arguments are folded by :func:`normalize_static_args` first,
+    as the reference folds them before its compile-key lookup: the folds
+    decide which tail runs, and the audit
+    (:mod:`repro_torch.analysis.audit`) counts the distinct programs
+    through the same function."""
+    (cfg, k, mode, n_probes, max_flips, impl, screen_alpha, early_exit, exit_group,
+     exit_slack) = normalize_static_args(cfg, state.data.dtype, k, mode, n_probes, max_flips,
+                                         impl, screen_alpha, early_exit, exit_group, exit_slack)
     dev = state.device
     queries = queries.to(device=dev, dtype=torch.float32).contiguous()
     weights = weights.to(device=dev, dtype=torch.float32).contiguous()

@@ -177,7 +177,8 @@ def stream_topk(
     sentinel = torch.full((), n_tot, dtype=torch.int32, device=dev)
 
     for g in range(n_groups):
-        if g and not bool(live.any()):  # the one host sync per group
+        # repro: allow[RPR001] host-driven group loop, one sync per group (ROADMAP Queue B)
+        if g and not bool(live.any()):  # repro: allow[RPR002] host-driven group loop, ROADMAP Queue B
             break
         lo = g * G
         tbl_g = tbl[lo : lo + G]

@@ -1,6 +1,7 @@
 """The port's package namespaces against the reference's (CPU):
-``repro_torch.core`` and ``repro_torch.api`` export every name
-``repro.core`` and ``repro.api`` export (``ShardedIndex`` too), the legacy
+``repro_torch.core``, ``repro_torch.api`` and ``repro_torch.analysis`` export
+every name ``repro.core``, ``repro.api`` and ``repro.analysis`` export
+(``ShardedIndex`` too), the legacy
 shims warn as the reference's do, and each shim's answer equals
 ``Index.query``'s."""
 
@@ -10,16 +11,20 @@ import numpy as np
 import pytest
 import torch
 
+import repro.analysis as janalysis
 import repro.api as japi
 import repro.core as jcore
+import repro_torch.analysis as tanalysis
 import repro_torch.api as tapi
 import repro_torch.core as tcore
 
 # names the port exports beyond the reference's
-PORT_ONLY = {"core": {"index_from_numpy"}, "api": {"validate_query_args"}}
+PORT_ONLY = {"core": {"index_from_numpy"}, "api": {"validate_query_args"},
+             "analysis": {"library_loads"}}
 
 
-@pytest.mark.parametrize("name,port,ref", [("core", tcore, jcore), ("api", tapi, japi)])
+@pytest.mark.parametrize("name,port,ref", [("core", tcore, jcore), ("api", tapi, japi),
+                                           ("analysis", tanalysis, janalysis)])
 def test_all_matches_the_reference(name, port, ref):
     assert set(port.__all__) == set(ref.__all__) | PORT_ONLY[name]
     for sym in port.__all__:
