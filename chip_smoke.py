@@ -158,6 +158,21 @@ Phases, each of which fails the run (exit code 1) when it fails:
         exact, stream (tick 12) and streamed early-exit batches at the
         SERVICE widths with their peak bytes (tracker and allocator) and
         host syncs per batch (``torch.cuda.set_sync_debug_mode("warn")``);
+     l. lm (see ``phase_lm_path``): full-width gemma3-1b with parameters
+        drawn on the card, the prefill of 4 prompts of 64 tokens and 16
+        greedy decode steps plain, with ALSH retrieval over 65,536 records
+        (``RetrievalConfig()``) and with a growing datastore (one
+        ``extend_datastore`` a step): ms per step (median of 3 loops),
+        launches per step (one projection and one gather a retrieval step),
+        device busy and idle share, the host time's split, peak bytes and
+        host syncs of a step, recall@8 against exact mode; then the exact
+        lookup and its scan against the plain path, recall on uniform and
+        near-duplicate keys, each lookup against the CPU plain path over a
+        copy of its datastore (ids equal, kNN log-probs within 1e-5), the
+        kernels at the decode shapes against their plain versions, the
+        casts of one step alone, the reduced model on the card against the
+        CPU (logits 1e-4, tokens equal), and the full-width f32
+        prefill/decode gap at S=512 (within 2e-2) and S=600 (printed);
   6. check: on a small input, the card's answers agree with the plain
      PyTorch path on the CPU over the same index state (f32 probe and
      exact, int8 screened probe).
@@ -173,6 +188,7 @@ from __future__ import annotations
 import hashlib
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -217,7 +233,7 @@ KERNEL_META = {
                    "src/repro/kernels/wl1_distance.py:112"),
 }
 PATHS = ("f32", "quantized", "multiprobe", "stream", "unfused", "early_exit", "persist", "plan",
-         "broker", "sharded", "static_contracts")
+         "broker", "sharded", "static_contracts", "lm")
 # The stream path: the reference service's defaults (serve --mode stream)
 STREAM_CAP = 8192  # --delta-capacity
 STREAM_THRESHOLD = 0.75  # --compact-threshold
@@ -2406,16 +2422,16 @@ def phase_plan_path(run, svc, card):
     return counts, rows
 
 
-def _capture_kernel_calls(fn):
-    """Run ``fn`` with ``ops.alsh_project`` and ``ops.gather_rerank_topk``
-    spied on (the streamed tail's group entry reaches the latter too) and
-    return ``{name: [arguments, ...]}`` of their calls, in order, each a
-    dict of every parameter by name."""
+def _capture_kernel_calls(fn, names=("alsh_project", "gather_rerank_topk")):
+    """Run ``fn`` with the entries ``names`` of ``ops`` spied on (by default
+    ``alsh_project`` and ``gather_rerank_topk``; the streamed tail's group
+    entry reaches the latter too) and return ``{name: [arguments, ...]}`` of
+    their calls, in order, each a dict of every parameter by name."""
     import inspect
 
     from repro_torch.kernels import ops
 
-    calls = {"alsh_project": [], "gather_rerank_topk": []}
+    calls = {name: [] for name in names}
     orig = {name: getattr(ops, name) for name in calls}
 
     def spy(name):
@@ -2438,18 +2454,22 @@ def _capture_kernel_calls(fn):
     return calls
 
 
-def _broker_kernel_shapes(run, calls_by_label, launches):
-    """``alsh_project`` and ``gather_rerank_topk`` timed on the inputs the
-    broker path gave them (rung 0 at b=1 and b=64, and rung 0 on the
-    planner's b=64 calibration batch): kernel and plain times, the bound,
-    the kernel's agreement with its plain version, and launches x (time -
-    bound) with the broker path's launch count of the kernel."""
+def _kernel_shapes(run, path, calls_by_label, launches, two_seg=False):
+    """``alsh_project`` and ``gather_rerank_topk`` timed on the inputs a path
+    gave them (``calls_by_label`` from ``_capture_kernel_calls``; the
+    broker's rung 0 at b=1 and b=64 and on the planner's b=64 calibration
+    batch, the lm path's decode steps and datastore build): kernel and
+    plain times, the bound, the kernel's agreement with its plain version,
+    and launches x (time - bound) with the path's launch count of the
+    kernel. With ``two_seg`` a gather over a delta segment is the
+    two-segment kernel's; otherwise a delta fails the path (a sealed f32
+    index's gathers)."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops
 
-    out = {"alsh_project": {}, "gather_rerank_topk": {}}
+    out = {"alsh_project": {}, "gather_rerank_topk": {}, "gather_rerank_topk_two_seg": {}}
     for label, calls in calls_by_label.items():
         if calls["alsh_project"]:
             a = calls["alsh_project"][-1]
@@ -2478,10 +2498,10 @@ def _broker_kernel_shapes(run, calls_by_label, launches):
             b_ms, b_by = bound(4 * (n * d * (2 if wgt else 1) + H * d * m1 + n * H),
                                n * H * d * (2 if wgt else 1))
             n_l = launches["alsh_project"]
-            print(f"  [broker] alsh_project at {label}: levels ({n}, {d}), H={H}: kernel "
+            print(f"  [{path}] alsh_project at {label}: levels ({n}, {d}), H={H}: kernel "
                   f"{ms:.4f} ms (device per call {_fmt_us(dev_us)}), plain {plain_ms:.4f} ms, "
                   f"one-hot matmul {lib_ms:.4f} ms, bound {b_ms * 1e3:.2f} us by {b_by}; "
-                  f"max_abs_err {err:.3g}; broker-path launches {n_l} x (kernel - bound) = "
+                  f"max_abs_err {err:.3g}; {path}-path launches {n_l} x (kernel - bound) = "
                   f"{n_l * (ms - b_ms):.1f} ms")
             out["alsh_project"][label] = {"n": n, "H": H, "ms": ms, "device_us": dev_us,
                                           "plain_ms": plain_ms, "library_ms": lib_ms,
@@ -2491,37 +2511,43 @@ def _broker_kernel_shapes(run, calls_by_label, launches):
             # the last call: a monolithic rung's only one, a streamed rung's
             # last per-group merge (the heap plus one group's windows)
             a = calls["gather_rerank_topk"][-1]
-            data, ids, q, w, k = (a[x] for x in ("data", "ids", "queries", "weights", "k"))
-            if a["delta"] is not None or a["scales"] is not None:
-                raise AssertionError(f"{label}: the broker's f32 sealed index gathered "
+            data, ids, q, w, k, delta = (a[x] for x in ("data", "ids", "queries", "weights",
+                                                         "k", "delta"))
+            if a["scales"] is not None or (delta is not None and not two_seg):
+                raise AssertionError(f"{label}: the {path}'s f32 sealed index gathered "
                                      f"with a delta or scales")
-            got = ops.gather_rerank_topk(data, ids, q, w, k)
-            want = ops.gather_rerank_topk(data, ids, q, w, k, force="plain")
+            name = "gather_rerank_topk" if delta is None else "gather_rerank_topk_two_seg"
+            table = data if delta is None else torch.cat([data, delta])
+
+            def gather(force=None):
+                return ops.gather_rerank_topk(data, ids, q, w, k, delta=delta, force=force)
+
+            got, want = gather(), gather(force="plain")
             torch.cuda.synchronize()
-            err = _check_topk(f"[broker] gather_rerank_topk at {label}", got, want, data, q, w)
-            ms = time_ms(lambda: ops.gather_rerank_topk(data, ids, q, w, k), iters=20, warmup=2)
-            dev_us = device_us_per_call(f"gather_rerank_topk at {label}",
-                                        lambda: ops.gather_rerank_topk(data, ids, q, w, k))
-            plain_ms = time_ms(lambda: ops.gather_rerank_topk(data, ids, q, w, k,
-                                                              force="plain"), iters=1)
+            err = _check_topk(f"[{path}] {name} at {label}", got, want, table, q, w)
+            ms = time_ms(gather, iters=20, warmup=2)
+            dev_us = device_us_per_call(f"{name} at {label}", gather)
+            plain_ms = time_ms(lambda: gather(force="plain"), iters=1)
             b, P = ids.shape
-            b_ms, b_by, *_ = gather_bound(ids, data.shape[0], data.shape[1], k, 4, scaled=False)
-            n_g = launches["gather_rerank_topk"]
+            n_tot = table.shape[0]
+            b_ms, b_by, *_ = gather_bound(ids, n_tot, data.shape[1], k, 4, scaled=False)
+            n_g = launches[name]
             n_calls = len(calls["gather_rerank_topk"])
-            print(f"  [broker] gather_rerank_topk at {label}: ids ({b}, {P}) (the last of "
-                  f"{n_calls} calls in the query), {int((ids < data.shape[0]).sum()) / b:.1f} "
+            print(f"  [{path}] {name} at {label}: ids ({b}, {P}) (the last of "
+                  f"{n_calls} calls in the query), {int((ids < n_tot).sum()) / b:.1f} "
                   f"valid per query: kernel {ms:.4f} ms (device per call {_fmt_us(dev_us)}), "
                   f"plain {plain_ms:.4f} ms, library: none; bound "
-                  f"{b_ms * 1e3:.2f} us by {b_by}; broker-path launches {n_g} x (kernel - "
+                  f"{b_ms * 1e3:.2f} us by {b_by}; {path}-path launches {n_g} x (kernel - "
                   f"bound) = {n_g * (ms - b_ms):.1f} ms")
-            out["gather_rerank_topk"][label] = {"b": b, "P": P, "calls_in_query": n_calls,
+            out[name][label] = {"b": b, "P": P, "calls_in_query": n_calls,
                                                 "ms": ms, "device_us": dev_us,
                                                 "plain_ms": plain_ms, "library_ms": None,
                                                 "bound_ms": b_ms, "bound_by": b_by,
                                                 "max_abs_err": err}
     for name, shapes in out.items():
-        run.kernels.setdefault(name, {})["broker_shapes"] = shapes
-    return out
+        if shapes:
+            run.kernels.setdefault(name, {})[f"{path}_shapes"] = shapes
+    return {name: shapes for name, shapes in out.items() if shapes}
 
 
 def _broker_stats(label, responses, stats, n_requests, ladder):
@@ -2583,7 +2609,7 @@ def phase_broker_path(run, svc, card):
        those before;
     5. after the path's counts are read: ``alsh_project`` and
        ``gather_rerank_topk`` timed at rung 0's shapes (b=1, b=64, and the
-       planner's b=64 calibration batch), see ``_broker_kernel_shapes``."""
+       planner's b=64 calibration batch), see ``_kernel_shapes``."""
     import os
     import tempfile
 
@@ -2783,7 +2809,7 @@ def phase_broker_path(run, svc, card):
     }
     calls[f"rung 0, calibration batch b={qs.shape[0]}"] = _capture_kernel_calls(
         lambda: index.query(qs, ws, ladder[0]))
-    rows["kernel_shapes"] = _broker_kernel_shapes(run, calls, counts)
+    rows["kernel_shapes"] = _kernel_shapes(run, "broker", calls, counts)
     print(f"  [broker] summary {json.dumps(rows, default=str)}")
     return counts, rows
 
@@ -3237,6 +3263,545 @@ def phase_static_contracts(svc, card):
     return counts, out
 
 
+# The lm path: LM serving with ALSH retrieval at the full width of gemma3-1b
+# (serve --mode lm's defaults: 4 prompts of 64 tokens, 16 new tokens each;
+# the retrieval attachment at RetrievalConfig()'s defaults)
+LM_ARCH = "gemma3-1b"
+LM_BATCH, LM_PROMPT, LM_GEN = 4, 64, 16
+LM_GROW_CAP = 8192  # the growing datastore's delta (one extend_datastore a step)
+LM_LOGIT_TOL = 1e-4  # f32 logits, card against the CPU (sums in another order)
+LM_KNN_TOL = 1e-5  # kNN log-probs, card against the CPU plain path
+LM_CONSISTENCY_TOL = 2e-2  # the reference's prefill/decode bar (tests/test_archs.py)
+LM_CONSISTENCY_S = (512, 600)  # a multiple of the window and not (asserted, printed)
+LM_REDUCED_STEPS = 4
+LM_TIMING_LOOPS = 3  # decode loops a variant, interleaved; the median is reported
+LM_HOST_REPS = 5  # single steps a variant timed for the host split; the median is reported
+LM_NEAR_NOISE = 0.01  # near-duplicate keys: a datastore record + U(-0.01, 0.01) a coordinate
+
+
+def _tree_leaves(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _tree_leaves(v)]
+    return [tree]
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def _datastore_on_cpu(state):
+    """A copy of a retrieval state on the CPU (its index leaf for leaf)."""
+    import dataclasses
+
+    from repro_torch.runtime.retrieval import RetrievalState
+
+    idx = state.index
+    cpu = dataclasses.replace(idx, state=idx.state.to("cpu"), delta=idx.delta.to("cpu"),
+                              tombstones=idx.tombstones.cpu())
+    return RetrievalState(index=cpu, values=state.values.cpu(), proj=state.proj.cpu(),
+                          default_w=state.default_w.cpu())
+
+
+def _lookup_against_cpu(label, state, rcfg, vocab, q):
+    """The card's lookup and kNN log-probs on reduced keys ``q`` against the
+    CPU plain path's over a copy of the same datastore: equal ids and
+    ``n_candidates``, dists within DIST_RTOL/ATOL, log-probs within
+    LM_KNN_TOL."""
+    import torch
+
+    from repro_torch.runtime import retrieval as rt
+
+    cpu = _datastore_on_cpu(state)
+    w = state.default_w.expand(q.shape)
+    spec = rt.query_spec(rcfg)
+    got = state.index.query(q, w, spec)
+    want = cpu.index.query(q.cpu(), w.cpu(), spec)
+    idx = cpu.index
+    table = torch.cat([idx.state.data, idx.delta.data]) if idx.mutable else idx.state.data
+    err = _against_cpu(label, got, want, table, q.cpu(), w.cpu())
+    same_ids = bool(torch.equal(got.ids.cpu(), want.ids))
+    lp = rt.knn_logprobs(q, state, rcfg, vocab).cpu()
+    lp_err = float((lp - rt.knn_logprobs(q.cpu(), cpu, rcfg, vocab)).abs().max())
+    print(f"  [lm] {label}: card vs the CPU plain path on {tuple(q.shape)} reduced keys: ids "
+          f"equal {same_ids}, n_candidates equal, dists max_abs_err {err:.3g}, kNN log-probs "
+          f"max_abs_err {lp_err:.3g} (tolerance {LM_KNN_TOL})")
+    if not same_ids or lp_err > LM_KNN_TOL:
+        raise AssertionError(f"{label}: the card's lookup disagrees with the CPU plain path")
+    return {"dists_err": err, "logp_err": lp_err}
+
+
+def _consistency_gap(params, cfg, S, seed):
+    """Prefill S+1 tokens against prefill S then one decode step: the max
+    |logits| gap (B=1, cache of S + 8 slots)."""
+    import torch
+
+    from repro_torch import models
+
+    toks = torch.randint(0, cfg.vocab_size, (1, S + 1), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(seed)).cuda()
+    full, _ = models.forward_prefill(params, {"tokens": toks}, cfg)
+    _, caches = models.forward_prefill(params, {"tokens": toks[:, :S]}, cfg, cache_len=S + 8)
+    step = {"token": toks[:, S], "pos": torch.full((1,), S, dtype=torch.int32, device="cuda")}
+    logits = models.forward_decode(params, step, caches, cfg)[0]
+    return float((logits - full).abs().max())
+
+
+def _host_split(label, fn):
+    """Where one call's host time goes: the median wall of LM_HOST_REPS
+    calls; the ATen ops it dispatches (counted under a TorchDispatchMode)
+    and that wall over them; the caching allocator's allocations and new
+    segments (cudaMalloc) a call; and, under torch.profiler, the self CPU
+    time of ATen ops, of CUDA runtime calls, and the rest of the profiled
+    wall (Python between the ops, and the profiler's own cost)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    walls = []
+    for _ in range(LM_HOST_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    with Count() as count:
+        fn()
+    stats0 = torch.cuda.memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    stats1 = torch.cuda.memory_stats()
+    wall_ms = statistics.median(walls)
+    out = {"wall_ms": wall_ms, "walls_ms": walls, "aten_ops": count.n,
+           "us_per_op": wall_ms * 1e3 / count.n,
+           "allocations": stats1["allocation.all.allocated"] - stats0["allocation.all.allocated"],
+           "segments": stats1["segment.all.allocated"] - stats0["segment.all.allocated"]}
+    try:
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            prof_us = (time.perf_counter() - t0) * 1e6
+        rows = prof.key_averages()
+        aten_us = sum(e.self_cpu_time_total for e in rows if e.key.startswith("aten::"))
+        rt_us = sum(e.self_cpu_time_total for e in rows if e.key.startswith("cuda"))
+        out["profiled"] = {"wall_us": prof_us, "aten_self_us": aten_us, "cuda_runtime_us": rt_us,
+                           "rest_us": prof_us - aten_us - rt_us}
+    except Exception as e:  # diagnostics only: a profiler fault must not fail the run
+        out["profiled"] = f"not measured ({type(e).__name__}: {e})"
+    p = out["profiled"]
+    split = p if isinstance(p, str) else (
+        f"profiled wall {p['wall_us']:.0f} us = ATen self {p['aten_self_us']:.0f} + CUDA runtime "
+        f"{p['cuda_runtime_us']:.0f} + the rest (Python, the profiler) {p['rest_us']:.0f}")
+    print(f"  [lm] host of {label}: median wall {wall_ms:.3f} ms of "
+          f"{[round(x, 3) for x in walls]}; {count.n} ATen ops, {out['us_per_op']:.1f} us of "
+          f"wall an op; allocator {out['allocations']} allocations, {out['segments']} new "
+          f"segments; {split}")
+    return out
+
+
+def _lm_scan_shape(run, calls, launches):
+    """``wl1_scan_topk`` at the inputs the lm path's exact lookup gave it:
+    against its plain version and bit for bit against ``wl1_scan`` and a
+    stable sort, timed beside the plain version, with its bound."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    if len(calls) != 1:
+        raise AssertionError(f"the exact lookup made {len(calls)} scans, not 1")
+    data, q, w, k = (calls[0][x] for x in ("data", "queries", "weights", "k"))
+    (n, d), b = data.shape, q.shape[0]
+    label = f"[lm] wl1_scan_topk at the exact lookup n={n} b={b} d={d} k={k}"
+    got = ops.wl1_scan_topk(data, q, w, k)
+    want = ops.wl1_scan_topk(data, q, w, k, force="plain")
+    torch.cuda.synchronize()
+    err = _check_topk(label, got, want, data, q, w)
+    sd, si = sorted_scan_topk(data, q, w, k)
+    if not (torch.equal(got[0], sd) and torch.equal(got[1], si)):
+        raise AssertionError(f"{label}: differs from wl1_scan + stable sort")
+    ms = time_ms(lambda: ops.wl1_scan_topk(data, q, w, k), iters=10, warmup=2)
+    plain_ms = time_ms(lambda: ops.wl1_scan_topk(data, q, w, k, force="plain"), iters=1)
+    dev_us = device_us_per_call(label, lambda: ops.wl1_scan_topk(data, q, w, k))
+    nbytes = 4 * (n * d + 2 * b * d) + 8 * b * k
+    b_ms, b_by = bound(nbytes, 3 * b * n * d)
+    print(f"  {label}: bit-equal to wl1_scan + stable sort; kernel {ms:.4f} ms (device per "
+          f"call {_fmt_us(dev_us)}), plain {plain_ms:.4f} ms, library: none; bound "
+          f"{b_ms * 1e3:.2f} us by {b_by}; lm-path launches {launches}")
+    numbers = {"n": n, "b": b, "d": d, "k": k, "ms": ms, "device_us": dev_us,
+               "plain_ms": plain_ms, "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+               "max_abs_err": err}
+    run.kernels.setdefault("wl1_scan_topk", {})["lm_shape"] = numbers
+    return numbers
+
+
+def _lm_recall_by_keys(state, rcfg, q_dec):
+    """recall@k of the probe lookups against exact mode on three kinds of
+    keys of the decode-step batch's size: the decode steps' own, keys drawn
+    like the datastore's (uniform), and near-duplicates of its records. For
+    each: how often the exact nearest record is found, the spread of the
+    keys (mean per-coordinate std; uniform's is 0.289) and how much nearer
+    the exact k-th neighbour is than the median record (weighted L1)."""
+    import torch
+
+    from repro_torch.distance import recall_at_k
+    from repro_torch.runtime import retrieval as rt
+
+    data, w_row = state.index.state.data, state.default_w
+    (n, d), b = data.shape, q_dec.shape[0]
+    g = torch.Generator().manual_seed(SEED + 6)
+    rows = torch.randint(0, n, (b,), generator=g).cuda()
+    uniform = torch.rand((b, d), generator=g).cuda()
+    noise = ((torch.rand((b, d), generator=g) * 2 - 1) * LM_NEAR_NOISE).cuda()
+    keys = {"decode steps": q_dec, "uniform": uniform,
+            "near-duplicates": (data[rows] + noise).clamp(0.0, 1.0)}
+    out = {}
+    for label, q in keys.items():
+        w = w_row.expand(q.shape)
+        probe = state.index.query(q, w, rt.query_spec(rcfg))
+        exact = state.index.query(q, w, rt.QuerySpec(k=rcfg.topk, mode="exact"))
+        median = torch.cdist(q * w_row, data * w_row, p=1).median(dim=1).values
+        top1 = (probe.ids == exact.ids[:, :1]).any(dim=1).float().mean()
+        out[label] = {"recall": recall_at_k(probe.ids, exact.ids, rcfg.topk),
+                      "top1_found": float(top1),
+                      "cand_per_query": float(probe.n_candidates.float().mean()),
+                      "key_std": float(q.std(dim=0).mean()),
+                      "kth_over_median": float((exact.dists[:, -1] / median).mean()),
+                      "first_over_median": float((exact.dists[:, 0] / median).mean())}
+        r = out[label]
+        print(f"  [lm] recall@{rcfg.topk} on {b} {label} keys: {r['recall']:.4f}; exact nearest "
+              f"found {r['top1_found']:.3f}; {r['cand_per_query']:.1f} candidates a query; key "
+              f"std {r['key_std']:.4f}; exact 1st / {rcfg.topk}th neighbour over the median "
+              f"record {r['first_over_median']:.4f} / {r['kth_over_median']:.4f}")
+    return out
+
+
+def phase_lm_path(run, card):
+    """LM serving with ALSH retrieval (``serve --mode lm``'s flow) at the full
+    width of gemma3-1b (26 layers, d_model 1152, 4 heads over 1 kv head x
+    256, d_ff 6912, vocab 262,144; f32 parameters drawn on the card from a
+    seed, bf16 compute):
+
+    1. two datastores from one seed at ``RetrievalConfig()``'s defaults
+       (65,536 records, d_key 64, M=32, theta, K=8, L=16, C=64, top 8): a
+       sealed one and a growing one (``delta_capacity=8192``);
+    2. with the launch counts zeroed: the prefill of 4 random prompts of 64
+       tokens (cold and warm), then 16 greedy decode steps three ways from
+       its caches, three loops of each, interleaved (the median loop's ms
+       a step is reported) — plain, with retrieval (``make_decode_step(cfg,
+       rcfg)``), and growing (the same step over the growing datastore,
+       returning its hidden state, then ``extend_datastore`` with it and
+       the step's tokens) —, each step's launches (retrieval: one
+       ``alsh_project`` and one ``gather_rerank_topk``; growing: two
+       projections, the query's and the insert's, and one two-segment
+       gather), one step of each profiled (device busy, idle share), its
+       host time split (``_host_split``) and run under the audit's tracker
+       (peak bytes, host syncs per step by line), and recall@8 of the last
+       growing loop's 64 reduced keys on the sealed datastore against its
+       exact mode (``wl1_scan_topk``);
+    3. after the counts are read: that exact lookup against the CPU plain
+       path, and its scan at the captured shape against the plain version
+       (``_lm_scan_shape``); recall on uniform and near-duplicate keys
+       beside the decode steps' (``_lm_recall_by_keys``); the lookups of
+       the last steps on both datastores against the CPU plain path over
+       copies of them (ids equal, dists 1e-5, kNN log-probs 1e-5), and the
+       kernels at the path's captured shapes against their plain versions
+       with their times and bounds (``_kernel_shapes``); the casts of one
+       decode step replayed alone;
+    4. the reduced gemma3-1b in f32 on the card and the CPU with the same
+       parameters: prefill and 4 decode steps, logits within 1e-4, tokens
+       equal;
+    5. the full width at f32 compute: prefill(S + 1) against prefill(S) and
+       one decode step, at S=512 (within the reference's 2e-2) and S=600,
+       whose gap is the reference's ring-buffer behaviour (ROADMAP.md
+       Queue C item 2), printed and not asserted."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import models
+    from repro_torch.configs import RetrievalConfig, get_bundle, reduced_model
+    from repro_torch.distance import recall_at_k
+    from repro_torch.kernels import _build
+    from repro_torch.runtime import retrieval as rt
+    from repro_torch.runtime.serve_step import make_decode_step, make_prefill_step
+
+    t_phase = time.perf_counter()
+    cfg = get_bundle(LM_ARCH).model
+    B, S, G, V = LM_BATCH, LM_PROMPT, LM_GEN, cfg.vocab_size
+    out = {"card": card}
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = models.init_params(SEED, cfg, device="cuda")
+    torch.cuda.synchronize()
+    leaves = _tree_leaves(params)
+    n_params = sum(t.numel() for t in leaves)
+    param_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    out.update(n_params=n_params, param_bytes=param_bytes,
+               init_s=time.perf_counter() - t0)
+    print(f"  [lm] {cfg.name}: {cfg.n_layers} layers ({cfg.scan_unit} x {cfg.resolved_units} + "
+          f"{cfg.tail}), d_model {cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads} kv x "
+          f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {V}: {n_params} parameters, {param_bytes} B "
+          f"({cfg.param_dtype}; compute {cfg.compute_dtype}), drawn on the card in "
+          f"{out['init_s']:.2f} s")
+
+    # 1. the datastores
+    rcfg = RetrievalConfig()
+    gcfg = dataclasses.replace(rcfg, delta_capacity=LM_GROW_CAP)
+    built = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    build_calls = _capture_kernel_calls(lambda: built.append(
+        rt.build_datastore(SEED + 1, cfg.d_model, V, rcfg, device="cuda")))
+    torch.cuda.synchronize()
+    out["datastore_build_s"] = time.perf_counter() - t0
+    sealed = built[0]
+    grow0 = rt.build_datastore(SEED + 1, cfg.d_model, V, gcfg, device="cuda")
+    if not torch.equal(grow0.index.state.sorted_keys, sealed.index.state.sorted_keys):
+        raise AssertionError("the growing datastore's main segment differs from the sealed one")
+    icfg = sealed.index.config
+    print(f"  [lm] datastores: n={sealed.index.n} d_key={icfg.d} M={icfg.M} {icfg.family} "
+          f"K={icfg.K} L={icfg.L} C={icfg.max_candidates} top {rcfg.topk}, sealed and with a "
+          f"delta of {LM_GROW_CAP}; the sealed one built in {out['datastore_build_s']:.3f} s "
+          f"(with the spy on its projection call)")
+
+    # 2. the served path, launch counts zeroed
+    prompt = torch.randint(0, V, (B, S), dtype=torch.int32,
+                           generator=torch.Generator().manual_seed(SEED + 3)).cuda()
+    prefill = make_prefill_step(cfg, cache_len=S + G)
+    plain = make_decode_step(cfg)
+    retr = make_decode_step(cfg, rcfg)
+    grow = make_decode_step(cfg, gcfg, return_hidden=True)
+
+    def grow_step(batch, caches, state):
+        mixed, tok, new_caches, hidden = grow(params, batch, caches, state)
+        state, ids = rt.extend_datastore(state, hidden, tok)
+        return mixed, tok, new_caches, state, hidden, ids
+
+    _build.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    prefill_ms = []
+    for _ in range(2):  # cold, then warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = prefill(params, {"tokens": prompt})
+        tok0 = torch.argmax(logits, dim=-1).to(torch.int32)
+        torch.cuda.synchronize()
+        prefill_ms.append((time.perf_counter() - t0) * 1e3)
+    if tuple(logits.shape) != (B, V) or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"prefill logits {tuple(logits.shape)} not finite (B, V)")
+    out["prefill_ms"] = {"cold": prefill_ms[0], "warm": prefill_ms[1]}
+    print(f"  [lm] prefill B={B} S={S}: cold {prefill_ms[0]:.2f} ms, warm {prefill_ms[1]:.2f} ms")
+
+    def batch_at(i, tok):
+        return {"token": tok, "pos": torch.full((B,), S + i, dtype=torch.int32, device="cuda")}
+
+    def decode_loop(name):
+        """G greedy steps of one variant from the prefill's caches (the
+        growing one from the empty delta)."""
+        before = _build.launch_counts()
+        tok, c, toks, st, hidden, ids = tok0, caches, [tok0], grow0, [], None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(G):
+            if name == "plain":
+                mixed, tok, c = plain(params, batch_at(i, tok), c)
+            elif name == "retrieval":
+                mixed, tok, c = retr(params, batch_at(i, tok), c, sealed)
+            else:
+                mixed, tok, c, st, h, ids = grow_step(batch_at(i, tok), c, st)
+                hidden.append(h)
+            toks.append(tok)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / G
+        after = _build.launch_counts()
+        toks = torch.stack(toks, dim=1).cpu()
+        if not bool(torch.isfinite(mixed).all()) or not bool(((toks >= 0) & (toks < V)).all()):
+            raise AssertionError(f"{name} decode: non-finite output or a token out of range")
+        return {"ms": ms, "toks": toks, "state": st, "hidden": hidden, "ids": ids,
+                "launches": {k: (after[k] - before[k]) / G for k in after if after[k] != before[k]}}
+
+    names = ("plain", "retrieval", "growing")
+    loops = {name: [] for name in names}
+    for _ in range(LM_TIMING_LOOPS):  # the variants interleaved, loop by loop
+        for name in names:
+            loops[name].append(decode_loop(name))
+    steps = {}
+    for name in names:
+        first, ms_all = loops[name][0], [r["ms"] for r in loops[name]]
+        if any(r["launches"] != first["launches"] for r in loops[name]):
+            raise AssertionError(f"{name} decode: the loops launched differently")
+        steps[name] = {"ms_per_step": statistics.median(ms_all), "ms_per_step_loops": ms_all,
+                       "launches_per_step": first["launches"],
+                       "first_tokens": first["toks"][0, :8].tolist()}
+        print(f"  [lm] decode {name}: {LM_TIMING_LOOPS} loops of {G} steps x {B} seqs, median "
+              f"{steps[name]['ms_per_step']:.3f} ms/step (loops {[round(x, 3) for x in ms_all]}); "
+              f"launches per step {first['launches']}; first tokens (seq 0) "
+              f"{steps[name]['first_tokens']}")
+    want = {"retrieval": {"alsh_project": 1, "gather_rerank_topk": 1},
+            "growing": {"alsh_project": 2, "gather_rerank_topk_two_seg": 1}}
+    for name, need in want.items():
+        if steps[name]["launches_per_step"] != need:
+            raise AssertionError(f"{name} decode launched {steps[name]['launches_per_step']} "
+                                 f"per step, not {need}")
+    if steps["plain"]["launches_per_step"]:
+        raise AssertionError("the plain decode launched a kernel")
+    last = loops["growing"][-1]
+    state, grow_hidden = last["state"], last["hidden"]
+    if state.index.delta_fill != B * G or not bool((last["ids"] >= 0).all()):
+        raise AssertionError(f"growing datastore: fill {state.index.delta_fill}, not {B * G}")
+    out["steps"] = steps
+    print(f"  [lm] growing datastore: delta fill {state.index.delta_fill} of {LM_GROW_CAP}")
+
+    # one step of each: device busy and idle share, where the host time goes,
+    # peak bytes, host syncs
+    one = {
+        "plain": lambda: plain(params, batch_at(0, tok0), caches),
+        "retrieval": lambda: retr(params, batch_at(0, tok0), caches, sealed),
+        "growing": lambda: grow_step(batch_at(0, tok0), caches, grow0),
+    }
+    for name, fn in one.items():
+        busy = profile(f"of one {name} decode step", fn, unprofiled_wall=True)
+        steps[name]["device_busy_us"] = busy
+        steps[name]["host"] = _host_split(f"one {name} decode step", fn)
+        steps[name].update(_batch_contracts(f"lm {name} step", fn))
+
+    # recall@8 of the growing steps' reduced keys on the sealed datastore;
+    # the exact lookup's scan is captured for its check after the counts
+    exact_spec = rt.QuerySpec(k=rcfg.topk, mode="exact")
+    q_all = rt.reduce_key(torch.cat(grow_hidden), sealed)
+    w_all = sealed.default_w.expand(q_all.shape)
+    probe = sealed.index.query(q_all, w_all, rt.query_spec(rcfg))
+    exacts = []
+    scan_calls = _capture_kernel_calls(
+        lambda: exacts.append(sealed.index.query(q_all, w_all, exact_spec)),
+        names=("wl1_scan_topk",))["wl1_scan_topk"]
+    exact = exacts[0]
+    out["recall_at_8"] = recall_at_k(probe.ids, exact.ids, rcfg.topk)
+    out["cand_per_query"] = float(probe.n_candidates.float().mean())
+    print(f"  [lm] recall@{rcfg.topk} of the probe lookups against exact mode on "
+          f"{q_all.shape[0]} decode-step keys: {out['recall_at_8']:.3f} "
+          f"({out['cand_per_query']:.1f} candidates a query)")
+    out["peak_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    counts = _path_counts("lm", ("alsh_project", "gather_rerank_topk",
+                                 "gather_rerank_topk_two_seg", "wl1_scan_topk"))
+    print(f"  [lm] allocator peak over the path {out['peak_allocated_bytes']} B "
+          f"({out['peak_allocated_bytes'] / 2**30:.2f} GiB)")
+
+    # the exact lookup against the CPU plain path, and its scan at the path's
+    # shape against the plain version; then recall on other keys
+    cpu = _datastore_on_cpu(sealed)
+    want_exact = cpu.index.query(q_all.cpu(), w_all.cpu(), exact_spec)
+    out["exact_against_cpu"] = _against_cpu("[lm] exact lookup, all steps: card vs the CPU "
+                                            "plain path", exact, want_exact,
+                                            cpu.index.state.data, q_all.cpu(), w_all.cpu())
+    print(f"  [lm] exact lookup of the {q_all.shape[0]} decode-step keys: card vs the CPU plain "
+          f"path, dists max_abs_err {out['exact_against_cpu']:.3g}, ids equal "
+          f"{bool(torch.equal(exact.ids.cpu(), want_exact.ids))}")
+    del cpu, want_exact
+    out["scan"] = _lm_scan_shape(run, scan_calls, counts["wl1_scan_topk"])
+    out["recall_by_keys"] = _lm_recall_by_keys(sealed, rcfg, q_all)
+
+    # 3. the lookups and the kernels against their plain versions
+    q_last = q_all[-B:]
+    out["against_cpu"] = {
+        "sealed": _lookup_against_cpu("sealed lookup", sealed, rcfg, V, q_last),
+        "growing": _lookup_against_cpu("growing lookup (fill 64)", state, gcfg, V, q_last),
+        "sealed, 64 keys": _lookup_against_cpu("sealed lookup, all steps", sealed, rcfg, V,
+                                               q_all),
+    }
+    sealed_calls = _capture_kernel_calls(lambda: retr(params, batch_at(0, tok0), caches, sealed))
+    grow_calls = _capture_kernel_calls(lambda: grow_step(batch_at(0, tok0), caches, state))
+    if len(grow_calls["alsh_project"]) != 2:
+        raise AssertionError("the growing step made other than two projections")
+    calls = {
+        f"datastore build n={sealed.index.n}, unweighted": build_calls,
+        f"decode step b={B}, sealed": sealed_calls,
+        f"decode step b={B}, growing (fill {state.index.delta_fill})": {
+            "alsh_project": grow_calls["alsh_project"][:1],
+            "gather_rerank_topk": grow_calls["gather_rerank_topk"]},
+        f"insert b={B}, unweighted": {"alsh_project": grow_calls["alsh_project"][1:],
+                                      "gather_rerank_topk": []},
+    }
+    out["kernel_shapes"] = _kernel_shapes(run, "lm", calls, counts, two_seg=True)
+
+    # the casts one decode step makes (f32 weights to bf16 per call, the
+    # table cast for the lookup and for the tied unembedding, and its upcast)
+    cdt = getattr(torch, cfg.compute_dtype)
+    table = params["embed"]["table"]
+    weights = [t for t in leaves if t.ndim >= 2 and t is not table]
+
+    def casts():
+        for t in weights:
+            t.to(cdt)
+        table.to(cdt)
+        table.to(cdt).float()
+
+    cast_ms = time_ms(casts, iters=5, warmup=1)
+    w_elems = sum(t.numel() for t in weights)
+    cast_bytes = 6 * w_elems + 6 * table.numel() + 12 * table.numel()
+    out["casts"] = {"ms": cast_ms, "bytes": cast_bytes,
+                    "bound_ms": cast_bytes / HBM_BYTES_PER_S * 1e3}
+    print(f"  [lm] the casts of one decode step alone: {cast_ms:.3f} ms for {cast_bytes} B "
+          f"(bound {out['casts']['bound_ms']:.3f} ms at 3.35 TB/s); the products then read the "
+          f"cast weights and the upcast table ({2 * w_elems + 4 * table.numel()} B)")
+
+    # 4. the reduced model, card against the CPU
+    red = reduced_model(cfg)
+    if red.compute_dtype != "float32":
+        raise AssertionError("the reduced config computes in f32")
+    p_cpu = models.init_params(SEED, red, device="cpu")
+    p_gpu = _tree_to(p_cpu, "cuda")
+    rprompt = torch.randint(0, red.vocab_size, (B, S), dtype=torch.int32,
+                            generator=torch.Generator().manual_seed(SEED + 4))
+    worst = 0.0
+    lc, cc = models.forward_prefill(p_cpu, {"tokens": rprompt}, red, cache_len=S + 8)
+    lg, cg = models.forward_prefill(p_gpu, {"tokens": rprompt.cuda()}, red, cache_len=S + 8)
+    tc, tg = (torch.argmax(x, -1).to(torch.int32) for x in (lc, lg))
+    for i in range(LM_REDUCED_STEPS + 1):
+        worst = max(worst, float((lg.cpu() - lc).abs().max()))
+        if not torch.equal(tg.cpu(), tc) or worst > LM_LOGIT_TOL:
+            raise AssertionError(f"reduced {red.name}: card and CPU disagree at step {i} "
+                                 f"(logits {worst:.3g})")
+        if i == LM_REDUCED_STEPS:
+            break
+        pos = torch.full((B,), S + i, dtype=torch.int32)
+        lc, tc, cc = models.forward_decode(p_cpu, {"token": tc, "pos": pos}, cc, red)
+        lg, tg, cg = models.forward_decode(p_gpu, {"token": tg, "pos": pos.cuda()}, cg, red)
+    out["reduced_card_vs_cpu"] = worst
+    print(f"  [lm] reduced {red.name} (f32) on the card and the CPU, same parameters: prefill "
+          f"and {LM_REDUCED_STEPS} decode steps, logits max_abs_err {worst:.3g} (tolerance "
+          f"{LM_LOGIT_TOL}), tokens equal")
+
+    # 5. full-width consistency at f32 compute
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    gaps = {}
+    for S_c in LM_CONSISTENCY_S:
+        gaps[S_c] = _consistency_gap(params, cfg32, S_c, SEED + 5)
+        print(f"  [lm] prefill({S_c + 1}) against prefill({S_c}) + one decode step, f32 "
+              f"compute, window {cfg.window}: max |logit gap| {gaps[S_c]:.3g}"
+              + (f" (bar {LM_CONSISTENCY_TOL})" if S_c % cfg.window == 0 else
+                 " (printed: the reference's ring-buffer write, ROADMAP.md Queue C item 2)"))
+    if gaps[LM_CONSISTENCY_S[0]] > LM_CONSISTENCY_TOL:
+        raise AssertionError(f"full-width prefill/decode gap {gaps[LM_CONSISTENCY_S[0]]:.3g}")
+    out["consistency_gap"] = gaps
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  [lm] phase {out['phase_s']:.1f} s, {card}")
+    print(f"  [lm] numbers: {json.dumps(out, default=str)}")
+    return counts, out
+
+
 def phase_small_check():
     """The card's answers against the plain PyTorch path on the CPU, over
     one index state (built on the card, copied to the CPU)."""
@@ -3340,6 +3905,8 @@ def main() -> int:
         run.phase("main path (SERVICE x8 shards, sharded)", phase_sharded_path, svc, dev["card"]),
         run.phase("main path (static_contracts: lint, the audit lattice, seeded regressions, "
                   "SERVICE peak bytes and syncs)", phase_static_contracts, svc, dev["card"]),
+        run.phase("main path (lm: full-width gemma3-1b, prefill and decode, plain, with ALSH "
+                  "retrieval and a growing datastore)", phase_lm_path, run, dev["card"]),
     ]
     run.phase("check against the CPU path", phase_small_check)
     if run.failures or any(p is None for p in paths):

@@ -21,13 +21,17 @@ and the serving tier (``serving/``: the broker, SLO degradation, shard
 chaos; ``serve --mode broker``) with its rebuild guard
 (``analysis/retrace_guard.py``); and the sharded index (``Index.shard``,
 ``ShardedIndex``, ``core/distributed.py``: one process drives every shard
-of a ``make_mesh`` mesh, whose devices may repeat).
+of a ``make_mesh`` mesh, whose devices may repeat); and LM serving for the
+dense architectures (``configs/``, ``models/``, ``runtime/serve_step.py``,
+``runtime/retrieval.py``: prefill, greedy decode and the ALSH kNN-LM
+attachment, whose lookups run the kernels below; ``serve --mode lm``).
 Its eight kernels are hand-written in CUDA for Hopper (``kernels/csrc``):
 every Pallas kernel of the reference has a counterpart. Entry points run on the CUDA card unless
 the caller asks for ``device="cpu"``; on CPU tensors the kernels' plain
 PyTorch versions run.
-Modes that are not ported yet raise :class:`NotImplementedError` naming the
-ROADMAP item that ports them.
+Parts that are not ported yet (training, the MoE, SSM, shared-block,
+frontend and encoder-only architectures) raise :class:`NotImplementedError`
+naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations

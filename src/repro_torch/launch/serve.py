@@ -32,7 +32,14 @@ Counterpart of ``repro.launch.serve``:
     requests at ``--rate`` through the ``Broker`` (``--slo-p99-ms``,
     ``--max-batch``, ``--max-queue``), assert no kernel was built after
     warmup, print the latency, shedding and degradation figures and, for a
-    chaos run, assert the labeled coverage loss and the recovery.
+    chaos run, assert the labeled coverage loss and the recovery;
+  * ``--mode lm``: LM serving. Build ``--arch`` (``--reduced`` for the tiny
+    smoke dimensions) with random parameters, prefill a batch of ``--batch``
+    random prompts of ``--prompt-len`` tokens, then decode ``--gen-len``
+    tokens greedily — with ``--retrieval`` through the ALSH kNN-LM
+    attachment over a datastore of 4096 records (d_key 16, K=6, L=8,
+    top-4), as the reference's. Only the dense architectures run; the
+    others raise ``NotImplementedError`` naming their ROADMAP.md item.
 
 The printed lines match the reference's.
 
@@ -49,22 +56,19 @@ The printed lines match the reference's.
         --query-batch 64 --recall-target 0.9 --latency-budget-ms 1
     python -m repro_torch.launch.serve --mode broker --device cpu --n 4096 --d 16 \
         --shards 4 --kill-shard 1
+    python -m repro_torch.launch.serve --mode lm --retrieval     # full-width gemma3-1b
+    python -m repro_torch.launch.serve --mode lm --device cpu --reduced --retrieval \
+        --batch 2 --prompt-len 16 --gen-len 4
 
-The data and queries come from a seeded ``torch.Generator`` (the reference
-draws them with ``jax.random``, so the two services see different data).
-``--mode lm`` raises ``NotImplementedError`` naming its ROADMAP.md item.
+The data, queries, parameters and prompts come from seeded
+``torch.Generator``s (the reference draws them with ``jax.random``, so the
+two services see different data).
 """
 
 from __future__ import annotations
 
 import argparse
 import time
-
-from repro_torch import not_ported
-
-UNPORTED_MODES = {
-    "lm": "Queue A item 14",
-}
 
 
 def _sync(device) -> None:
@@ -319,12 +323,71 @@ def serve_broker(args):
     return responses, stats
 
 
+def serve_lm(args):
+    import torch
+
+    from repro_torch import models
+    from repro_torch.api.index import resolve_device
+    from repro_torch.configs import RetrievalConfig, get_bundle, reduced_model
+    from repro_torch.runtime import retrieval as rt
+    from repro_torch.runtime.serve_step import make_decode_step, make_prefill_step
+
+    device = resolve_device(args.device)
+    bundle = get_bundle(args.arch)
+    mcfg = reduced_model(bundle.model) if args.reduced else bundle.model
+    rcfg = None
+    if args.retrieval:
+        rcfg = RetrievalConfig(datastore_size=4096, d_key=16, K=6, L=8, topk=4)
+
+    params = models.init_params(0, mcfg, device=device)
+    B, S, gen = args.batch, args.prompt_len, args.gen_len
+    g = torch.Generator().manual_seed(1)
+    prompt = torch.randint(0, mcfg.vocab_size, (B, S), generator=g, dtype=torch.int32)
+    prompt = prompt.to(device)
+
+    prefill = make_prefill_step(mcfg, cache_len=S + gen)
+    decode = make_decode_step(mcfg, rcfg)
+    retr_state = None
+    if rcfg is not None:
+        retr_state = rt.build_datastore(2, mcfg.d_model, mcfg.vocab_size, rcfg, device=device)
+
+    _sync(device)
+    t0 = time.time()
+    logits, caches = prefill(params, {"tokens": prompt})
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    _sync(device)
+    print(f"[lm] prefill B={B} S={S} in {time.time()-t0:.2f}s "
+          f"(retrieval={'on' if rcfg else 'off'})")
+
+    out = [tok]
+    t0 = time.time()
+    for i in range(gen):
+        batch = {"token": tok, "pos": torch.full((B,), S + i, dtype=torch.int32, device=device)}
+        if rcfg is None:
+            _, tok, caches = decode(params, batch, caches)
+        else:
+            _, tok, caches = decode(params, batch, caches, retr_state)
+        out.append(tok)
+    _sync(device)
+    dt = time.time() - t0
+    print(f"[lm] generated {gen} tokens x {B} seqs in {dt:.2f}s "
+          f"({dt/gen*1e3:.1f} ms/step); sample: {[int(t[0]) for t in out[:8]]}")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--mode", choices=["alsh", "stream", "broker", "lm"], default="alsh")
     ap.add_argument("--device", default=None,
                     help="torch device; default the CUDA card (\"cpu\" runs the "
                          "plain PyTorch path)")
+    ap.add_argument("--arch", default="gemma3-1b", help="lm mode: the architecture")
+    ap.add_argument("--reduced", action="store_true",
+                    help="lm mode: the architecture's tiny smoke dimensions")
+    ap.add_argument("--retrieval", action="store_true",
+                    help="lm mode: decode through the ALSH kNN-LM attachment")
+    ap.add_argument("--batch", type=int, default=4, help="lm mode: sequences")
+    ap.add_argument("--prompt-len", type=int, default=64, help="lm mode: prompt tokens")
+    ap.add_argument("--gen-len", type=int, default=16, help="lm mode: tokens generated")
     ap.add_argument("--n", type=int, default=65536)
     ap.add_argument("--d", type=int, default=32)
     ap.add_argument("--K", type=int, default=12)
@@ -396,7 +459,7 @@ def main(argv=None):
     elif args.mode == "broker":
         return serve_broker(args)
     else:
-        raise not_ported(f"--mode {args.mode}", UNPORTED_MODES[args.mode])
+        serve_lm(args)
 
 
 if __name__ == "__main__":

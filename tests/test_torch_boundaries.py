@@ -1,7 +1,7 @@
 """Boundaries of the port: it imports neither ``jax`` nor ``repro`` (nor
 ``msgpack`` or ``ml_dtypes``, which the reference's persistence needs), its
 entry points default to the CUDA card and refuse to carry on without one,
-every mode it does not port yet raises ``NotImplementedError``, and the
+every part it does not port yet raises ``NotImplementedError``, and the
 modes a slice ported (early exit, ``--stats``, persistence, quality-first
 planning, the tuner, ``serve --recall-target``, sharding) run on the CPU (``serve
 --mode broker`` is held in ``test_torch_serving.py``)."""
@@ -277,12 +277,14 @@ def test_shard_still_raises_naming_item_12(tmp_path):
             index.shard(None)
 
 
-@pytest.mark.parametrize("mode", ["lm"])
-def test_serve_unported_modes_raise(mode):
+@pytest.mark.parametrize("mode,arch", [("lm", "llama4-scout-17b-16e"), ("lm", "mamba2-2.7b")])
+def test_serve_unported_modes_raise(mode, arch):
+    """Every serve mode is ported; the LM mode raises for the architectures
+    it does not run yet (MoE, SSM), naming their ROADMAP.md item."""
     from repro_torch.launch import serve
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        serve.main(["--mode", mode, "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A item 14c"):
+        serve.main(["--mode", mode, "--arch", arch, "--device", "cpu"])
 
 
 def test_serve_alsh_runs_on_cpu(capsys):

@@ -1,7 +1,8 @@
-"""The PyTorch twins of the ALSH examples (``examples/torch_*.py``) run end
-to end on the CPU at a tiny size; each asserts its own invariants (the
-quality path equals the planned path bit for bit, the lifecycle equals a
-fresh build, save/load answers alike)."""
+"""The PyTorch twins of the examples (``examples/torch_*.py``) run end to
+end on the CPU at a tiny size; each asserts its own invariants (the quality
+path equals the planned path bit for bit, the lifecycle equals a fresh
+build, save/load answers alike, the retrieval step is a log-distribution
+off the plain one)."""
 
 import runpy
 from pathlib import Path
@@ -45,8 +46,19 @@ def test_torch_weighted_knn_classify_runs_on_cpu(capsys):
     assert acc_w >= acc_unw and acc_alsh > 0.5
 
 
+def test_torch_lm_retrieval_serve_runs_on_cpu(capsys):
+    tokens = _main("torch_lm_retrieval_serve")(["--device", "cpu", "--batch", "2",
+                                                "--prompt-len", "16", "--gen-len", "4"])
+    out = capsys.readouterr().out
+    assert "[serve] datastore index: n=8192 d=16" in out and "ALSH-retrieval" in out
+    assert tokens["plain"].shape == tokens["ALSH-retrieval"].shape == (2, 4)
+
+
 def test_torch_examples_need_the_card_by_default(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for name in ("torch_quickstart", "torch_streaming_updates", "torch_weighted_knn_classify"):
+    for name, argv in (("torch_quickstart", ["--n", "64"]),
+                       ("torch_streaming_updates", ["--n", "64"]),
+                       ("torch_weighted_knn_classify", ["--n", "64"]),
+                       ("torch_lm_retrieval_serve", ["--batch", "1"])):
         with pytest.raises(RuntimeError, match='device="cpu"'):
-            _main(name)(["--n", "64"])
+            _main(name)(argv)
