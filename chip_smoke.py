@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --digests    # only alsh_project's output digests
     python3 chip_smoke.py --wl1-times  # only the wl1 kernels' times (see wl1_times)
+    CUBLAS_WORKSPACE_CONFIG=:4096:8 python3 chip_smoke.py --restart-drill  # only the drill
 
 Phases, each of which fails the run (exit code 1) when it fails:
 
@@ -173,6 +174,19 @@ Phases, each of which fails the run (exit code 1) when it fails:
         casts of one step alone, the reduced model on the card against the
         CPU (logits 1e-4, tokens equal), and the full-width f32
         prefill/decode gap at S=512 (within 2e-2) and S=600 (printed);
+     m. train (see ``phase_train_path``): full-width gemma3-1b under
+        ``TrainConfig()`` at S=4096, batch 2 (1 past a 72 GB allocator
+        peak): a warm-up and 5 timed steps (ms a step, tokens/s), one
+        profiled (busy, idle share, top device ops) and its ATen ops
+        counted, the peak, ``adamw_update`` alone, loss and grad norm
+        finite beside ln V; 2 steps at microbatch 2 with int8_ef; the
+        reduced model's loss, grads and one step on the card against the
+        CPU; ``pipeline_apply`` over 4 stages on the card against the
+        sequential stages; and the restart drill in a process of its own
+        (``--restart-drill``, deterministic): a failure at step 7 and a
+        restart from the step-5 commit, async checkpoints, equal to the
+        clean run bit for bit, its last commit restored on the CPU leaf
+        for leaf. No kernel runs on this path (launches 0);
   6. check: on a small input, the card's answers agree with the plain
      PyTorch path on the CPU over the same index state (f32 probe and
      exact, int8 screened probe).
@@ -185,6 +199,7 @@ and prints no result.
 
 from __future__ import annotations
 
+import gc
 import hashlib
 import json
 import math
@@ -233,7 +248,7 @@ KERNEL_META = {
                    "src/repro/kernels/wl1_distance.py:112"),
 }
 PATHS = ("f32", "quantized", "multiprobe", "stream", "unfused", "early_exit", "persist", "plan",
-         "broker", "sharded", "static_contracts", "lm")
+         "broker", "sharded", "static_contracts", "lm", "train")
 # The stream path: the reference service's defaults (serve --mode stream)
 STREAM_CAP = 8192  # --delta-capacity
 STREAM_THRESHOLD = 0.75  # --compact-threshold
@@ -1343,12 +1358,14 @@ def _serve(family: str, batches: int, wl, index=None, **overrides):
     return index, q, w, out
 
 
-def profile(label, fn, top=12, unprofiled_wall=False):
+def profile(label, fn, top=12, unprofiled_wall=False, into=None):
     """Print device time by kernel and the device's idle share over one
     call of ``fn`` (torch.profiler; diagnostics, the run does not depend on
     them) and return the device busy time in us (None when not measured).
     With ``unprofiled_wall`` the same call is first timed without the
-    profiler, and the idle share is also estimated against that wall time."""
+    profiler, and the idle share is also estimated against that wall time.
+    A dict ``into`` receives the walls and the ``top`` rows (name, device
+    us, count)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
@@ -1382,8 +1399,12 @@ def profile(label, fn, top=12, unprofiled_wall=False):
         print(f"  profile {label}: the same call without the profiler just before: wall "
               f"{plain_wall_us:.0f} us; estimated idle share (profiled busy / unprofiled wall) "
               f"{max(0.0, 1 - busy_us / plain_wall_us):.3f}")
-    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:top]:
+    ranked = sorted(rows, key=lambda e: -e.self_device_time_total)[:top]
+    for e in ranked:
         print(f"    {e.self_device_time_total:9.1f} us  x{e.count:<4d} {e.key[:90]}")
+    if into is not None:
+        into.update(wall_us=wall_us, unprofiled_wall_us=plain_wall_us, busy_us=busy_us,
+                    top=[(e.key[:120], e.self_device_time_total, e.count) for e in ranked])
     return busy_us
 
 
@@ -3348,15 +3369,8 @@ def _consistency_gap(params, cfg, S, seed):
     return float((logits - full).abs().max())
 
 
-def _host_split(label, fn):
-    """Where one call's host time goes: the median wall of LM_HOST_REPS
-    calls; the ATen ops it dispatches (counted under a TorchDispatchMode)
-    and that wall over them; the caching allocator's allocations and new
-    segments (cudaMalloc) a call; and, under torch.profiler, the self CPU
-    time of ATen ops, of CUDA runtime calls, and the rest of the profiled
-    wall (Python between the ops, and the profiler's own cost)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile as torch_profile
+def _count_aten_ops(fn):
+    """ATen ops one call of ``fn`` dispatches (backward ops included)."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
     class Count(TorchDispatchMode):
@@ -3368,6 +3382,21 @@ def _host_split(label, fn):
             self.n += 1
             return func(*args, **(kwargs or {}))
 
+    with Count() as count:
+        fn()
+    return count.n
+
+
+def _host_split(label, fn):
+    """Where one call's host time goes: the median wall of LM_HOST_REPS
+    calls; the ATen ops it dispatches (counted under a TorchDispatchMode)
+    and that wall over them; the caching allocator's allocations and new
+    segments (cudaMalloc) a call; and, under torch.profiler, the self CPU
+    time of ATen ops, of CUDA runtime calls, and the rest of the profiled
+    wall (Python between the ops, and the profiler's own cost)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
     walls = []
     for _ in range(LM_HOST_REPS):
         torch.cuda.synchronize()
@@ -3375,15 +3404,14 @@ def _host_split(label, fn):
         fn()
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
-    with Count() as count:
-        fn()
+    n_ops = _count_aten_ops(fn)
     stats0 = torch.cuda.memory_stats()
     fn()
     torch.cuda.synchronize()
     stats1 = torch.cuda.memory_stats()
     wall_ms = statistics.median(walls)
-    out = {"wall_ms": wall_ms, "walls_ms": walls, "aten_ops": count.n,
-           "us_per_op": wall_ms * 1e3 / count.n,
+    out = {"wall_ms": wall_ms, "walls_ms": walls, "aten_ops": n_ops,
+           "us_per_op": wall_ms * 1e3 / n_ops,
            "allocations": stats1["allocation.all.allocated"] - stats0["allocation.all.allocated"],
            "segments": stats1["segment.all.allocated"] - stats0["segment.all.allocated"]}
     try:
@@ -3404,7 +3432,7 @@ def _host_split(label, fn):
         f"profiled wall {p['wall_us']:.0f} us = ATen self {p['aten_self_us']:.0f} + CUDA runtime "
         f"{p['cuda_runtime_us']:.0f} + the rest (Python, the profiler) {p['rest_us']:.0f}")
     print(f"  [lm] host of {label}: median wall {wall_ms:.3f} ms of "
-          f"{[round(x, 3) for x in walls]}; {count.n} ATen ops, {out['us_per_op']:.1f} us of "
+          f"{[round(x, 3) for x in walls]}; {n_ops} ATen ops, {out['us_per_op']:.1f} us of "
           f"wall an op; allocator {out['allocations']} allocations, {out['segments']} new "
           f"segments; {split}")
     return out
@@ -3802,6 +3830,365 @@ def phase_lm_path(run, card):
     return counts, out
 
 
+TRAIN_ARCH = "gemma3-1b"  # the lm path's config, uncut
+TRAIN_SHAPE = "train_4k"  # its sequence length; the batch is cut
+TRAIN_BATCH = 2  # of train_4k's 256 (one card)
+TRAIN_PEAK_LIMIT = 72e9  # allocator bytes past which the batch drops to 1
+TRAIN_TIMED_STEPS = 5
+TRAIN_COMPRESSED_STEPS = 2  # microbatch=2, int8_ef, after one warm-up step of its own
+TRAIN_F32_LOSS_RTOL = 1e-5  # card vs CPU, f32 compute: the same sums in other orders
+TRAIN_F32_GRAD_TOL = 1e-5  # of each gradient leaf's largest |entry|
+TRAIN_BF16_LOSS_TOL = 2e-3  # bf16 compute: cuBLAS and the CPU round bf16 at other points
+TRAIN_BF16_GRAD_L2 = 0.05  # relative L2 error over the whole gradient tree
+TRAIN_UPDATE_L2 = 1e-3  # f32: one step's parameter update, relative L2 error over the tree
+# (not a max: Adam's first step is ~lr * g / |g|, so an entry with |g| near eps
+# can move by any part of 2 lr for a last-bit difference in g)
+TRAIN_MOMENT_TOL = 1e-4  # f32: moments within 1e-4 of each leaf's largest |entry|
+TRAIN_PIPE_FWD = dict(rtol=1e-5, atol=1e-5)  # tests/test_pipeline.py's bar
+TRAIN_PIPE_GRAD = dict(rtol=1e-4, atol=1e-5)
+TRAIN_DRILL_STEPS, TRAIN_DRILL_FAIL, TRAIN_DRILL_EVERY = 10, 7, 5
+DRILL_TIMEOUT_S = 600
+
+
+def _named(tree):
+    from repro_torch.runtime.train_step import named_leaves
+
+    return dict(named_leaves(tree))
+
+
+def _timed_train_steps(step_fn, state, stream, first: int, n: int):
+    """``n`` steps from ``state`` on the stream's batches ``first…``: each
+    step's host-clock ms, from the batch on the card to the sync on its
+    loss; returns (state, ms list, last metrics as floats)."""
+    import torch
+
+    ms, metrics = [], None
+    for i in range(n):
+        batch = {k: torch.as_tensor(v).cuda() for k, v in stream.batch(first + i).items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        metrics = {k: float(v) for k, v in m.items()}  # the sync on the loss ends the step
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return state, ms, metrics
+
+
+def _train_full_width(cfg, tcfg, S, out):
+    """(a): the full-width steps at batch TRAIN_BATCH (1 when the allocator
+    peak passes TRAIN_PEAK_LIMIT or the card runs out of memory)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import optim
+    from repro_torch.data import DataConfig, SyntheticStream
+    from repro_torch.runtime import train_step as ts
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = ts.init_train_state(SEED, cfg, tcfg, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in ts.tree_leaves(state.params))
+    state_bytes = sum(t.numel() * t.element_size() for t in ts.train_state_leaves(state).values())
+    out.update(n_params=n_params, state_bytes=state_bytes, init_s=time.perf_counter() - t0)
+    print(f"  [train] {cfg.name}: {n_params} parameters ({cfg.param_dtype}; compute "
+          f"{cfg.compute_dtype}, remat={cfg.remat} {cfg.remat_policy!r}, loss_chunk "
+          f"{cfg.loss_chunk}); state {state_bytes} B with f32 moments, drawn on the card in "
+          f"{out['init_s']:.2f} s")
+    del state
+    step_fn = ts.make_train_step(cfg, tcfg)
+
+    def attempt(B):
+        """A warm-up step and the timed ones at batch B, from the seed's state."""
+        stream = SyntheticStream(DataConfig(seq_len=S, global_batch=B, seed=SEED), cfg)
+        torch.cuda.reset_peak_memory_stats()
+        state = ts.init_train_state(SEED, cfg, tcfg, device="cuda")
+        state, warm_ms, first = _timed_train_steps(step_fn, state, stream, 0, 1)
+        if torch.cuda.max_memory_allocated() > TRAIN_PEAK_LIMIT:
+            raise MemoryError(f"batch {B} peaked at {torch.cuda.max_memory_allocated()} B, past "
+                              f"{TRAIN_PEAK_LIMIT:.0f}")
+        state, ms, metrics = _timed_train_steps(step_fn, state, stream, 1, TRAIN_TIMED_STEPS)
+        return B, stream, state, warm_ms[0], ms, metrics, first
+
+    why, result = None, None
+    try:
+        result = attempt(TRAIN_BATCH)
+    except (torch.cuda.OutOfMemoryError, MemoryError) as e:
+        why = f"batch {TRAIN_BATCH} does not fit: {type(e).__name__}: {str(e)[:300]}"
+    if result is None:  # retried outside the handler, whose traceback holds the tensors
+        print(f"  [train] {why}; batch 1")
+        gc.collect()
+        torch.cuda.empty_cache()
+        result = attempt(1)
+    B, stream, state, warm_ms, ms, metrics, first = result
+    peak = torch.cuda.max_memory_allocated()
+    out.update(batch=B, seq_len=S, batch_cut_reason=why, warmup_ms=warm_ms)
+    med = statistics.median(ms)
+    out.update(ms_per_step=med, ms_steps=ms, tokens_per_s=B * S / (med / 1e3),
+               peak_allocated_bytes=peak, loss=metrics["loss"], grad_norm=metrics["grad_norm"],
+               lr=metrics["lr"], first_loss=first["loss"], first_grad_norm=first["grad_norm"],
+               ln_vocab=math.log(cfg.vocab_size))
+    if not all(math.isfinite(m[k]) for m in (first, metrics) for k in ("loss", "grad_norm")):
+        raise AssertionError(f"full-width train steps: first {first}, last {metrics}")
+    print(f"  [train] B={B} S={S} ({B * S} tokens a step): warm-up {warm_ms:.1f} ms, then "
+          f"{TRAIN_TIMED_STEPS} steps median {med:.1f} ms/step ({[round(x, 1) for x in ms]}), "
+          f"{out['tokens_per_s']:.0f} tokens/s; loss {first['loss']:.4f} at the first step (ln V "
+          f"= {out['ln_vocab']:.2f}; grad norm {first['grad_norm']:.4f}), {metrics['loss']:.4f} "
+          f"at step {TRAIN_TIMED_STEPS + 1} (grad norm {metrics['grad_norm']:.4f}, lr "
+          f"{metrics['lr']:.3g}); allocator peak {peak} B ({peak / 2**30:.2f} GiB)")
+
+    batch = {k: torch.as_tensor(v).cuda() for k, v in stream.batch(TRAIN_TIMED_STEPS + 1).items()}
+    prof = {}
+    profile("of one full-width train step", lambda: step_fn(state, batch), top=15,
+            unprofiled_wall=True, into=prof)
+    out["profile"] = prof
+    out["aten_ops_per_step"] = _count_aten_ops(lambda: step_fn(state, batch))
+    print(f"  [train] one step dispatches {out['aten_ops_per_step']} ATen ops")
+
+    _, grads = ts._value_and_grad(state.params, batch, cfg)
+    adam_ms = time_ms(lambda: optim.adamw_update(state.params, grads, state.opt, tcfg), iters=3)
+    adam_bytes = 28 * n_params  # read p, g, m, v; write p, m, v (f32)
+    out["adamw"] = {"ms": adam_ms, "bytes": adam_bytes,
+                    "bound_ms": adam_bytes / HBM_BYTES_PER_S * 1e3}
+    print(f"  [train] adamw_update alone over {n_params} parameters: {adam_ms:.2f} ms (bound "
+          f"{out['adamw']['bound_ms']:.2f} ms: {adam_bytes} B at 3.35 TB/s)")
+    del grads
+
+    ctcfg = dataclasses.replace(tcfg, microbatch=2, grad_compression="int8_ef")
+    cstate = ts.TrainState(params=state.params, opt=optim.init_opt_state(state.params, ctcfg))
+    del state
+    cstep = ts.make_train_step(cfg, ctcfg)
+    cstate, cwarm, _ = _timed_train_steps(cstep, cstate, stream, 0, 1)
+    cstate, cms, cm = _timed_train_steps(cstep, cstate, stream, 1, TRAIN_COMPRESSED_STEPS)
+    if not all(math.isfinite(v) for v in cm.values()):
+        raise AssertionError(f"microbatch 2, int8_ef: metrics {cm}")
+    out["compressed"] = {"warmup_ms": cwarm[0], "ms_steps": cms, "loss": cm["loss"],
+                         "grad_norm": cm["grad_norm"]}
+    print(f"  [train] microbatch 2, int8_ef: warm-up {cwarm[0]:.1f} ms, steps "
+          f"{[round(x, 1) for x in cms]} ms; loss {cm['loss']:.4f}, grad norm "
+          f"{cm['grad_norm']:.4f}")
+
+
+def _train_card_vs_cpu(cfg):
+    """(b): the reduced config, f32 compute and bf16 compute with remat, the
+    same parameters on the card and the CPU: the loss and the gradients of
+    ``forward_train``, and one ``make_train_step``'s metrics and state."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import TrainConfig, reduced_model
+    from repro_torch.runtime import train_step as ts
+
+    red = reduced_model(cfg)
+    tcfg = TrainConfig(warmup_steps=2, total_steps=20)
+    state = ts.init_train_state(SEED, red, tcfg, device="cpu")
+    toks = torch.randint(0, red.vocab_size, (4, 64), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(SEED + 9))
+    out = {}
+    for compute, remat in (("float32", False), ("bfloat16", True)):
+        c = dataclasses.replace(red, compute_dtype=compute, remat=remat)
+        gpu_state = ts.train_state_from_leaves(ts.train_state_leaves(state), state, "cuda")
+        lc, gc = ts._value_and_grad(state.params, {"tokens": toks}, c)
+        lg, gg = ts._value_and_grad(gpu_state.params, {"tokens": toks.cuda()}, c)
+        want = {k: v.double().numpy() for k, v in _named(gc).items()}
+        got = {k: v.double().cpu().numpy() for k, v in _named(gg).items()}
+        loss_err = abs(float(lg) - float(lc))
+        grad_err = max(float(np.max(np.abs(got[k] - want[k]))) / max(
+            float(np.max(np.abs(want[k]))), 1e-30) for k in want)
+        grad_l2 = math.sqrt(sum(float(np.sum((got[k] - want[k]) ** 2)) for k in want)
+                            / sum(float(np.sum(want[k] ** 2)) for k in want))
+        sc, mc = ts.make_train_step(c, tcfg)(state, {"tokens": toks})
+        sg, mg = ts.make_train_step(c, tcfg)(gpu_state, {"tokens": toks.cuda()})
+        lr = float(mc["lr"])
+        before = {k: v.double().numpy() for k, v in ts.train_state_leaves(state).items()}
+        want_s = {k: v.double().numpy() for k, v in ts.train_state_leaves(sc).items()}
+        got_s = {k: v.double().cpu().numpy() for k, v in ts.train_state_leaves(sg).items()}
+        params = [k for k in want_s if k.startswith("params/")]
+        param_err = max(float(np.max(np.abs(got_s[k] - want_s[k]))) for k in params)
+        update_l2 = math.sqrt(sum(float(np.sum((got_s[k] - want_s[k]) ** 2)) for k in params)
+                              / sum(float(np.sum((want_s[k] - before[k]) ** 2)) for k in params))
+        moment_err = max(float(np.max(np.abs(got_s[k] - want_s[k]))) / max(
+            float(np.max(np.abs(want_s[k]))), 1e-30)
+            for k in want_s if k.startswith(("opt/m/", "opt/v/")))
+        r = {"loss_cpu": float(lc), "loss_err": loss_err, "grad_err_of_leaf_max": grad_err,
+             "grad_rel_l2": grad_l2, "param_err": param_err, "param_err_over_lr": param_err / lr,
+             "update_rel_l2": update_l2, "moment_err_of_leaf_max": moment_err,
+             "step_metrics_err": {k: abs(float(mg[k]) - float(mc[k])) for k in mc}}
+        out[compute] = r
+        print(f"  [train] reduced {red.name} {compute} compute (remat {remat}), card vs CPU: "
+              f"loss {float(lc):.6f} off by {loss_err:.3g}; grads off by {grad_err:.3g} of a "
+              f"leaf's largest (rel L2 {grad_l2:.3g}); after one step the update off by "
+              f"{update_l2:.3g} (rel L2; largest entry {param_err / lr:.3g} of the lr), moments "
+              f"{moment_err:.3g} of a leaf's largest")
+        if compute == "float32":
+            bad = (loss_err > TRAIN_F32_LOSS_RTOL * abs(float(lc)) or grad_err > TRAIN_F32_GRAD_TOL
+                   or update_l2 > TRAIN_UPDATE_L2 or moment_err > TRAIN_MOMENT_TOL)
+        else:
+            bad = loss_err > TRAIN_BF16_LOSS_TOL or grad_l2 > TRAIN_BF16_GRAD_L2
+        if bad:
+            raise AssertionError(f"reduced {compute}: card and CPU disagree: {r}")
+    return out
+
+
+def restart_drill() -> dict:
+    """(c), in a process of its own (``--restart-drill``) under
+    ``torch.use_deterministic_algorithms(True)``: on the card, the reduced
+    bundle of tests/test_fault.py run clean for 10 steps and again with a
+    failure injected at step 7, async checkpoints, restarted from the step-5
+    commit: the two final states equal bit for bit; the committed step 10
+    restored on the CPU equals the card's state leaf for leaf."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_bundle, reduced_model
+    from repro_torch.data import DataConfig
+    from repro_torch.runtime import fault
+    from repro_torch.runtime import train_step as ts
+
+    bundle = get_bundle(TRAIN_ARCH)
+    mcfg = dataclasses.replace(reduced_model(bundle.model), n_units=1, n_layers=8,
+                               tail=("local", "local"))
+    tcfg = dataclasses.replace(bundle.train, total_steps=20, warmup_steps=2)
+    bundle = dataclasses.replace(bundle, model=mcfg, train=tcfg)
+    dcfg = DataConfig(seq_len=32, global_batch=2)
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        clean = fault.train_loop(bundle, dcfg, TRAIN_DRILL_STEPS, f"{d}/clean",
+                                 ckpt_every=TRAIN_DRILL_EVERY, device="cuda")
+        clean_s = time.perf_counter() - t0
+        faulty = fault.run_with_restarts(bundle, dcfg, TRAIN_DRILL_STEPS, f"{d}/faulty",
+                                         failures=(TRAIN_DRILL_FAIL,),
+                                         ckpt_every=TRAIN_DRILL_EVERY, async_ckpt=True,
+                                         device="cuda")
+        a, b = ts.train_state_leaves(clean), ts.train_state_leaves(faulty)
+        differ = [k for k in a if not torch.equal(a[k], b[k])]
+        template = ts.init_train_state(0, mcfg, tcfg, device="cpu")
+        restored = fault.restore_train_state(f"{d}/faulty", TRAIN_DRILL_STEPS, template)
+        r = ts.train_state_leaves(restored)
+        cpu_differ = [k for k in b if not torch.equal(b[k].cpu(), r[k])]
+    return {"leaves": len(a), "differ": differ, "cpu_restore_differ": cpu_differ,
+            "clean_s": clean_s, "deterministic": torch.are_deterministic_algorithms_enabled()}
+
+
+def _train_restart_drill():
+    """Run ``restart_drill`` in a subprocess (its deterministic settings stay
+    there) and check its answer."""
+    import os
+
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--restart-drill"],
+                         capture_output=True, text=True, env=env, timeout=DRILL_TIMEOUT_S)
+    if res.returncode != 0:
+        raise AssertionError(f"the restart drill failed:\n{res.stdout[-2000:]}\n"
+                             f"{res.stderr[-4000:]}")
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    out["process_s"] = time.perf_counter() - t0
+    print(f"  [train] restart drill (deterministic, its own process, {out['process_s']:.1f} s): "
+          f"{TRAIN_DRILL_STEPS} steps clean ({out['clean_s']:.1f} s) against a failure at step "
+          f"{TRAIN_DRILL_FAIL} and a restart from the step-{TRAIN_DRILL_EVERY} commit, async "
+          f"checkpoints: {out['leaves']} leaves, {len(out['differ'])} differ; the step-"
+          f"{TRAIN_DRILL_STEPS} commit restored on the CPU: {len(out['cpu_restore_differ'])} "
+          f"differ")
+    if out["differ"] or out["cpu_restore_differ"] or not out["deterministic"]:
+        raise AssertionError(f"restart drill: {out}")
+    return out
+
+
+def _train_pipeline():
+    """(d): ``pipeline_apply`` over 4 stages on the one card against the
+    sequential composition (tests/test_pipeline.py's shapes and bar)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.distributed import make_mesh
+    from repro_torch.runtime.pipeline import pipeline_apply, pipeline_loss
+
+    n_stages, n_micro, mb, dim = 4, 8, 2, 16
+    rs = np.random.default_rng(SEED + 10)
+    p = {"W": torch.tensor(rs.normal(size=(n_stages, dim, dim)).astype(np.float32) / dim ** 0.5,
+                           device="cuda", requires_grad=True),
+         "b": torch.tensor(rs.normal(size=(n_stages, dim)).astype(np.float32) * 0.1,
+                           device="cuda", requires_grad=True)}
+    x, tgt = (torch.tensor(rs.normal(size=(n_micro, mb, dim)).astype(np.float32), device="cuda")
+              for _ in range(2))
+
+    def stage(q, h):
+        return torch.tanh(h @ q["W"] + q["b"])
+
+    def loss_fn(y, t):
+        return torch.mean((y - t) ** 2)
+
+    def seq(xm):
+        h = xm
+        for s in range(n_stages):
+            h = stage({k: v[s] for k, v in p.items()}, h)
+        return h
+
+    mesh = make_mesh((n_stages,), ("pod",), devices=["cuda"] * n_stages)
+    y = pipeline_apply(stage, p, x, mesh)
+    y_ref = torch.stack([seq(x[m]) for m in range(n_micro)])
+    fwd_err = float((y - y_ref).detach().abs().max())
+    torch.testing.assert_close(y, y_ref, **TRAIN_PIPE_FWD)
+    g = torch.autograd.grad(pipeline_loss(stage, loss_fn, p, x, tgt, mesh), list(p.values()))
+    g_ref = torch.autograd.grad(torch.mean(torch.stack([loss_fn(seq(x[m]), tgt[m])
+                                                         for m in range(n_micro)])),
+                                list(p.values()))
+    grad_err = max(float((a - b).abs().max()) for a, b in zip(g, g_ref))
+    for a, b in zip(g, g_ref):
+        torch.testing.assert_close(a, b, **TRAIN_PIPE_GRAD)
+    print(f"  [train] pipeline_apply, {n_stages} stages on one card, {n_micro} microbatches: "
+          f"forward off by {fwd_err:.3g}, grads by {grad_err:.3g} from the sequential stages")
+    return {"fwd_err": fwd_err, "grad_err": grad_err}
+
+
+def phase_train_path(run, card):
+    """Training (``launch/train``'s flow) at the full width of gemma3-1b (26
+    layers, d_model 1152, vocab 262,144, f32 parameters drawn on the card,
+    bf16 compute, ``remat=True``) under ``TrainConfig()``, at train_4k's
+    S=4096 and batch TRAIN_BATCH (cut from 256):
+
+    a. one warm-up step and TRAIN_TIMED_STEPS timed ones (ms per step, the
+       median on the host clock to the sync on the loss; tokens/s), one
+       step profiled (device busy, idle share, the top device ops) and its
+       ATen ops counted, the allocator peak, ``adamw_update`` alone, loss
+       and grad norm finite (the loss beside ln V); then
+       TRAIN_COMPRESSED_STEPS steps with ``microbatch=2, int8_ef``;
+    b. the reduced config on the card against the CPU (``_train_card_vs_cpu``);
+    c. the deterministic restart drill in its own process (``restart_drill``);
+    d. ``pipeline_apply`` over 4 stages on the card (``_train_pipeline``).
+
+    No kernel of the port runs on this path: its launch counts, zeroed
+    before (a) and read after (d), must all be 0. No full-width checkpoint
+    is taken."""
+    import torch
+
+    from repro_torch.configs import SHAPES, TrainConfig, get_bundle
+    from repro_torch.kernels import _build
+
+    t_phase = time.perf_counter()
+    cfg = get_bundle(TRAIN_ARCH).model
+    out = {"card": card}
+    torch.cuda.empty_cache()
+    _build.reset_launch_counts()
+    _train_full_width(cfg, TrainConfig(), SHAPES[TRAIN_SHAPE].seq_len, out)
+    torch.cuda.empty_cache()
+    out["card_vs_cpu"] = _train_card_vs_cpu(cfg)
+    out["pipeline"] = _train_pipeline()
+    counts = _path_counts("train", ())
+    if any(counts.values()):
+        raise AssertionError(f"the train path launched a kernel: {counts}")
+    out["restart_drill"] = _train_restart_drill()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  [train] phase {out['phase_s']:.1f} s, {card}")
+    print(f"  [train] numbers: {json.dumps(out, default=str)}")
+    return counts, out
+
+
 def phase_small_check():
     """The card's answers against the plain PyTorch path on the CPU, over
     one index state (built on the card, copied to the CPU)."""
@@ -3860,6 +4247,10 @@ def main() -> int:
     if sys.argv[1:] == ["--wl1-times"]:
         print(json.dumps(wl1_times()))
         return 0
+    if sys.argv[1:] == ["--restart-drill"]:
+        torch.use_deterministic_algorithms(True)
+        print(json.dumps(restart_drill()))
+        return 0
 
     run = Run()
     dev = run.phase("device", phase_device)
@@ -3907,6 +4298,8 @@ def main() -> int:
                   "SERVICE peak bytes and syncs)", phase_static_contracts, svc, dev["card"]),
         run.phase("main path (lm: full-width gemma3-1b, prefill and decode, plain, with ALSH "
                   "retrieval and a growing datastore)", phase_lm_path, run, dev["card"]),
+        run.phase("main path (train: full-width gemma3-1b at S=4096, card vs CPU, restart "
+                  "drill, pipeline)", phase_train_path, run, dev["card"]),
     ]
     run.phase("check against the CPU path", phase_small_check)
     if run.failures or any(p is None for p in paths):

@@ -24,14 +24,18 @@ chaos; ``serve --mode broker``) with its rebuild guard
 of a ``make_mesh`` mesh, whose devices may repeat); and LM serving for the
 dense architectures (``configs/``, ``models/``, ``runtime/serve_step.py``,
 ``runtime/retrieval.py``: prefill, greedy decode and the ALSH kNN-LM
-attachment, whose lookups run the kernels below; ``serve --mode lm``).
+attachment, whose lookups run the kernels below; ``serve --mode lm``); and
+their training (``models.forward_train``, ``optim/``, ``data/``,
+``runtime/train_step.py``, ``runtime/fault.py``: checkpointed restarts
+with ``ckpt.AsyncCheckpointer``, ``runtime/pipeline.py``;
+``launch/train.py``).
 Its eight kernels are hand-written in CUDA for Hopper (``kernels/csrc``):
 every Pallas kernel of the reference has a counterpart. Entry points run on the CUDA card unless
 the caller asks for ``device="cpu"``; on CPU tensors the kernels' plain
 PyTorch versions run.
-Parts that are not ported yet (training, the MoE, SSM, shared-block,
-frontend and encoder-only architectures) raise :class:`NotImplementedError`
-naming the ROADMAP item that ports them.
+Parts that are not ported yet (the MoE, SSM, shared-block, frontend and
+encoder-only architectures, the PartitionSpec trees) raise
+:class:`NotImplementedError` naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations

@@ -116,22 +116,6 @@ def dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).removeprefix("torch.")
 
 
-def _host(t: torch.Tensor):
-    """A tensor as a checkpoint leaf: a numpy array, or the bit pattern of a
-    bfloat16 tensor."""
-    t = t.detach().cpu().contiguous()
-    if t.dtype == torch.bfloat16:
-        return ckpt.Bits(ckpt.BFLOAT16, t.view(torch.int16).numpy().view(np.uint16))
-    return t.numpy()
-
-
-def _device(leaf, device) -> torch.Tensor:
-    """A restored leaf (its own writable memory) as a tensor on ``device``."""
-    if isinstance(leaf, ckpt.Bits):
-        return torch.from_numpy(leaf.bits.view(np.int16)).view(torch.bfloat16).to(device)
-    return torch.from_numpy(leaf).to(device)
-
-
 def _leaf_names(scaled: bool, lifecycle: bool) -> list:
     names = ["build_key"]
     if lifecycle:
@@ -179,15 +163,15 @@ def save_index(
     key = PORT_BUILT_KEY if build_key is None else np.asarray(build_key)
     leaves = {"build_key": key}
     for i, f in enumerate(_DELTA_FIELDS):
-        leaves[f"delta/{i}"] = _host(getattr(delta, f))
+        leaves[f"delta/{i}"] = ckpt.host_copy(getattr(delta, f))
     leaves["delta/3"] = np.asarray(delta.fill, dtype=np.int32)
-    leaves["state/0/0"] = _host(state.tables.folded)
-    leaves["state/0/1"] = _host(state.tables.offsets)
+    leaves["state/0/0"] = ckpt.host_copy(state.tables.folded)
+    leaves["state/0/1"] = ckpt.host_copy(state.tables.offsets)
     for i, f in enumerate(_STATE_FIELDS, start=1):
-        leaves[f"state/{i}"] = _host(getattr(state, f))
+        leaves[f"state/{i}"] = ckpt.host_copy(getattr(state, f))
     if state.scales is not None:
-        leaves["state/6"] = _host(state.scales)
-    leaves["tombstones"] = _host(tombstones)
+        leaves["state/6"] = ckpt.host_copy(state.scales)
+    leaves["tombstones"] = ckpt.host_copy(tombstones)
     os.makedirs(directory, exist_ok=True)
     ckpt.save_checkpoint(directory, 0, leaves)
     codec = get_codec(cfg.storage)
@@ -257,18 +241,19 @@ def load_index(directory: str | os.PathLike, device):
         directory, step, _leaf_names(get_codec(cfg.storage).scaled, version >= 2)
     )
     state = ALSHIndex(
-        tables=PrefixTables(_device(leaves["state/0/0"], device),
-                            _device(leaves["state/0/1"], device)),
-        scales=_device(leaves["state/6"], device) if "state/6" in leaves else None,
-        **{f: _device(leaves[f"state/{i}"], device) for i, f in enumerate(_STATE_FIELDS, 1)},
+        tables=PrefixTables(ckpt.leaf_tensor(leaves["state/0/0"]).to(device),
+                            ckpt.leaf_tensor(leaves["state/0/1"]).to(device)),
+        scales=ckpt.leaf_tensor(leaves["state/6"]).to(device) if "state/6" in leaves else None,
+        **{f: ckpt.leaf_tensor(leaves[f"state/{i}"]).to(device)
+           for i, f in enumerate(_STATE_FIELDS, 1)},
     )
     if version >= 2:
         update = update_from_dict(meta["update"])
         delta = DeltaSegment(
-            *(_device(leaves[f"delta/{i}"], device) for i in range(3)),
+            *(ckpt.leaf_tensor(leaves[f"delta/{i}"]).to(device) for i in range(3)),
             fill=leaves["delta/3"].item(),
         )
-        tombstones = _device(leaves["tombstones"], device)
+        tombstones = ckpt.leaf_tensor(leaves["tombstones"]).to(device)
     else:  # pre-lifecycle directory: immutable, no delta, nothing deleted
         update = UpdateSpec()
         delta = DeltaSegment.empty(cfg, 0, dtype=state.data.dtype, device=device)

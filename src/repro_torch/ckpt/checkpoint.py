@@ -24,6 +24,12 @@ bfloat16 leaf, which numpy names only with ``ml_dtypes``, travels as
 Neither ``msgpack`` nor ``ml_dtypes`` is imported (``_msgpack`` packs the
 subset the payload uses), and ``zstandard`` is imported inside the two
 entry points, so ``import repro_torch`` works without any of them.
+
+:class:`AsyncCheckpointer` overlaps a save's serialization and IO with the
+next training steps, one save in flight at a time. It copies the leaves to
+host memory of their own inside ``save()``, before its thread starts: on
+the CPU ``tensor.cpu()`` is the tensor itself, which a later update could
+otherwise change under the writer.
 """
 
 from __future__ import annotations
@@ -31,20 +37,25 @@ from __future__ import annotations
 import os
 import re
 import shutil
+import threading
 import zlib
 from typing import Mapping, NamedTuple, Optional
 
 import numpy as np
+import torch
 
 from repro_torch.ckpt import _msgpack
 
 __all__ = [
+    "AsyncCheckpointer",
     "BFLOAT16",
     "Bits",
     "CorruptCheckpointError",
     "latest_step",
     "restore_checkpoint",
     "save_checkpoint",
+    "host_copy",
+    "leaf_tensor",
 ]
 
 
@@ -198,3 +209,88 @@ def restore_checkpoint(directory: str, step: int, names, shard_id: int = 0) -> d
                 f"recorded dtype/shape ({e}) — corrupt payload"
             ) from e
     return out
+
+
+def host_copy(leaf):
+    """A checkpoint leaf in host memory of its own: a tensor (on any
+    device) or numpy array copied to a numpy array, a bfloat16 tensor to
+    the :class:`Bits` of its pattern, a :class:`Bits` copied."""
+    if isinstance(leaf, Bits):
+        return Bits(leaf.dtype, np.array(leaf.bits))
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach().to("cpu", copy=True).contiguous()
+        if t.dtype == torch.bfloat16:
+            return Bits(BFLOAT16, t.view(torch.int16).numpy().view(np.uint16))
+        return t.numpy()
+    return np.array(leaf)
+
+
+def leaf_tensor(leaf) -> torch.Tensor:
+    """The inverse of :func:`host_copy`: a numpy leaf as a CPU tensor of its
+    own memory (a copy), a :class:`Bits` or a numpy ``bfloat16`` array
+    (``ml_dtypes``, as the reference's trees hold them, which torch cannot
+    read) by its 16-bit pattern, bit for bit; a tensor is returned as it is."""
+    if isinstance(leaf, torch.Tensor):
+        return leaf
+    if isinstance(leaf, Bits):
+        return torch.from_numpy(np.array(leaf.bits, order="C").view(np.int16)).view(
+            torch.bfloat16)
+    arr = np.array(leaf, order="C")  # a copy; keeps a 0-d leaf 0-d
+    if arr.dtype.name == BFLOAT16:
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
+class AsyncCheckpointer:
+    """Overlap checkpoint IO with training (one in-flight save).
+
+    Use as a context manager: ``__exit__`` flushes the in-flight save even
+    when an exception unwinds the training loop, so a restart's
+    ``latest_step`` read can never race the writer thread. When the body
+    is already unwinding, a save error is swallowed (the restart recovers
+    from the previous commit, which is exactly the crash contract); on the
+    clean path it propagates.
+    """
+
+    def __init__(self, directory: str):
+        self.directory = directory
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+
+    def __enter__(self) -> "AsyncCheckpointer":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        try:
+            self.wait()
+        except BaseException:
+            if exc_type is None:
+                raise
+            # already unwinding (an injected failure): the primary error
+            # wins; the restart resumes from the previous commit
+        return False
+
+    def save(self, step: int, leaves: Mapping) -> None:
+        """Start writing ``leaves`` (leaf path -> tensor, numpy array or
+        :class:`Bits`) as ``step``, after the previous save has finished;
+        the host copies are taken here, before the thread starts."""
+        self.wait()
+        host = {k: host_copy(v) for k, v in leaves.items()}
+
+        def run():
+            try:
+                save_checkpoint(self.directory, step, host)
+            except BaseException as e:  # surfaced on the next wait()
+                self._error = e
+
+        self._thread = threading.Thread(target=run, daemon=True)
+        self._thread.start()
+
+    def wait(self) -> None:
+        """Join the save in flight; raise its error, if it had one."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err

@@ -7,27 +7,22 @@ as ``Index.from_numpy`` does for an index. The trees are the reference's:
 ``{"embed": {"table"}, "lm_head": {"w"}, "units": {"p{i}": block},
 "tail": {"p{i}": block}, "ln_f": {"scale"}}`` with the stacked ``units``
 leaves ``(n_units, …)``, and caches ``{"units": {"p{i}": KVCache},
-"tail": {"p{i}": KVCache}}``. Nothing here imports the reference.
+"tail": {"p{i}": KVCache}}``. A training state (``train_state_from_jax``)
+is the reference's ``TrainState`` — its parameters and its ``AdamWState``
+(step, moments in ``optimizer_dtype``, int8 error feedback) — leaf for leaf
+under the names both packages' checkpoints use. Nothing here imports the
+reference.
 """
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
+from repro_torch import ckpt
 from repro_torch.api.index import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention
 from repro_torch.models.model import check_ported, init_tree
-
-
-def _tensor(arr) -> torch.Tensor:
-    """A numpy leaf as a tensor; a ``bfloat16`` leaf (``ml_dtypes``, which
-    torch cannot read) by its 16-bit pattern, bit for bit."""
-    arr = np.ascontiguousarray(np.asarray(arr))
-    if arr.dtype.name == "bfloat16":
-        return torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
-    return torch.from_numpy(arr.copy())
 
 
 def params_from_jax(tree: dict, cfg: ModelConfig, device=None) -> dict:
@@ -44,7 +39,7 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device=None) -> dict:
                 have = sorted(got) if isinstance(got, dict) else type(got).__name__
                 raise ValueError(f"params{path}: keys {have}, config needs {sorted(spec)}")
             return {k: convert(got[k], spec[k], f"{path}/{k}") for k in spec}
-        t = _tensor(got)
+        t = ckpt.leaf_tensor(got)
         if tuple(t.shape) != tuple(spec.shape) or t.dtype != spec.dtype:
             raise ValueError(f"params{path}: {tuple(t.shape)} {t.dtype}, config needs "
                              f"{tuple(spec.shape)} {spec.dtype}")
@@ -67,9 +62,22 @@ def caches_from_jax(tree: dict, cfg: ModelConfig, device=None) -> dict:
         out[group] = {}
         for i in range(len(kinds)):
             c = tree[group][f"p{i}"]
-            k, v, k_pos = (_tensor(getattr(c, f)).to(dev) for f in ("k", "v", "k_pos"))
+            k, v, k_pos = (ckpt.leaf_tensor(getattr(c, f)).to(dev) for f in ("k", "v", "k_pos"))
             if k.shape != v.shape or k_pos.shape != k.shape[:-2] or k_pos.dtype != torch.int32:
                 raise ValueError(f"caches/{group}/p{i}: k {tuple(k.shape)}, v {tuple(v.shape)}, "
                                  f"k_pos {tuple(k_pos.shape)} {k_pos.dtype}")
             out[group][f"p{i}"] = attention.KVCache(k=k, v=v, k_pos=k_pos)
     return out
+
+
+def train_state_from_jax(tree, mcfg: ModelConfig, tcfg, device=None):
+    """The port's ``TrainState`` from the reference's (``init_train_state``'s
+    or a training step's, its leaves as numpy arrays), on ``device``
+    (default: the CUDA card). Every leaf's name, shape and dtype is checked
+    against ``init_train_state(…, mcfg, tcfg)``'s, bf16 moments and the
+    int8 error feedback included; a mismatch raises ValueError naming it."""
+    from repro_torch.runtime import train_step
+
+    return train_step.train_state_from_leaves(
+        dict(train_step.named_leaves(tree)), train_step.train_state_template(mcfg, tcfg),
+        device=device)

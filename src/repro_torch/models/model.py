@@ -1,4 +1,4 @@
-"""Model assembly: layer patterns of scan units and a tail, two serving modes.
+"""Model assembly: layer patterns of scan units and a tail, three run modes.
 
 Counterpart of ``repro.models.model`` for the dense architectures. Layer
 patterns: ``cfg.scan_unit`` is a tuple of layer kinds repeated ``n_units``
@@ -12,12 +12,22 @@ Ported kinds: ``attn``, ``local``, ``global``, ``chunked`` and
 ``global_nope``, each an attention block plus a dense MLP. ``mamba2``,
 ``shared_attn``, the ``_moe`` suffix, the audio and vision frontends and
 encoder-only models raise :func:`repro_torch.not_ported` (ROADMAP.md Queue A
-item 14c) before any work; ``forward_train``, ``param_specs`` and
-``cache_specs`` wait for item 14b/14d.
+item 14c) before any work; ``param_specs`` and ``cache_specs``
+(PartitionSpec trees) wait for item 14d.
 
 Run modes:
+  forward_train   — full-sequence forward + next-token CE loss
   forward_prefill — full-sequence forward, returns per-layer caches + logits
   forward_decode  — one token against the caches
+
+Training differentiates with ``torch.autograd`` through the same ops as
+prefill (no forward op here writes in place). ``cfg.remat`` wraps each unit in a
+non-reentrant ``torch.utils.checkpoint``, the reference's ``jax.checkpoint``
+per scanned unit: with ``remat_policy="nothing"`` the unit's activations
+are recomputed in the backward pass, with ``"dots"`` the outputs of its
+weight products (``aten.mm``, jax's ``dots_with_no_batch_dims_saveable``)
+are kept and the rest recomputed. The recomputation runs the same ops on
+the same inputs, so remat changes no bit of the loss or the gradients.
 
 Params are nested dicts of tensors with the reference's tree and leaf
 shapes, so ``models.convert.params_from_jax`` hands the reference's over
@@ -26,9 +36,12 @@ one to one.
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Any
 
 import torch
+import torch.nn.functional as F
+from torch.utils import checkpoint as ckpt_util
 
 from repro_torch import not_ported
 from repro_torch.api.index import as_generator, resolve_device
@@ -140,6 +153,14 @@ def init_tree(generator: torch.Generator | None, cfg: ModelConfig) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def _apply_block_seq(kind, bparams, x, positions, cfg):
+    """Train-mode (no cache) application of one block."""
+    h = layers.rmsnorm(bparams["ln1"], x, cfg.norm_eps)
+    x = x + attention.attn_sequence(bparams["attn"], h, positions, cfg, kind)
+    h = layers.rmsnorm(bparams["ln2"], x, cfg.norm_eps)
+    return x + mlp.mlp(bparams["ffn"], h, cfg.activation)
+
+
 def _apply_block_prefill(kind, bparams, x, positions, cfg, cache_len):
     """One block over the sequence; also builds its decode cache."""
     h = layers.rmsnorm(bparams["ln1"], x, cfg.norm_eps)
@@ -159,8 +180,41 @@ def _apply_block_decode(kind, bparams, x, pos, cache, cfg):
 
 
 # ---------------------------------------------------------------------------
-# Backbone loops (prefill / decode)
+# Backbone loops (train / prefill / decode)
 # ---------------------------------------------------------------------------
+
+
+def _save_weight_products(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``remat_policy="dots"``: keep the 2-D
+    products (the linears, which ``matmul`` lowers to ``aten.mm``), recompute
+    the rest (the attention einsums are batched, ``aten.bmm``)."""
+    if op is torch.ops.aten.mm.default:
+        return ckpt_util.CheckpointPolicy.MUST_SAVE
+    return ckpt_util.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, cfg: ModelConfig):
+    """``fn`` under a non-reentrant checkpoint, with the config's policy."""
+    kw = {}
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = partial(ckpt_util.create_selective_checkpoint_contexts,
+                                   _save_weight_products)
+    return partial(ckpt_util.checkpoint, fn, use_reentrant=False, **kw)
+
+
+def _backbone_train(params, x, positions, cfg: ModelConfig):
+    def unit_body(h, unit_p):
+        for i, kind in enumerate(cfg.scan_unit):
+            h = _apply_block_seq(kind, unit_p[f"p{i}"], h, positions, cfg)
+        return h
+
+    if cfg.remat:
+        unit_body = _remat(unit_body, cfg)
+    for u in range(cfg.resolved_units):
+        x = unit_body(x, _index(params["units"], u))
+    for i, kind in enumerate(cfg.tail):
+        x = _apply_block_seq(kind, params["tail"][f"p{i}"], x, positions, cfg)
+    return layers.rmsnorm(params["ln_f"], x, cfg.norm_eps)
 
 
 def _backbone_prefill(params, x, positions, cfg: ModelConfig, cache_len: int):
@@ -235,6 +289,62 @@ def _logits(params, x, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 # Public entry points
 # ---------------------------------------------------------------------------
+
+
+class _TokenNLL(torch.autograd.Function):
+    """logsumexp(x) - x[target] over the last dim of f32 logits x.
+
+    The forward is the ops the reference writes (``logsumexp``, a gather).
+    The backward returns what autograd would make of them,
+    ``g * exp(x - logsumexp(x))`` with ``-g`` added at the target, bit for
+    bit, but in one (…, V) tensor written in place: autograd's generic
+    backward holds three more of that size (the difference, its exp, the
+    gather's scattered zeros), 8 GiB each for a (2, 4096, 262,144) batch."""
+
+    @staticmethod
+    def forward(ctx, x, idx):
+        logz = torch.logsumexp(x, dim=-1)
+        ctx.save_for_backward(x, logz, idx)
+        return logz - torch.gather(x, -1, idx)[..., 0]
+
+    @staticmethod
+    def backward(ctx, g):
+        x, logz, idx = ctx.saved_tensors
+        grad = (x - logz[..., None]).exp_().mul_(g[..., None])
+        return grad.scatter_add_(-1, idx, -g[..., None]), None
+
+
+def _ce_terms(params, x_slice, targets, mask, cfg):
+    """(sum nll, sum mask) for one sequence slice — logits live only here."""
+    logits = _logits(params, x_slice, cfg)
+    nll = _TokenNLL.apply(logits.float(), targets[..., None].long()) * mask
+    return torch.sum(nll), torch.sum(mask)
+
+
+def forward_train(params, batch: dict, cfg: ModelConfig) -> torch.Tensor:
+    """Mean next-token CE loss (0-d f32) over ``batch["tokens"]`` (B, S)."""
+    check_ported(cfg)
+    x, positions = _embed_inputs(params, batch, cfg)
+    x = _backbone_train(params, x, positions, cfg)
+    tokens = batch["tokens"]
+    targets = F.pad(tokens[:, 1:], (0, 1))  # next-token
+    mask = F.pad(torch.ones(tokens[:, 1:].shape, dtype=torch.float32, device=x.device), (0, 1))
+
+    S = x.shape[1]
+    if cfg.loss_chunk and S % cfg.loss_chunk == 0 and S > cfg.loss_chunk:
+        # chunked CE: the (B, c, V) logits are transient per chunk (recomputed
+        # in the backward pass), never (B, S, V)
+        c = cfg.loss_chunk
+        terms = partial(ckpt_util.checkpoint, partial(_ce_terms, params, cfg=cfg),
+                        use_reentrant=False)
+        nll_sum = mask_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+        for j in range(S // c):
+            snll, smask = terms(x[:, j * c:(j + 1) * c], targets[:, j * c:(j + 1) * c],
+                                mask[:, j * c:(j + 1) * c])
+            nll_sum, mask_sum = nll_sum + snll, mask_sum + smask
+    else:
+        nll_sum, mask_sum = _ce_terms(params, x, targets, mask, cfg)
+    return nll_sum / torch.clamp_min(mask_sum, 1.0)
 
 
 def forward_prefill(params, batch: dict, cfg: ModelConfig, cache_len: int | None = None):

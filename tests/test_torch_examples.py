@@ -54,11 +54,28 @@ def test_torch_lm_retrieval_serve_runs_on_cpu(capsys):
     assert tokens["plain"].shape == tokens["ALSH-retrieval"].shape == (2, 4)
 
 
+def test_torch_train_small_runs_on_cpu(capsys, tmp_path):
+    """Two steps of the small model: finite losses and a committed step-2
+    checkpoint that holds the training state's leaves."""
+    from repro_torch import ckpt
+
+    losses = _main("torch_train_small")(["--device", "cpu", "--steps", "2", "--seq-len", "32",
+                                         "--global-batch", "2", "--ckpt-dir", str(tmp_path)])
+    assert len(losses) == 2 and all(torch.isfinite(torch.tensor(losses)))
+    assert "[train_small] loss" in capsys.readouterr().out
+    assert ckpt.latest_step(str(tmp_path)) == 2
+    back = ckpt.restore_checkpoint(str(tmp_path), 2, ["opt/step", "params/embed/table",
+                                                     "opt/m/embed/table"])
+    assert int(back["opt/step"]) == 2 and back["params/embed/table"].shape == (4096, 384)
+    assert back["opt/m/embed/table"].any()  # the step moved the moments
+
+
 def test_torch_examples_need_the_card_by_default(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for name, argv in (("torch_quickstart", ["--n", "64"]),
                        ("torch_streaming_updates", ["--n", "64"]),
                        ("torch_weighted_knn_classify", ["--n", "64"]),
-                       ("torch_lm_retrieval_serve", ["--batch", "1"])):
+                       ("torch_lm_retrieval_serve", ["--batch", "1"]),
+                       ("torch_train_small", ["--steps", "1"])):
         with pytest.raises(RuntimeError, match='device="cpu"'):
             _main(name)(argv)

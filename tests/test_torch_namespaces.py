@@ -1,7 +1,9 @@
 """The port's package namespaces against the reference's (CPU):
 ``repro_torch.core``, ``repro_torch.api``, ``repro_torch.analysis``,
-``repro_torch.configs`` and ``repro_torch.models`` export every name their
-reference packages export (``ShardedIndex`` too) but those ``HELD_BACK``
+``repro_torch.configs``, ``repro_torch.models``, ``repro_torch.runtime``,
+``repro_torch.optim``, ``repro_torch.data`` and ``repro_torch.ckpt`` export
+every name their reference packages export (``ShardedIndex`` too) but those
+``HELD_BACK``
 names a later ROADMAP.md item ports, the legacy
 shims warn as the reference's do, and each shim's answer equals
 ``Index.query``'s."""
@@ -14,28 +16,44 @@ import torch
 
 import repro.analysis as janalysis
 import repro.api as japi
+import repro.ckpt as jckpt
 import repro.configs as jconfigs
 import repro.core as jcore
+import repro.data as jdata
 import repro.models as jmodels
+import repro.optim as joptim
+import repro.runtime as jruntime
 import repro_torch.analysis as tanalysis
 import repro_torch.api as tapi
+import repro_torch.ckpt as tckpt
 import repro_torch.configs as tconfigs
 import repro_torch.core as tcore
+import repro_torch.data as tdata
 import repro_torch.models as tmodels
+import repro_torch.optim as toptim
+import repro_torch.runtime as truntime
 
 # names the port exports beyond the reference's
 PORT_ONLY = {"core": {"index_from_numpy"}, "api": {"validate_query_args"},
              "analysis": {"library_loads"}, "configs": set(),
-             "models": {"params_from_jax", "caches_from_jax"}}
-# the reference's names the port holds back, by the ROADMAP.md item that ports them
-HELD_BACK = {"models": {"forward_train",  # Queue A item 14b
-                        "param_specs", "cache_specs"}}  # Queue A item 14d
+             "models": {"params_from_jax", "caches_from_jax", "train_state_from_jax"},
+             "runtime": {"SimulatedFailure", "StragglerMonitor", "train_state_leaves",
+                         "train_state_from_leaves"},
+             "optim": set(), "data": set(), "ckpt": {"BFLOAT16", "Bits", "host_copy", "leaf_tensor"}}
+# the reference's names the port holds back (PartitionSpec trees), by the
+# ROADMAP.md item that ports them: Queue A item 14d
+HELD_BACK = {"models": {"param_specs", "cache_specs"}, "runtime": {"train_state_specs"},
+             "optim": {"opt_state_specs"}}
 
 
 @pytest.mark.parametrize("name,port,ref", [("core", tcore, jcore), ("api", tapi, japi),
                                            ("analysis", tanalysis, janalysis),
                                            ("configs", tconfigs, jconfigs),
-                                           ("models", tmodels, jmodels)])
+                                           ("models", tmodels, jmodels),
+                                           ("runtime", truntime, jruntime),
+                                           ("optim", toptim, joptim),
+                                           ("data", tdata, jdata),
+                                           ("ckpt", tckpt, jckpt)])
 def test_all_matches_the_reference(name, port, ref):
     held = HELD_BACK.get(name, set())
     assert held <= set(ref.__all__)
