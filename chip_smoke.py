@@ -181,12 +181,25 @@ Phases, each of which fails the run (exit code 1) when it fails:
         counted, the peak, ``adamw_update`` alone, loss and grad norm
         finite beside ln V; 2 steps at microbatch 2 with int8_ef; the
         reduced model's loss, grads and one step on the card against the
-        CPU; ``pipeline_apply`` over 4 stages on the card against the
+        CPU (the update by its relative L2 over the tree and, leaf by leaf,
+        at most 1% of the entries off by more than 0.05 of the lr);
+        ``pipeline_apply`` over 4 stages on the card against the
         sequential stages; and the restart drill in a process of its own
         (``--restart-drill``, deterministic): a failure at step 7 and a
         restart from the step-5 commit, async checkpoints, equal to the
         clean run bit for bit, its last commit restored on the CPU leaf
         for leaf. No kernel runs on this path (launches 0);
+     n. families (see ``phase_families_path``): hubert-xlarge, qwen2-vl-2b,
+        mamba2-2.7b and zamba2-7b at full width and llama4-scout-17b-16e
+        with its depth cut to 2 units, one at a time: encode or prefill, 16
+        decode steps (plain; with retrieval for qwen2-vl and mamba2, one
+        ``alsh_project`` and one ``gather_rerank_topk`` a step), the f32
+        prefill/decode gaps, full-width train steps for hubert and
+        qwen2-vl, each family's init and step numbers; all six families
+        reduced on the card against the CPU (logits 1e-4, tokens equal, MoE
+        layers 1e-5 with and without dropped tokens, one train step under
+        the train path's bars); then the retrieval steps' kernels at their
+        captured shapes against their plain versions;
   6. check: on a small input, the card's answers agree with the plain
      PyTorch path on the CPU over the same index state (f32 probe and
      exact, int8 screened probe).
@@ -248,7 +261,7 @@ KERNEL_META = {
                    "src/repro/kernels/wl1_distance.py:112"),
 }
 PATHS = ("f32", "quantized", "multiprobe", "stream", "unfused", "early_exit", "persist", "plan",
-         "broker", "sharded", "static_contracts", "lm", "train")
+         "broker", "sharded", "static_contracts", "lm", "train", "families")
 # The stream path: the reference service's defaults (serve --mode stream)
 STREAM_CAP = 8192  # --delta-capacity
 STREAM_THRESHOLD = 0.75  # --compact-threshold
@@ -3843,6 +3856,9 @@ TRAIN_BF16_GRAD_L2 = 0.05  # relative L2 error over the whole gradient tree
 TRAIN_UPDATE_L2 = 1e-3  # f32: one step's parameter update, relative L2 error over the tree
 # (not a max: Adam's first step is ~lr * g / |g|, so an entry with |g| near eps
 # can move by any part of 2 lr for a last-bit difference in g)
+TRAIN_UPDATE_LR = 0.05  # f32, each leaf: an entry is past when off by 0.05 of the step's lr
+TRAIN_NEAR_EPS = 10  # (but not where its |g|, from the CPU's v, is under 10 Adam eps)
+TRAIN_UPDATE_SHARE = 0.01  # at most 1% of a leaf's entries past (a small leaf: none)
 TRAIN_MOMENT_TOL = 1e-4  # f32: moments within 1e-4 of each leaf's largest |entry|
 TRAIN_PIPE_FWD = dict(rtol=1e-5, atol=1e-5)  # tests/test_pipeline.py's bar
 TRAIN_PIPE_GRAD = dict(rtol=1e-4, atol=1e-5)
@@ -3969,13 +3985,93 @@ def _train_full_width(cfg, tcfg, S, out):
           f"{cm['grad_norm']:.4f}")
 
 
+def _update_check(before, want_s, got_s, lr, tcfg) -> dict:
+    """One f32 step's parameter update, card (``got_s``) against the CPU
+    (``want_s``), both from ``before`` ({leaf name: float64 numpy}): the
+    relative L2 error over the tree (TRAIN_UPDATE_L2), and per leaf the
+    entries off by more than TRAIN_UPDATE_LR of the lr whose gradient (|g|
+    from the CPU's second moment) is at least TRAIN_NEAR_EPS Adam eps: at
+    most TRAIN_UPDATE_SHARE of a leaf's entries. Returns the numbers and the
+    leaves past their share (``bad_leaves``)."""
+    import numpy as np
+
+    params = [k for k in want_s if k.startswith("params/")]
+    update_l2 = math.sqrt(sum(float(np.sum((got_s[k] - want_s[k]) ** 2)) for k in params)
+                          / sum(float(np.sum((want_s[k] - before[k]) ** 2)) for k in params))
+    worst, bad = (-1.0, ""), []
+    for k in params:
+        g = np.sqrt(want_s["opt/v/" + k[len("params/"):]] / (1 - tcfg.beta2))
+        past = (np.abs(got_s[k] - want_s[k]) > TRAIN_UPDATE_LR * lr) & (
+            g >= TRAIN_NEAR_EPS * tcfg.eps)
+        n_past = int(past.sum())
+        worst = max(worst, (n_past / past.size, k))
+        if n_past > int(TRAIN_UPDATE_SHARE * past.size):
+            bad.append(f"{k}: {n_past} of {past.size}")
+    return {"update_rel_l2": update_l2, "worst_leaf_share_past": worst[0],
+            "worst_leaf": worst[1], "bad_leaves": bad}
+
+
+def _step_card_vs_cpu(label, c, tcfg, state, batch, tag="train"):
+    """``forward_train``'s loss and gradients and one ``make_train_step`` of
+    config ``c`` from the same state and batch (CPU tensors) on the card and
+    on the CPU. f32 compute: the loss within TRAIN_F32_LOSS_RTOL, every
+    gradient leaf within TRAIN_F32_GRAD_TOL of its largest, the update by
+    ``_update_check``, moments within TRAIN_MOMENT_TOL; bf16 compute: the
+    loss within TRAIN_BF16_LOSS_TOL and the gradients' relative L2 within
+    TRAIN_BF16_GRAD_L2."""
+    import numpy as np
+
+    from repro_torch.runtime import train_step as ts
+
+    gpu_state = ts.train_state_from_leaves(ts.train_state_leaves(state), state, "cuda")
+    gbatch = {k: v.cuda() for k, v in batch.items()}
+    lc, gcpu = ts._value_and_grad(state.params, batch, c)
+    lg, gg = ts._value_and_grad(gpu_state.params, gbatch, c)
+    want = {k: v.double().numpy() for k, v in _named(gcpu).items()}
+    got = {k: v.double().cpu().numpy() for k, v in _named(gg).items()}
+    loss_err = abs(float(lg) - float(lc))
+    grad_err = max(float(np.max(np.abs(got[k] - want[k]))) / max(
+        float(np.max(np.abs(want[k]))), 1e-30) for k in want)
+    grad_l2 = math.sqrt(sum(float(np.sum((got[k] - want[k]) ** 2)) for k in want)
+                        / sum(float(np.sum(want[k] ** 2)) for k in want))
+    sc, mc = ts.make_train_step(c, tcfg)(state, batch)
+    sg, mg = ts.make_train_step(c, tcfg)(gpu_state, gbatch)
+    lr = float(mc["lr"])
+    before = {k: v.double().numpy() for k, v in ts.train_state_leaves(state).items()}
+    want_s = {k: v.double().numpy() for k, v in ts.train_state_leaves(sc).items()}
+    got_s = {k: v.double().cpu().numpy() for k, v in ts.train_state_leaves(sg).items()}
+    params = [k for k in want_s if k.startswith("params/")]
+    param_err = max(float(np.max(np.abs(got_s[k] - want_s[k]))) for k in params)
+    update = _update_check(before, want_s, got_s, lr, tcfg)
+    moment_err = max(float(np.max(np.abs(got_s[k] - want_s[k]))) / max(
+        float(np.max(np.abs(want_s[k]))), 1e-30)
+        for k in want_s if k.startswith(("opt/m/", "opt/v/")))
+    r = {"loss_cpu": float(lc), "loss_err": loss_err, "grad_err_of_leaf_max": grad_err,
+         "grad_rel_l2": grad_l2, "param_err": param_err, "param_err_over_lr": param_err / lr,
+         **update, "moment_err_of_leaf_max": moment_err,
+         "step_metrics_err": {k: abs(float(mg[k]) - float(mc[k])) for k in mc}}
+    print(f"  [{tag}] {label}, card vs CPU: loss {float(lc):.6f} off by {loss_err:.3g}; grads "
+          f"off by {grad_err:.3g} of a leaf's largest (rel L2 {grad_l2:.3g}); after one step "
+          f"the update off by {update['update_rel_l2']:.3g} (rel L2; largest entry "
+          f"{param_err / lr:.3g} of the lr; worst leaf {update['worst_leaf']} with "
+          f"{update['worst_leaf_share_past']:.4f} of its entries past {TRAIN_UPDATE_LR} of the "
+          f"lr), moments {moment_err:.3g} of a leaf's largest")
+    if c.compute_dtype == "float32":
+        bad = (loss_err > TRAIN_F32_LOSS_RTOL * abs(float(lc)) or grad_err > TRAIN_F32_GRAD_TOL
+               or update["update_rel_l2"] > TRAIN_UPDATE_L2 or update["bad_leaves"]
+               or moment_err > TRAIN_MOMENT_TOL)
+    else:
+        bad = loss_err > TRAIN_BF16_LOSS_TOL or grad_l2 > TRAIN_BF16_GRAD_L2
+    if bad:
+        raise AssertionError(f"{label}: card and CPU disagree: {r}")
+    return r
+
+
 def _train_card_vs_cpu(cfg):
     """(b): the reduced config, f32 compute and bf16 compute with remat, the
-    same parameters on the card and the CPU: the loss and the gradients of
-    ``forward_train``, and one ``make_train_step``'s metrics and state."""
+    same parameters on the card and the CPU (``_step_card_vs_cpu``)."""
     import dataclasses
 
-    import numpy as np
     import torch
 
     from repro_torch.configs import TrainConfig, reduced_model
@@ -3989,46 +4085,8 @@ def _train_card_vs_cpu(cfg):
     out = {}
     for compute, remat in (("float32", False), ("bfloat16", True)):
         c = dataclasses.replace(red, compute_dtype=compute, remat=remat)
-        gpu_state = ts.train_state_from_leaves(ts.train_state_leaves(state), state, "cuda")
-        lc, gc = ts._value_and_grad(state.params, {"tokens": toks}, c)
-        lg, gg = ts._value_and_grad(gpu_state.params, {"tokens": toks.cuda()}, c)
-        want = {k: v.double().numpy() for k, v in _named(gc).items()}
-        got = {k: v.double().cpu().numpy() for k, v in _named(gg).items()}
-        loss_err = abs(float(lg) - float(lc))
-        grad_err = max(float(np.max(np.abs(got[k] - want[k]))) / max(
-            float(np.max(np.abs(want[k]))), 1e-30) for k in want)
-        grad_l2 = math.sqrt(sum(float(np.sum((got[k] - want[k]) ** 2)) for k in want)
-                            / sum(float(np.sum(want[k] ** 2)) for k in want))
-        sc, mc = ts.make_train_step(c, tcfg)(state, {"tokens": toks})
-        sg, mg = ts.make_train_step(c, tcfg)(gpu_state, {"tokens": toks.cuda()})
-        lr = float(mc["lr"])
-        before = {k: v.double().numpy() for k, v in ts.train_state_leaves(state).items()}
-        want_s = {k: v.double().numpy() for k, v in ts.train_state_leaves(sc).items()}
-        got_s = {k: v.double().cpu().numpy() for k, v in ts.train_state_leaves(sg).items()}
-        params = [k for k in want_s if k.startswith("params/")]
-        param_err = max(float(np.max(np.abs(got_s[k] - want_s[k]))) for k in params)
-        update_l2 = math.sqrt(sum(float(np.sum((got_s[k] - want_s[k]) ** 2)) for k in params)
-                              / sum(float(np.sum((want_s[k] - before[k]) ** 2)) for k in params))
-        moment_err = max(float(np.max(np.abs(got_s[k] - want_s[k]))) / max(
-            float(np.max(np.abs(want_s[k]))), 1e-30)
-            for k in want_s if k.startswith(("opt/m/", "opt/v/")))
-        r = {"loss_cpu": float(lc), "loss_err": loss_err, "grad_err_of_leaf_max": grad_err,
-             "grad_rel_l2": grad_l2, "param_err": param_err, "param_err_over_lr": param_err / lr,
-             "update_rel_l2": update_l2, "moment_err_of_leaf_max": moment_err,
-             "step_metrics_err": {k: abs(float(mg[k]) - float(mc[k])) for k in mc}}
-        out[compute] = r
-        print(f"  [train] reduced {red.name} {compute} compute (remat {remat}), card vs CPU: "
-              f"loss {float(lc):.6f} off by {loss_err:.3g}; grads off by {grad_err:.3g} of a "
-              f"leaf's largest (rel L2 {grad_l2:.3g}); after one step the update off by "
-              f"{update_l2:.3g} (rel L2; largest entry {param_err / lr:.3g} of the lr), moments "
-              f"{moment_err:.3g} of a leaf's largest")
-        if compute == "float32":
-            bad = (loss_err > TRAIN_F32_LOSS_RTOL * abs(float(lc)) or grad_err > TRAIN_F32_GRAD_TOL
-                   or update_l2 > TRAIN_UPDATE_L2 or moment_err > TRAIN_MOMENT_TOL)
-        else:
-            bad = loss_err > TRAIN_BF16_LOSS_TOL or grad_l2 > TRAIN_BF16_GRAD_L2
-        if bad:
-            raise AssertionError(f"reduced {compute}: card and CPU disagree: {r}")
+        out[compute] = _step_card_vs_cpu(f"reduced {red.name} {compute} compute (remat {remat})",
+                                         c, tcfg, state, {"tokens": toks})
     return out
 
 
@@ -4189,6 +4247,401 @@ def phase_train_path(run, card):
     return counts, out
 
 
+FAM_SCOUT_UNITS = 2  # of llama4-scout's 12 units (8 of its 48 layers): ~19.7 B bf16 parameters
+FAM_INIT_PEAK_LIMIT = 50e9  # allocator bytes scout's init may peak at (parameters + one f32 draw)
+FAM_ENCODE = (4, 1024)  # hubert-xlarge: B, S frames encoded
+FAM_SERVE = {  # arch: (text tokens, vision patches, decode with retrieval, consistency S)
+    "qwen2-vl-2b": (64, 256, True, ()),
+    "mamba2-2.7b": (512, 0, True, (512, 600)),
+    "zamba2-7b": (512, 0, False, (512,)),
+    "llama4-scout-17b-16e": (64, 0, False, (64,)),
+}
+FAM_TRAIN = {"hubert-xlarge": (4, 1024), "qwen2-vl-2b": (2, 1024)}  # (B, S) of the train steps
+FAM_TRAIN_TIMED = 2  # steps after one warm-up
+FAM_REDUCED = ("hubert-xlarge", "qwen2-vl-2b", "llama4-scout-17b-16e",
+               "llama4-maverick-400b-a17b", "mamba2-2.7b", "zamba2-7b")
+MOE_SCATTER_TOL = 1e-5  # the lm path's scatter tolerance (index_put_ accumulate on the card)
+MOE_DROP_FACTOR = 0.5  # a capacity factor at which the reduced MoE layer drops tokens
+
+
+def _family_config(arch):
+    """The full-width config; llama4-scout's depth cut to FAM_SCOUT_UNITS."""
+    import dataclasses
+
+    from repro_torch.configs import get_bundle
+
+    cfg = get_bundle(arch).model
+    if arch == "llama4-scout-17b-16e":
+        cfg = dataclasses.replace(cfg, n_units=FAM_SCOUT_UNITS,
+                                  n_layers=FAM_SCOUT_UNITS * len(cfg.scan_unit))
+    return cfg
+
+
+def _free_card():
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _one_step_numbers(tag, label, fn, into):
+    """A step's device busy and idle share (profiled) and its ATen ops."""
+    prof = {}
+    into["device_busy_us"] = profile(f"[{tag}] {label}", fn, top=6, unprofiled_wall=True,
+                                     into=prof)
+    into["profile"] = prof
+    into["aten_ops"] = _count_aten_ops(fn)
+    print(f"  [{tag}] {label}: {into['aten_ops']} ATen ops")
+
+
+def _family_serve(arch, cfg, params, out, calls):
+    """Prefill and LM_GEN greedy decode steps (plain, and with retrieval at
+    ``RetrievalConfig()`` where FAM_SERVE says so), each variant LM_TIMING_LOOPS
+    loops interleaved; one step of each profiled; the decode steps' kernel
+    calls captured into ``calls``; then the f32 prefill/decode consistency
+    gaps."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import RetrievalConfig
+    from repro_torch.kernels import _build
+    from repro_torch.runtime import retrieval as rt
+    from repro_torch.runtime.serve_step import make_decode_step, make_prefill_step
+
+    n_text, n_patches, retrieval, gap_S = FAM_SERVE[arch]
+    B, G, V = LM_BATCH, LM_GEN, cfg.vocab_size
+    S = n_text + n_patches
+    g = torch.Generator().manual_seed(SEED + 21)
+    batch = {"tokens": torch.randint(0, V, (B, n_text), dtype=torch.int32, generator=g)}
+    if n_patches:  # the stream's vision batch: patches, and t = h = w grids
+        batch["patches"] = torch.randn((B, n_patches, cfg.frontend_dim), generator=g)
+        t = torch.arange(S, dtype=torch.int32).expand(B, S)
+        batch["positions"] = torch.stack([t, t, t])
+    batch = {k: v.cuda() for k, v in batch.items()}
+    prefill = make_prefill_step(cfg, cache_len=S + G)
+    plain = make_decode_step(cfg)
+    steps = {"plain": plain}
+    if retrieval:
+        rcfg = RetrievalConfig()
+        store = rt.build_datastore(SEED + 1, cfg.d_model, V, rcfg, device="cuda")
+        retr = make_decode_step(cfg, rcfg)
+        steps["retrieval"] = lambda p, b, c: retr(p, b, c, store)
+    prefill_ms = []
+    for _ in range(2):  # cold, then warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = prefill(params, batch)
+        tok0 = torch.argmax(logits, dim=-1).to(torch.int32)
+        torch.cuda.synchronize()
+        prefill_ms.append((time.perf_counter() - t0) * 1e3)
+    if tuple(logits.shape) != (B, V) or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{arch} prefill logits {tuple(logits.shape)} not finite (B, V)")
+    out["prefill"] = {"B": B, "S": S, "patches": n_patches, "cold_ms": prefill_ms[0],
+                      "warm_ms": prefill_ms[1]}
+    print(f"  [families] {arch} prefill B={B} S={S}" + (f" ({n_patches} patches + {n_text} "
+          f"tokens)" if n_patches else "") + f": cold {prefill_ms[0]:.2f} ms, warm "
+          f"{prefill_ms[1]:.2f} ms")
+
+    def batch_at(i, tok):
+        return {"token": tok, "pos": torch.full((B,), S + i, dtype=torch.int32, device="cuda")}
+
+    def loop(name):
+        before = _build.launch_counts()
+        tok, c, toks = tok0, caches, [tok0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(G):
+            mixed, tok, c = steps[name](params, batch_at(i, tok), c)
+            toks.append(tok)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / G
+        after = _build.launch_counts()
+        toks = torch.stack(toks, dim=1).cpu()
+        if not bool(torch.isfinite(mixed).all()) or not bool(((toks >= 0) & (toks < V)).all()):
+            raise AssertionError(f"{arch} {name} decode: non-finite output or a bad token")
+        return {"ms": ms, "toks": toks,
+                "launches": {k: (after[k] - before[k]) / G for k in after if after[k] != before[k]}}
+
+    loops = {name: [] for name in steps}
+    for _ in range(LM_TIMING_LOOPS):
+        for name in steps:
+            loops[name].append(loop(name))
+    out["decode"] = {}
+    for name, runs in loops.items():
+        ms_all = [r["ms"] for r in runs]
+        if any(r["launches"] != runs[0]["launches"] for r in runs):
+            raise AssertionError(f"{arch} {name} decode: the loops launched differently")
+        want = {"alsh_project": 1, "gather_rerank_topk": 1} if name == "retrieval" else {}
+        if runs[0]["launches"] != want:
+            raise AssertionError(f"{arch} {name} decode launched {runs[0]['launches']} a step, "
+                                 f"not {want}")
+        d = out["decode"][name] = {"ms_per_step": statistics.median(ms_all),
+                                   "ms_per_step_loops": ms_all,
+                                   "launches_per_step": runs[0]["launches"],
+                                   "first_tokens": runs[0]["toks"][0, :8].tolist()}
+        print(f"  [families] {arch} decode {name}: {LM_TIMING_LOOPS} loops of {G} steps x {B} "
+              f"seqs, median {d['ms_per_step']:.3f} ms/step (loops "
+              f"{[round(x, 3) for x in ms_all]}); launches per step {d['launches_per_step']}; "
+              f"first tokens (seq 0) {d['first_tokens']}")
+        _one_step_numbers("families", f"{arch} one {name} decode step",
+                          lambda: steps[name](params, batch_at(0, tok0), caches), d)
+    if retrieval:
+        calls[f"{arch} decode step b={B}, d_model {cfg.d_model}"] = _capture_kernel_calls(
+            lambda: steps["retrieval"](params, batch_at(0, tok0), caches))
+    out["peak_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    del caches
+
+    gaps = {}
+    cfg32 = gap_cfg = dataclasses.replace(cfg, compute_dtype="float32")
+    if cfg.moe is not None:  # capacity factor n_experts: no prefill drops a token
+        gap_cfg = dataclasses.replace(cfg32, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=float(cfg.moe.n_experts)))
+    for S_c in gap_S:
+        gaps[S_c] = _consistency_gap(params, gap_cfg, S_c, SEED + 5)
+        print(f"  [families] {arch} prefill({S_c + 1}) against prefill({S_c}) + one decode step, "
+              f"f32 compute" + (f", capacity factor {gap_cfg.moe.capacity_factor}" if cfg.moe
+                                else "") + f": max |logit gap| {gaps[S_c]:.3g} (bar "
+              f"{LM_CONSISTENCY_TOL})")
+        if gaps[S_c] > LM_CONSISTENCY_TOL:
+            raise AssertionError(f"{arch} prefill/decode gap {gaps[S_c]:.3g} at S={S_c}")
+    if cfg.moe is not None:  # the config's capacity factor, which may drop tokens
+        S_c = gap_S[0]
+        gaps[f"{S_c} at capacity {cfg.moe.capacity_factor}"] = gap = _consistency_gap(
+            params, cfg32, S_c, SEED + 5)
+        print(f"  [families] {arch} the same at the config's capacity factor "
+              f"{cfg.moe.capacity_factor}, where prefill({S_c + 1}) and prefill({S_c}) may drop "
+              f"other tokens: {gap:.3g} (printed, not held to the bar)")
+    out["consistency_gap"] = gaps
+
+
+def _family_encode(arch, cfg, params, out):
+    """hubert-xlarge: encode FAM_ENCODE frames (cold and warm), one encode
+    profiled."""
+    import torch
+
+    from repro_torch.data import DataConfig, SyntheticStream
+    from repro_torch.runtime.serve_step import make_prefill_step
+
+    B, S = FAM_ENCODE
+    frames = torch.as_tensor(SyntheticStream(DataConfig(seq_len=S, global_batch=B, seed=SEED),
+                                             cfg).batch(0)["frames"]).cuda()
+    encode = make_prefill_step(cfg)
+    ms = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = encode(params, {"frames": frames})
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    if (tuple(logits.shape) != (B, S, cfg.vocab_size) or caches is not None
+            or not bool(torch.isfinite(logits).all())):
+        raise AssertionError(f"{arch} encode: logits {tuple(logits.shape)}, caches {caches}")
+    out["encode"] = {"B": B, "S": S, "cold_ms": ms[0], "warm_ms": ms[1]}
+    print(f"  [families] {arch} encode B={B} S={S} frames -> ({B}, {S}, {cfg.vocab_size}) "
+          f"logits: cold {ms[0]:.2f} ms, warm {ms[1]:.2f} ms")
+    _one_step_numbers("families", f"{arch} one encode", lambda: encode(params, {"frames": frames}),
+                      out["encode"])
+    out["peak_allocated_bytes"] = torch.cuda.max_memory_allocated()
+
+
+def _family_train(arch, cfg, out):
+    """One warm-up and FAM_TRAIN_TIMED full-width steps under ``TrainConfig()``
+    on the stream's batches (hubert: masked-prediction CE over frames)."""
+    import torch
+
+    from repro_torch.configs import TrainConfig
+    from repro_torch.data import DataConfig, SyntheticStream
+    from repro_torch.runtime import train_step as ts
+
+    B, S = FAM_TRAIN[arch]
+    tcfg = TrainConfig()
+    stream = SyntheticStream(DataConfig(seq_len=S, global_batch=B, seed=SEED), cfg)
+    torch.cuda.reset_peak_memory_stats()
+    state = ts.init_train_state(SEED, cfg, tcfg, device="cuda")
+    step_fn = ts.make_train_step(cfg, tcfg)
+    state, warm, first = _timed_train_steps(step_fn, state, stream, 0, 1)
+    state, ms, metrics = _timed_train_steps(step_fn, state, stream, 1, FAM_TRAIN_TIMED)
+    peak = torch.cuda.max_memory_allocated()
+    del state
+    if not all(math.isfinite(m[k]) for m in (first, metrics) for k in ("loss", "grad_norm")):
+        raise AssertionError(f"{arch} train steps: first {first}, last {metrics}")
+    med = statistics.median(ms)
+    out["train"] = {"B": B, "S": S, "warmup_ms": warm[0], "ms_steps": ms, "ms_per_step": med,
+                    "tokens_per_s": B * S / (med / 1e3), "loss_first": first["loss"],
+                    "loss": metrics["loss"], "grad_norm": metrics["grad_norm"],
+                    "ln_vocab": math.log(cfg.vocab_size), "peak_allocated_bytes": peak}
+    print(f"  [families] {arch} train B={B} S={S} (TrainConfig(), remat={cfg.remat}): warm-up "
+          f"{warm[0]:.1f} ms, then {[round(x, 1) for x in ms]} ms a step, "
+          f"{out['train']['tokens_per_s']:.0f} tokens/s; loss {first['loss']:.4f} at the first "
+          f"step (ln V = {math.log(cfg.vocab_size):.2f}), {metrics['loss']:.4f} at step "
+          f"{FAM_TRAIN_TIMED + 1}; allocator peak {peak} B ({peak / 2**30:.2f} GiB)")
+
+
+def _family_full_width(arch, out, calls):
+    """One family at full width (scout's depth cut): parameters drawn on the
+    card from a seed (the init's allocator peak), then encode or serve, then
+    train where FAM_TRAIN says so; everything freed at the end."""
+    import torch
+
+    from repro_torch import models
+
+    cfg = _family_config(arch)
+    r = out[arch] = {}
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = models.init_params(SEED, cfg, device="cuda")
+    torch.cuda.synchronize()
+    leaves = _tree_leaves(params)
+    r.update(init_s=time.perf_counter() - t0, n_params=sum(t.numel() for t in leaves),
+             param_bytes=sum(t.numel() * t.element_size() for t in leaves),
+             init_peak_allocated_bytes=torch.cuda.max_memory_allocated(),
+             layers=cfg.n_layers, param_dtype=cfg.param_dtype, compute_dtype=cfg.compute_dtype)
+    print(f"  [families] {arch}: {cfg.n_layers} layers ({cfg.scan_unit} x {cfg.resolved_units} + "
+          f"{cfg.tail}), d_model {cfg.d_model}, vocab {cfg.vocab_size}: {r['n_params']} "
+          f"parameters, {r['param_bytes']} B ({cfg.param_dtype}; compute {cfg.compute_dtype}), "
+          f"drawn on the card in {r['init_s']:.2f} s, allocator peak "
+          f"{r['init_peak_allocated_bytes']} B")
+    if arch == "llama4-scout-17b-16e" and r["init_peak_allocated_bytes"] > FAM_INIT_PEAK_LIMIT:
+        raise AssertionError(f"scout's init peaked at {r['init_peak_allocated_bytes']} B")
+    torch.cuda.reset_peak_memory_stats()
+    if cfg.encoder_only:
+        _family_encode(arch, cfg, params, r)
+    else:
+        _family_serve(arch, cfg, params, r, calls)
+    print(f"  [families] {arch} allocator peak while serving {r['peak_allocated_bytes']} B "
+          f"({r['peak_allocated_bytes'] / 2**30:.2f} GiB)")
+    del params, leaves
+    _free_card()
+    if arch in FAM_TRAIN:
+        _family_train(arch, cfg, r)
+        _free_card()
+
+
+def _family_card_vs_cpu(arch):
+    """The reduced config, parameters drawn on the CPU and copied to the card:
+    the prefill (logits within LM_LOGIT_TOL; hubert: the (B, S, V) encoding)
+    and LM_REDUCED_STEPS greedy decode steps (tokens equal); an MoE layer at
+    the reduced capacity factor and at MOE_DROP_FACTOR (within
+    MOE_SCATTER_TOL); and ``_step_card_vs_cpu`` in f32."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import models
+    from repro_torch.configs import TrainConfig, get_bundle, reduced_model
+    from repro_torch.data import DataConfig, SyntheticStream
+    from repro_torch.models import model as model_lib
+    from repro_torch.models import moe
+    from repro_torch.runtime import train_step as ts
+
+    red = reduced_model(get_bundle(arch).model)
+    B, S = LM_BATCH, 64
+    p_cpu = models.init_params(SEED, red, device="cpu")
+    p_gpu = _tree_to(p_cpu, "cuda")
+    batch = {k: torch.as_tensor(v) for k, v in SyntheticStream(
+        DataConfig(seq_len=S, global_batch=B, seed=SEED + 11), red).batch(0).items()}
+    gbatch = {k: v.cuda() for k, v in batch.items()}
+    out = {}
+    lc, cc = models.forward_prefill(p_cpu, batch, red, cache_len=S + 8)
+    lg, cg = models.forward_prefill(p_gpu, gbatch, red, cache_len=S + 8)
+    worst = float((lg.cpu() - lc).abs().max())
+    if not red.encoder_only:
+        tc, tg = (torch.argmax(x, -1).to(torch.int32) for x in (lc, lg))
+        for i in range(LM_REDUCED_STEPS):
+            if not torch.equal(tg.cpu(), tc):
+                raise AssertionError(f"reduced {arch}: tokens differ at step {i}")
+            pos = torch.full((B,), S + i, dtype=torch.int32)
+            lc, tc, cc = models.forward_decode(p_cpu, {"token": tc, "pos": pos}, cc, red)
+            lg, tg, cg = models.forward_decode(p_gpu, {"token": tg, "pos": pos.cuda()}, cg, red)
+            worst = max(worst, float((lg.cpu() - lc).abs().max()))
+        if not torch.equal(tg.cpu(), tc):
+            raise AssertionError(f"reduced {arch}: tokens differ after the last step")
+    out["logits_err"] = worst
+    if worst > LM_LOGIT_TOL:
+        raise AssertionError(f"reduced {arch}: logits off by {worst:.3g}")
+    what = "the encoding" if red.encoder_only else f"prefill and {LM_REDUCED_STEPS} decode steps"
+    print(f"  [families] reduced {arch} (f32) on the card and the CPU, same parameters: {what}, "
+          f"logits max_abs_err {worst:.3g} (tolerance {LM_LOGIT_TOL})"
+          + ("" if red.encoder_only else ", tokens equal"))
+    if red.moe is not None:
+        i = next(j for j, k in enumerate(red.scan_unit) if k.endswith("_moe"))
+        layer = model_lib._index(p_cpu["units"], 0)[f"p{i}"]["ffn"]
+        x = torch.randn((B, S, red.d_model), generator=torch.Generator().manual_seed(SEED + 12))
+        T, E = B * S, red.moe.n_experts
+        out["moe"] = {}
+        for factor in (red.moe.capacity_factor, MOE_DROP_FACTOR):
+            c = dataclasses.replace(red, moe=dataclasses.replace(red.moe, capacity_factor=factor))
+            want = moe.moe_ffn(layer, x, c, c.moe)
+            got = moe.moe_ffn(_tree_to(layer, "cuda"), x.cuda(), c, c.moe).cpu()
+            routed = torch.argmax(x.reshape(T, -1) @ layer["router"]["w"], dim=-1)
+            C = moe._capacity(T, E, factor)
+            dropped = int((torch.bincount(routed, minlength=E) - C).clamp(min=0).sum())
+            err = float((got - want).abs().max())
+            out["moe"][factor] = {"err": err, "dropped": dropped, "capacity": C}
+            print(f"  [families] reduced {arch} MoE layer p{i}, {T} tokens over {E} experts at "
+                  f"capacity factor {factor} (C={C}, {dropped} dropped): card vs CPU max_abs_err "
+                  f"{err:.3g} (tolerance {MOE_SCATTER_TOL})")
+            if not torch.allclose(got, want, rtol=MOE_SCATTER_TOL, atol=MOE_SCATTER_TOL):
+                raise AssertionError(f"reduced {arch} MoE layer at capacity {factor}: {err}")
+    tcfg = TrainConfig(warmup_steps=2, total_steps=20)
+    state = ts.init_train_state(SEED, red, tcfg, device="cpu")
+    out["train"] = _step_card_vs_cpu(f"reduced {arch} f32 compute, one step", red, tcfg, state,
+                                     batch, tag="families")
+    return out
+
+
+def phase_families_path(run, card):
+    """The other six model families (ROADMAP.md Queue A item 14c), one at a
+    time, each freed before the next, with the launch counts zeroed first:
+
+    1. full width (parameters drawn on the card from a seed): hubert-xlarge
+       (48 layers, f32, 0.95 B parameters) encodes B=4 x 1024 frames and
+       takes FAM_TRAIN_TIMED masked-CE train steps at B=4, S=1024;
+       qwen2-vl-2b (1.55 B) prefills B=4 prompts of 256 patches and 64
+       tokens (S=320, t = h = w grids), decodes 16 steps plain and with ALSH
+       retrieval at ``RetrievalConfig()``, and trains at B=2, S=1024;
+       mamba2-2.7b (2.70 B) prefills B=4, S=512 (two SSD chunks), decodes 16
+       steps plain and with retrieval, and holds its f32 prefill/decode gap
+       at S=512 and S=600 (the pad path) to LM_CONSISTENCY_TOL; zamba2-7b
+       (5.62 B) prefills B=4, S=512, decodes 16 steps, gap at S=512;
+       llama4-scout-17b-16e with its depth cut from 12 units to
+       FAM_SCOUT_UNITS (8 layers, ~19.7 B bf16 parameters; widths, its 16
+       experts and capacity factor unchanged; its init's allocator peak
+       under FAM_INIT_PEAK_LIMIT) prefills B=4, S=64, decodes 16 steps, gap
+       at S=64 with no token dropped (printed at its capacity factor).
+       Each: prefill ms, ms a decode step (median of LM_TIMING_LOOPS loops),
+       one step's device busy, idle share and ATen ops, allocator peaks;
+    2. every family reduced, card against the CPU (``_family_card_vs_cpu``),
+       llama4-maverick-400b-a17b included (one of its units, ~33 B
+       parameters, does not fit the card beside its embeddings);
+    3. after the counts are read: the retrieval decode steps' kernels at
+       their captured shapes against their plain versions
+       (``_kernel_shapes``)."""
+    from repro_torch.kernels import _build
+
+    t_phase = time.perf_counter()
+    out, calls = {"card": card}, {}
+    _free_card()
+    _build.reset_launch_counts()
+    for arch in ("hubert-xlarge", "qwen2-vl-2b", "mamba2-2.7b", "zamba2-7b",
+                 "llama4-scout-17b-16e"):
+        t0 = time.perf_counter()
+        _family_full_width(arch, out, calls)
+        out[arch]["seconds"] = time.perf_counter() - t0
+        print(f"  [families] {arch}: {out[arch]['seconds']:.1f} s")
+    out["card_vs_cpu"] = {arch: _family_card_vs_cpu(arch) for arch in FAM_REDUCED}
+    counts = _path_counts("families", ("alsh_project", "gather_rerank_topk"))
+    out["kernel_shapes"] = _kernel_shapes(run, "families", calls, counts)
+    del calls
+    _free_card()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  [families] phase {out['phase_s']:.1f} s, {card}")
+    print(f"  [families] numbers: {json.dumps(out, default=str)}")
+    return counts, out
+
+
 def phase_small_check():
     """The card's answers against the plain PyTorch path on the CPU, over
     one index state (built on the card, copied to the CPU)."""
@@ -4300,6 +4753,9 @@ def main() -> int:
                   "retrieval and a growing datastore)", phase_lm_path, run, dev["card"]),
         run.phase("main path (train: full-width gemma3-1b at S=4096, card vs CPU, restart "
                   "drill, pipeline)", phase_train_path, run, dev["card"]),
+        run.phase("main path (families: hubert-xlarge, qwen2-vl-2b, mamba2-2.7b, zamba2-7b, "
+                  "llama4-scout cut to 2 units at full width; all six reduced, card vs CPU)",
+                  phase_families_path, run, dev["card"]),
     ]
     run.phase("check against the CPU path", phase_small_check)
     if run.failures or any(p is None for p in paths):

@@ -22,7 +22,8 @@ chaos; ``serve --mode broker``) with its rebuild guard
 (``analysis/retrace_guard.py``); and the sharded index (``Index.shard``,
 ``ShardedIndex``, ``core/distributed.py``: one process drives every shard
 of a ``make_mesh`` mesh, whose devices may repeat); and LM serving for the
-dense architectures (``configs/``, ``models/``, ``runtime/serve_step.py``,
+ten architectures — dense, MoE, Mamba2, the zamba2 shared block, the audio
+and vision frontends (``configs/``, ``models/``, ``runtime/serve_step.py``,
 ``runtime/retrieval.py``: prefill, greedy decode and the ALSH kNN-LM
 attachment, whose lookups run the kernels below; ``serve --mode lm``); and
 their training (``models.forward_train``, ``optim/``, ``data/``,
@@ -33,9 +34,9 @@ Its eight kernels are hand-written in CUDA for Hopper (``kernels/csrc``):
 every Pallas kernel of the reference has a counterpart. Entry points run on the CUDA card unless
 the caller asks for ``device="cpu"``; on CPU tensors the kernels' plain
 PyTorch versions run.
-Parts that are not ported yet (the MoE, SSM, shared-block, frontend and
-encoder-only architectures, the PartitionSpec trees) raise
-:class:`NotImplementedError` naming the ROADMAP item that ports them.
+Parts that are not ported yet (the PartitionSpec trees, the mesh-jitted
+train step, the shard_map MoE impls) raise :class:`NotImplementedError`
+naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations

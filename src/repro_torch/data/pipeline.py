@@ -11,8 +11,9 @@ data re-coordination.
 
 The synthetic LM stream is structured (Zipf-ish marginals + a Markov-like
 local dependency) so a small model visibly learns within a few hundred
-steps rather than flat-lining at log V. The audio and vision batches are
-data only: their models wait for ROADMAP.md Queue A item 14c.
+steps rather than flat-lining at log V. The audio batches (frames,
+masked-prediction targets and mask) feed hubert-xlarge, the vision batches
+(patches, tokens, (3, B, S) M-RoPE grids) qwen2-vl-2b.
 """
 
 from __future__ import annotations

@@ -38,8 +38,10 @@ Counterpart of ``repro.launch.serve``:
     random prompts of ``--prompt-len`` tokens, then decode ``--gen-len``
     tokens greedily — with ``--retrieval`` through the ALSH kNN-LM
     attachment over a datastore of 4096 records (d_key 16, K=6, L=8,
-    top-4), as the reference's. Only the dense architectures run; the
-    others raise ``NotImplementedError`` naming their ROADMAP.md item.
+    top-4), as the reference's. Every token-fed architecture runs (dense,
+    MoE, Mamba2, zamba2); the mode feeds tokens only, as the reference's,
+    so ``hubert-xlarge`` (audio frames) and ``qwen2-vl-2b`` (image patches)
+    raise a ``ValueError`` saying so.
 
 The printed lines match the reference's.
 
@@ -335,6 +337,10 @@ def serve_lm(args):
     device = resolve_device(args.device)
     bundle = get_bundle(args.arch)
     mcfg = reduced_model(bundle.model) if args.reduced else bundle.model
+    if mcfg.frontend is not None:
+        need = "audio frames" if mcfg.frontend == "audio" else "image patches and M-RoPE grids"
+        raise ValueError(f"serve --mode lm feeds token prompts only; {args.arch} takes "
+                         f"{need} through its {mcfg.frontend} frontend")
     rcfg = None
     if args.retrieval:
         rcfg = RetrievalConfig(datastore_size=4096, d_key=16, K=6, L=8, topk=4)

@@ -2,9 +2,10 @@
 
 Counterpart of ``repro.launch.train``, with the same flags and lines, plus
 ``--device`` (default: the CUDA card; ``--device cpu`` runs on the CPU).
-Runs real steps of the dense architectures (``--reduced`` for the tiny
-smoke dimensions); the others raise ``NotImplementedError`` naming their
-ROADMAP.md item.
+Runs real steps of every architecture on the synthetic stream (token
+batches; audio frames with masked-prediction targets for hubert-xlarge;
+patches, tokens and M-RoPE grids for qwen2-vl-2b), ``--reduced`` for the
+tiny smoke dimensions.
 
 Fault tolerance is on by default: resumes from the newest committed
 checkpoint in ``--ckpt-dir`` and checkpoints every ``--ckpt-every`` steps

@@ -4,14 +4,16 @@ The port cannot replay ``jax.random``, so every parity test builds the
 reference's parameters (and, for a decode from the reference's prefill, its
 caches), converts their leaves to numpy arrays, and hands them over here —
 as ``Index.from_numpy`` does for an index. The trees are the reference's:
-``{"embed": {"table"}, "lm_head": {"w"}, "units": {"p{i}": block},
-"tail": {"p{i}": block}, "ln_f": {"scale"}}`` with the stacked ``units``
-leaves ``(n_units, …)``, and caches ``{"units": {"p{i}": KVCache},
-"tail": {"p{i}": KVCache}}``. A training state (``train_state_from_jax``)
-is the reference's ``TrainState`` — its parameters and its ``AdamWState``
-(step, moments in ``optimizer_dtype``, int8 error feedback) — leaf for leaf
-under the names both packages' checkpoints use. Nothing here imports the
-reference.
+``{"embed": {"table"}, "lm_head": {"w"}, "units": {"p{i}": block}, "tail":
+{"p{i}": block}, "ln_f": {"scale"}}`` with the stacked ``units`` leaves
+``(n_units, …)`` (the audio frontend's ``frontend_proj`` and ``head`` in
+place of ``embed``/``lm_head``, the vision frontend's ``vision_proj``,
+zamba2's ``shared_block``), and caches ``{"units": {"p{i}": cache}, "tail":
+{"p{i}": cache}}``, a ``KVCache`` or a ``MambaCache`` each. A training state
+(``train_state_from_jax``) is the reference's ``TrainState`` — its
+parameters and its ``AdamWState`` (step, moments in ``optimizer_dtype``,
+int8 error feedback) — leaf for leaf under the names both packages'
+checkpoints use. Nothing here imports the reference.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import torch
 from repro_torch import ckpt
 from repro_torch.api.index import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import attention
+from repro_torch.models import attention, ssm
 from repro_torch.models.model import check_ported, init_tree
 
 
@@ -50,8 +52,10 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device=None) -> dict:
 
 def caches_from_jax(tree: dict, cfg: ModelConfig, device=None) -> dict:
     """The port's decode caches from the reference's (``forward_prefill``'s
-    or ``init_caches``'s) as numpy arrays: each layer's ``KVCache`` (or any
-    object with ``k``, ``v``, ``k_pos``) becomes an ``attention.KVCache``."""
+    or ``init_caches``'s) as numpy arrays: an attention layer's ``KVCache``
+    (or any object with ``k``, ``v``, ``k_pos``) becomes an
+    ``attention.KVCache``, a ``mamba2`` layer's ``MambaCache`` (``conv``,
+    ``state``) an ``ssm.MambaCache``."""
     check_ported(cfg)
     dev = resolve_device(device)
     groups = {"units": cfg.scan_unit if cfg.resolved_units else (), "tail": cfg.tail}
@@ -60,13 +64,20 @@ def caches_from_jax(tree: dict, cfg: ModelConfig, device=None) -> dict:
         if not kinds:
             continue
         out[group] = {}
-        for i in range(len(kinds)):
-            c = tree[group][f"p{i}"]
-            k, v, k_pos = (ckpt.leaf_tensor(getattr(c, f)).to(dev) for f in ("k", "v", "k_pos"))
+        for i, kind in enumerate(kinds):
+            c, where = tree[group][f"p{i}"], f"caches/{group}/p{i}"
+            if kind == "mamba2":
+                conv, state = (ckpt.leaf_tensor(getattr(c, f)) for f in ("conv", "state"))
+                if state.dtype != torch.float32 or conv.shape[:-2] != state.shape[:-3]:
+                    raise ValueError(f"{where}: conv {tuple(conv.shape)}, state "
+                                     f"{tuple(state.shape)} {state.dtype}")
+                out[group][f"p{i}"] = ssm.MambaCache(conv=conv.to(dev), state=state.to(dev))
+                continue
+            k, v, k_pos = (ckpt.leaf_tensor(getattr(c, f)) for f in ("k", "v", "k_pos"))
             if k.shape != v.shape or k_pos.shape != k.shape[:-2] or k_pos.dtype != torch.int32:
-                raise ValueError(f"caches/{group}/p{i}: k {tuple(k.shape)}, v {tuple(v.shape)}, "
+                raise ValueError(f"{where}: k {tuple(k.shape)}, v {tuple(v.shape)}, "
                                  f"k_pos {tuple(k_pos.shape)} {k_pos.dtype}")
-            out[group][f"p{i}"] = attention.KVCache(k=k, v=v, k_pos=k_pos)
+            out[group][f"p{i}"] = attention.KVCache(k=k.to(dev), v=v.to(dev), k_pos=k_pos.to(dev))
     return out
 
 

@@ -20,23 +20,47 @@ from __future__ import annotations
 import torch
 
 
-def init_device(generator: torch.Generator | None) -> torch.device:
+class DeferredDraws:
+    """A stand-in for a generator that draws nothing yet: each
+    ``truncated_normal_init`` asked of it returns a meta tensor and records
+    (that tensor, its std), in call order — the order the real generator
+    must draw them in — for ``draw_into`` to fill a destination chosen
+    later. Constant leaves (norm scales, biases) are made at once on the
+    generator's device."""
+
+    def __init__(self, generator: torch.Generator):
+        self.device = generator.device
+        self.draws: list = []
+
+
+def init_device(generator) -> torch.device:
     """Where ``init_*`` put their tensors: the generator's device, or the meta
     device for ``generator=None`` (shapes and dtypes only, no memory)."""
     return torch.device("meta") if generator is None else generator.device
 
 
-def truncated_normal_init(generator: torch.Generator | None, shape, std: float,
-                          dtype) -> torch.Tensor:
+def draw_into(generator: torch.Generator, out: torch.Tensor, std: float) -> torch.Tensor:
+    """``truncated_normal_init``'s draw written into ``out`` (any dtype; a
+    view may be one slice of a stacked leaf): the same f32 draw, product
+    and cast, bit for bit, with one f32 temporary of ``out``'s shape."""
+    t = torch.empty(tuple(out.shape), dtype=torch.float32, device=out.device)
+    torch.nn.init.trunc_normal_(t, mean=0.0, std=1.0, a=-2.0, b=2.0, generator=generator)
+    return out.copy_(t.mul_(std))
+
+
+def truncated_normal_init(generator, shape, std: float, dtype) -> torch.Tensor:
     """``std`` times a standard normal truncated to [-2, 2], drawn in f32 from
     ``generator`` on its device, then cast to ``dtype`` (a meta tensor for
-    ``generator=None``). The reference draws with ``jax.random``, which torch
-    cannot replay: parity goes through ``models.convert.params_from_jax``."""
-    if generator is None:
-        return torch.empty(tuple(shape), dtype=dtype, device="meta")
-    t = torch.empty(tuple(shape), dtype=torch.float32, device=generator.device)
-    torch.nn.init.trunc_normal_(t, mean=0.0, std=1.0, a=-2.0, b=2.0, generator=generator)
-    return (std * t).to(dtype)
+    ``generator=None``; recorded and left undrawn for a ``DeferredDraws``).
+    The reference draws with ``jax.random``, which torch cannot replay:
+    parity goes through ``models.convert.params_from_jax``."""
+    if generator is None or isinstance(generator, DeferredDraws):
+        t = torch.empty(tuple(shape), dtype=dtype, device="meta")
+        if generator is not None:
+            generator.draws.append((t, std))
+        return t
+    out = torch.empty(tuple(shape), dtype=dtype, device=generator.device)
+    return draw_into(generator, out, std)
 
 
 # ---------------------------------------------------------------------------

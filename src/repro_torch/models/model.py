@@ -1,22 +1,32 @@
 """Model assembly: layer patterns of scan units and a tail, three run modes.
 
-Counterpart of ``repro.models.model`` for the dense architectures. Layer
-patterns: ``cfg.scan_unit`` is a tuple of layer kinds repeated ``n_units``
-times — its parameters stacked along a leading (n_units) axis, as the
-reference's ``vmap``'d init lays them out — followed by an explicit
-``tail``. The reference runs the units under ``lax.scan``; the port runs
-them in a Python loop over the stacked parameters (each unit's slice is a
-view, not a copy) and stacks the units' caches again at the end.
+Counterpart of ``repro.models.model``. Layer patterns: ``cfg.scan_unit`` is
+a tuple of layer kinds repeated ``n_units`` times — its parameters stacked
+along a leading (n_units) axis, as the reference's ``vmap``'d init lays
+them out — followed by an explicit ``tail``. The reference runs the units
+under ``lax.scan``; the port runs them in a Python loop over the stacked
+parameters (each unit's slice is a view, not a copy) and stacks the units'
+caches again at the end. Kinds:
 
-Ported kinds: ``attn``, ``local``, ``global``, ``chunked`` and
-``global_nope``, each an attention block plus a dense MLP. ``mamba2``,
-``shared_attn``, the ``_moe`` suffix, the audio and vision frontends and
-encoder-only models raise :func:`repro_torch.not_ported` (ROADMAP.md Queue A
-item 14c) before any work; ``param_specs`` and ``cache_specs``
-(PartitionSpec trees) wait for item 14d.
+  attn / local / global / chunked / global_nope — attention block (+ MLP)
+     ... with "_moe" suffix → MoE FFN (``models.moe``) instead of dense MLP
+  mamba2       — Mamba2 SSD block (``models.ssm``; no separate FFN)
+  shared_attn  — attention + MLP with weights SHARED across occurrences
+                 (``params["shared_block"]``, zamba2); per-occurrence KV
+                 caches remain distinct.
+
+Frontends: ``frontend="audio"`` maps ``batch["frames"]`` through
+``frontend_proj`` and reads logits from ``head`` (masked-prediction CE over
+``batch["targets"]``/``batch["mask"]``); ``frontend="vision"`` puts the
+``vision_proj`` patch prefix before the token embeddings and rotates by the
+``(3, B, S)`` M-RoPE ``batch["positions"]`` (LM loss on text positions only).
+``encoder_only`` models prefill to full ``(B, S, V)`` logits and no caches.
+The one refusal left is ``moe_impl`` other than ``"gspmd"`` (ROADMAP.md
+Queue A item 14d, see ``models.moe``), as are ``param_specs`` and
+``cache_specs`` (PartitionSpec trees).
 
 Run modes:
-  forward_train   — full-sequence forward + next-token CE loss
+  forward_train   — full-sequence forward + next-token (or masked) CE loss
   forward_prefill — full-sequence forward, returns per-layer caches + logits
   forward_decode  — one token against the caches
 
@@ -31,7 +41,9 @@ the same inputs, so remat changes no bit of the loss or the gradients.
 
 Params are nested dicts of tensors with the reference's tree and leaf
 shapes, so ``models.convert.params_from_jax`` hands the reference's over
-one to one.
+one to one. ``init_tree`` draws the stacked unit leaves slice by slice into
+tensors allocated once (``layers.DeferredDraws``), so its peak is the
+parameters plus one f32 draw.
 """
 
 from __future__ import annotations
@@ -43,13 +55,9 @@ import torch
 import torch.nn.functional as F
 from torch.utils import checkpoint as ckpt_util
 
-from repro_torch import not_ported
 from repro_torch.api.index import as_generator, resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import attention, layers, mlp
-
-ATTN_KINDS = ("attn", "local", "global", "chunked", "global_nope")
-NOT_PORTED_ITEM = "Queue A item 14c"
+from repro_torch.models import attention, layers, mlp, moe, ssm
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -60,19 +68,19 @@ def _compute_dtype(cfg: ModelConfig) -> torch.dtype:
     return _dtype(cfg.compute_dtype)
 
 
+def _attn_kind(kind: str) -> str:
+    return kind.removesuffix("_moe")
+
+
+def _is_moe(kind: str) -> bool:
+    return kind.endswith("_moe")
+
+
 def check_ported(cfg: ModelConfig) -> None:
-    """Raise ``not_ported``, naming every part of ``cfg`` this package does
-    not run (MoE layers, other layer kinds, a frontend, encoder-only)."""
-    kinds = dict.fromkeys((*cfg.scan_unit, *cfg.tail))
-    parts = [f"MoE layers ({k!r})" for k in kinds if k.endswith("_moe")]
-    parts += [f"layer kind {k!r}" for k in kinds if not k.endswith("_moe")
-              and k not in ATTN_KINDS]
-    if cfg.frontend is not None:
-        parts.append(f"the {cfg.frontend} frontend")
-    if cfg.encoder_only:
-        parts.append("encoder-only models")
-    if parts:
-        raise not_ported(f"{cfg.name}: {', '.join(parts)}", NOT_PORTED_ITEM)
+    """Raise ``not_ported`` for the one part of a config this package does
+    not run: MoE layers under a ``moe_impl`` other than ``"gspmd"``."""
+    if any(_is_moe(k) for k in (*cfg.scan_unit, *cfg.tail)):
+        moe.check_impl(cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -81,36 +89,83 @@ def check_ported(cfg: ModelConfig) -> None:
 
 
 def _init_block(generator, kind: str, cfg: ModelConfig, dtype) -> dict:
-    """Params for one attention layer of the given kind."""
+    """Params for one layer of the given kind (shared_attn → empty marker)."""
+    if kind == "shared_attn":
+        return {}
     dev = layers.init_device(generator)
-    return {
+    if kind == "mamba2":
+        return {
+            "ln1": layers.init_rmsnorm(cfg.d_model, dtype, dev),
+            "mamba": ssm.init_mamba2(generator, cfg, cfg.ssm, dtype),
+        }
+    p = {
         "ln1": layers.init_rmsnorm(cfg.d_model, dtype, dev),
         "attn": attention.init_attention(generator, cfg, dtype),
         "ln2": layers.init_rmsnorm(cfg.d_model, dtype, dev),
-        "ffn": mlp.init_mlp(generator, cfg.d_model, cfg.d_ff, cfg.activation, dtype),
     }
+    if _is_moe(kind):
+        p["ffn"] = moe.init_moe(generator, cfg, cfg.moe, dtype)
+    else:
+        d_ff = cfg.moe.d_ff_dense if cfg.moe is not None else cfg.d_ff
+        p["ffn"] = mlp.init_mlp(generator, cfg.d_model, d_ff, cfg.activation, dtype)
+    return p
 
 
-def _stack(trees: list) -> Any:
-    """Stack same-structure dicts of tensors along a new leading axis."""
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
+def _leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    return [tree]
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    return fn(tree)
 
 
 def _index(tree, i: int):
     """Slice ``i`` of every leaf's leading axis (views)."""
     if isinstance(tree, dict):
         return {k: _index(v, i) for k, v in tree.items()}
-    if isinstance(tree, attention.KVCache):
-        return attention.KVCache(*(t[i] for t in tree))
+    if isinstance(tree, tuple):  # a KVCache or MambaCache
+        return type(tree)(*(t[i] for t in tree))
     return tree[i]
 
 
 def _stack_caches(caches: list) -> dict:
-    """Per-unit cache dicts -> one dict of KVCaches with a leading unit axis."""
-    return {k: attention.KVCache(*(torch.stack(ts) for ts in zip(*(c[k] for c in caches))))
+    """Per-unit cache dicts -> one dict of caches (``KVCache`` or
+    ``MambaCache``) with a leading unit axis."""
+    return {k: type(caches[0][k])(*(torch.stack(ts) for ts in zip(*(c[k] for c in caches))))
             for k in caches[0]}
+
+
+def _init_units(generator, cfg: ModelConfig, dtype) -> dict:
+    """The stacked ``(n_units, …)`` unit leaves, allocated once and filled
+    unit by unit, leaf by leaf, in the order a list of per-unit trees would
+    draw them (meta tensors for ``generator=None``)."""
+    n = cfg.resolved_units
+
+    def unit(gen):
+        return {f"p{i}": _init_block(gen, kind, cfg, dtype) for i, kind in enumerate(cfg.scan_unit)}
+
+    if generator is None:
+        return _map(lambda m: torch.empty((n, *m.shape), dtype=m.dtype, device="meta"),
+                    unit(None))
+    stacked = None
+    for u in range(n):
+        rec = layers.DeferredDraws(generator)
+        tree = unit(rec)
+        if stacked is None:
+            stacked = _map(lambda m: torch.empty((n, *m.shape), dtype=m.dtype,
+                                                 device=generator.device), tree)
+        pairs = list(zip(_leaves(tree), _leaves(_index(stacked, u))))
+        dst = {id(leaf): out for leaf, out in pairs}
+        for leaf, out in pairs:
+            if not leaf.is_meta:  # a constant leaf, made at once
+                out.copy_(leaf)
+        for leaf, std in rec.draws:
+            layers.draw_into(generator, dst[id(leaf)], std)
+    return stacked
 
 
 def init_params(seed_or_generator, cfg: ModelConfig, device=None) -> dict:
@@ -132,18 +187,24 @@ def init_tree(generator: torch.Generator | None, cfg: ModelConfig) -> dict:
     check_ported(cfg)
     gen = generator
     dtype = _dtype(cfg.param_dtype)
-    params: dict[str, Any] = {
-        "embed": layers.init_embed(gen, cfg.vocab_size, cfg.d_model, dtype)}
-    if not cfg.tie_embeddings:
-        params["lm_head"] = layers.init_linear(gen, cfg.d_model, cfg.vocab_size, dtype,
-                                               std=0.02)
+    params: dict[str, Any] = {}
+    if cfg.frontend == "audio":
+        params["frontend_proj"] = layers.init_linear(gen, cfg.frontend_dim, cfg.d_model, dtype)
+        params["head"] = layers.init_linear(gen, cfg.d_model, cfg.vocab_size, dtype)
+    else:
+        params["embed"] = layers.init_embed(gen, cfg.vocab_size, cfg.d_model, dtype)
+        if cfg.frontend == "vision":
+            params["vision_proj"] = layers.init_linear(gen, cfg.frontend_dim, cfg.d_model, dtype)
+        if not cfg.tie_embeddings:
+            params["lm_head"] = layers.init_linear(gen, cfg.d_model, cfg.vocab_size, dtype,
+                                                   std=0.02)
     if cfg.resolved_units:
-        params["units"] = _stack([
-            {f"p{i}": _init_block(gen, kind, cfg, dtype) for i, kind in enumerate(cfg.scan_unit)}
-            for _ in range(cfg.resolved_units)])
+        params["units"] = _init_units(gen, cfg, dtype)
     if cfg.tail:
         params["tail"] = {f"p{i}": _init_block(gen, kind, cfg, dtype)
                           for i, kind in enumerate(cfg.tail)}
+    if "shared_attn" in (*cfg.scan_unit, *cfg.tail):
+        params["shared_block"] = _init_block(gen, "attn", cfg, dtype)
     params["ln_f"] = layers.init_rmsnorm(cfg.d_model, dtype, layers.init_device(gen))
     return params
 
@@ -153,30 +214,52 @@ def init_tree(generator: torch.Generator | None, cfg: ModelConfig) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _apply_block_seq(kind, bparams, x, positions, cfg):
-    """Train-mode (no cache) application of one block."""
+def _ffn(kind, bparams, h, cfg):
+    if _is_moe(kind):
+        return moe.moe_ffn(bparams["ffn"], h, cfg, cfg.moe)
+    return mlp.mlp(bparams["ffn"], h, cfg.activation)
+
+
+def _apply_block_seq(kind, bparams, x, positions, cfg, shared=None):
+    """Train-mode (no cache) application of one block (``shared``: the
+    shared_attn kind's weights, ``params["shared_block"]``)."""
+    if kind == "shared_attn":
+        bparams, kind = shared, "attn"
     h = layers.rmsnorm(bparams["ln1"], x, cfg.norm_eps)
-    x = x + attention.attn_sequence(bparams["attn"], h, positions, cfg, kind)
+    if kind == "mamba2":
+        return x + ssm.mamba2_sequence(bparams["mamba"], h, cfg, cfg.ssm)
+    x = x + attention.attn_sequence(bparams["attn"], h, positions, cfg, _attn_kind(kind))
     h = layers.rmsnorm(bparams["ln2"], x, cfg.norm_eps)
-    return x + mlp.mlp(bparams["ffn"], h, cfg.activation)
+    return x + _ffn(kind, bparams, h, cfg)
 
 
-def _apply_block_prefill(kind, bparams, x, positions, cfg, cache_len):
+def _apply_block_prefill(kind, bparams, x, positions, cfg, cache_len, shared=None):
     """One block over the sequence; also builds its decode cache."""
+    if kind == "shared_attn":
+        bparams, kind = shared, "attn"
     h = layers.rmsnorm(bparams["ln1"], x, cfg.norm_eps)
-    clen = attention.cache_len_for(kind, cfg, cache_len)
-    cache = attention.prefill_kv(bparams["attn"], h, positions, cfg, kind, clen)
-    x = x + attention.attn_sequence(bparams["attn"], h, positions, cfg, kind)
+    if kind == "mamba2":
+        out, cache = ssm.mamba2_sequence(bparams["mamba"], h, cfg, cfg.ssm, return_cache=True)
+        return x + out, cache
+    ak = _attn_kind(kind)
+    clen = attention.cache_len_for(ak, cfg, cache_len)
+    cache = attention.prefill_kv(bparams["attn"], h, positions, cfg, ak, clen)
+    x = x + attention.attn_sequence(bparams["attn"], h, positions, cfg, ak)
     h = layers.rmsnorm(bparams["ln2"], x, cfg.norm_eps)
-    return x + mlp.mlp(bparams["ffn"], h, cfg.activation), cache
+    return x + _ffn(kind, bparams, h, cfg), cache
 
 
-def _apply_block_decode(kind, bparams, x, pos, cache, cfg):
+def _apply_block_decode(kind, bparams, x, pos, cache, cfg, shared=None):
+    if kind == "shared_attn":
+        bparams, kind = shared, "attn"
     h = layers.rmsnorm(bparams["ln1"], x, cfg.norm_eps)
-    out, new_cache = attention.attn_decode(bparams["attn"], h, pos, cache, cfg, kind)
+    if kind == "mamba2":
+        out, new_cache = ssm.mamba2_decode(bparams["mamba"], h, cache, cfg, cfg.ssm)
+        return x + out, new_cache
+    out, new_cache = attention.attn_decode(bparams["attn"], h, pos, cache, cfg, _attn_kind(kind))
     x = x + out
     h = layers.rmsnorm(bparams["ln2"], x, cfg.norm_eps)
-    return x + mlp.mlp(bparams["ffn"], h, cfg.activation), new_cache
+    return x + _ffn(kind, bparams, h, cfg), new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -203,9 +286,11 @@ def _remat(fn, cfg: ModelConfig):
 
 
 def _backbone_train(params, x, positions, cfg: ModelConfig):
+    shared = params.get("shared_block")
+
     def unit_body(h, unit_p):
         for i, kind in enumerate(cfg.scan_unit):
-            h = _apply_block_seq(kind, unit_p[f"p{i}"], h, positions, cfg)
+            h = _apply_block_seq(kind, unit_p[f"p{i}"], h, positions, cfg, shared)
         return h
 
     if cfg.remat:
@@ -213,11 +298,12 @@ def _backbone_train(params, x, positions, cfg: ModelConfig):
     for u in range(cfg.resolved_units):
         x = unit_body(x, _index(params["units"], u))
     for i, kind in enumerate(cfg.tail):
-        x = _apply_block_seq(kind, params["tail"][f"p{i}"], x, positions, cfg)
+        x = _apply_block_seq(kind, params["tail"][f"p{i}"], x, positions, cfg, shared)
     return layers.rmsnorm(params["ln_f"], x, cfg.norm_eps)
 
 
 def _backbone_prefill(params, x, positions, cfg: ModelConfig, cache_len: int):
+    shared = params.get("shared_block")
     caches: dict[str, Any] = {}
     if cfg.resolved_units:
         per_unit = []
@@ -225,18 +311,19 @@ def _backbone_prefill(params, x, positions, cfg: ModelConfig, cache_len: int):
             unit_p, unit_c = _index(params["units"], u), {}
             for i, kind in enumerate(cfg.scan_unit):
                 x, unit_c[f"p{i}"] = _apply_block_prefill(kind, unit_p[f"p{i}"], x, positions,
-                                                          cfg, cache_len)
+                                                          cfg, cache_len, shared)
             per_unit.append(unit_c)
         caches["units"] = _stack_caches(per_unit)
     if cfg.tail:
         caches["tail"] = {}
         for i, kind in enumerate(cfg.tail):
             x, caches["tail"][f"p{i}"] = _apply_block_prefill(
-                kind, params["tail"][f"p{i}"], x, positions, cfg, cache_len)
+                kind, params["tail"][f"p{i}"], x, positions, cfg, cache_len, shared)
     return layers.rmsnorm(params["ln_f"], x, cfg.norm_eps), caches
 
 
 def _backbone_decode(params, x, pos, caches, cfg: ModelConfig):
+    shared = params.get("shared_block")
     new_caches: dict[str, Any] = {}
     if cfg.resolved_units:
         per_unit = []
@@ -244,14 +331,14 @@ def _backbone_decode(params, x, pos, caches, cfg: ModelConfig):
             unit_p, unit_c, new_c = _index(params["units"], u), _index(caches["units"], u), {}
             for i, kind in enumerate(cfg.scan_unit):
                 x, new_c[f"p{i}"] = _apply_block_decode(kind, unit_p[f"p{i}"], x, pos,
-                                                        unit_c[f"p{i}"], cfg)
+                                                        unit_c[f"p{i}"], cfg, shared)
             per_unit.append(new_c)
         new_caches["units"] = _stack_caches(per_unit)
     if cfg.tail:
         new_caches["tail"] = {}
         for i, kind in enumerate(cfg.tail):
             x, new_caches["tail"][f"p{i}"] = _apply_block_decode(
-                kind, params["tail"][f"p{i}"], x, pos, caches["tail"][f"p{i}"], cfg)
+                kind, params["tail"][f"p{i}"], x, pos, caches["tail"][f"p{i}"], cfg, shared)
     return layers.rmsnorm(params["ln_f"], x, cfg.norm_eps), new_caches
 
 
@@ -269,17 +356,39 @@ def _scale_embeddings(x, cfg: ModelConfig):
     return x * factor
 
 
+def _need(batch: dict, key: str, cfg: ModelConfig):
+    if key not in batch:
+        raise ValueError(f"{cfg.name}: the {cfg.frontend} frontend needs batch[{key!r}] "
+                         f"(the batch has {sorted(batch)})")
+    return batch[key]
+
+
 def _embed_inputs(params, batch: dict, cfg: ModelConfig):
-    """Returns (x (B,S,dm), positions (B,S)) for token inputs."""
-    x = layers.embed(params["embed"], batch["tokens"], _compute_dtype(cfg))
-    B, S = x.shape[:2]
-    positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
+    """Returns (x (B,S,dm), positions) for any modality: (B, S) positions,
+    or the vision batch's (3, B, S) M-RoPE grids."""
+    cdt = _compute_dtype(cfg)
+    if cfg.frontend == "audio":
+        x = layers.linear(params["frontend_proj"], _need(batch, "frames", cfg).to(cdt))
+        positions = None
+    elif cfg.frontend == "vision":
+        tok_emb = layers.embed(params["embed"], batch["tokens"], cdt)
+        patches = layers.linear(params["vision_proj"], _need(batch, "patches", cfg).to(cdt))
+        x = torch.cat([patches, tok_emb], dim=1)  # vision prefix
+        positions = _need(batch, "positions", cfg)  # (3, B, S) M-RoPE grids
+    else:
+        x = layers.embed(params["embed"], batch["tokens"], cdt)
+        positions = None
+    if positions is None:
+        B, S = x.shape[:2]
+        positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
     return _scale_embeddings(x, cfg), positions
 
 
 def _logits(params, x, cfg: ModelConfig):
     ldt = _dtype(cfg.logits_dtype)
-    if cfg.tie_embeddings:
+    if cfg.frontend == "audio":
+        out = layers.linear(params["head"], x).to(ldt)
+    elif cfg.tie_embeddings:
         out = layers.unembed(params["embed"], x).to(ldt)
     else:
         out = layers.linear(params["lm_head"], x).to(ldt)
@@ -322,13 +431,22 @@ def _ce_terms(params, x_slice, targets, mask, cfg):
 
 
 def forward_train(params, batch: dict, cfg: ModelConfig) -> torch.Tensor:
-    """Mean next-token CE loss (0-d f32) over ``batch["tokens"]`` (B, S)."""
+    """Mean loss (0-d f32). LM: next-token CE over ``batch["tokens"]``
+    (B, S) (vision: on the text positions only); audio encoder: the
+    masked-prediction CE over ``batch["targets"]`` where ``batch["mask"]``."""
     check_ported(cfg)
     x, positions = _embed_inputs(params, batch, cfg)
     x = _backbone_train(params, x, positions, cfg)
-    tokens = batch["tokens"]
-    targets = F.pad(tokens[:, 1:], (0, 1))  # next-token
-    mask = F.pad(torch.ones(tokens[:, 1:].shape, dtype=torch.float32, device=x.device), (0, 1))
+    if cfg.frontend == "audio":
+        targets = _need(batch, "targets", cfg)  # (B, S) int32
+        mask = _need(batch, "mask", cfg).to(torch.float32)  # (B, S) masked positions
+    else:
+        tokens = batch["tokens"]
+        targets = F.pad(tokens[:, 1:], (0, 1))  # next-token
+        mask = F.pad(torch.ones(tokens[:, 1:].shape, dtype=torch.float32, device=x.device),
+                     (0, 1))
+        if cfg.frontend == "vision":
+            x = x[:, x.shape[1] - tokens.shape[1]:]  # only text positions carry LM loss
 
     S = x.shape[1]
     if cfg.loss_chunk and S % cfg.loss_chunk == 0 and S > cfg.loss_chunk:
@@ -348,13 +466,16 @@ def forward_train(params, batch: dict, cfg: ModelConfig) -> torch.Tensor:
 
 
 def forward_prefill(params, batch: dict, cfg: ModelConfig, cache_len: int | None = None):
-    """Returns (last-position logits (B, V), caches).
+    """Returns (last-position logits (B, V), caches). Encoder-only: (logits
+    (B, S, V), None).
 
     cache_len: total serving-cache slots (>= seq_len to leave decode room);
     defaults to seq_len.
     """
     check_ported(cfg)
     x, positions = _embed_inputs(params, batch, cfg)
+    if cfg.encoder_only:
+        return _logits(params, _backbone_train(params, x, positions, cfg), cfg), None
     cache_len = cache_len or x.shape[1]
     x, caches = _backbone_prefill(params, x, positions, cfg, cache_len)
     logits = _logits(params, x[:, -1:, :], cfg)[:, 0]
@@ -363,8 +484,13 @@ def forward_prefill(params, batch: dict, cfg: ModelConfig, cache_len: int | None
 
 def forward_decode(params, batch: dict, caches, cfg: ModelConfig, return_hidden=False):
     """One decode step. batch: {"token": (B,), "pos": (B,)}. Returns (logits
-    (B, V), next token (B,) int32, new caches[, final hidden (B, dm)])."""
+    (B, V), next token (B,) int32, new caches[, final hidden (B, dm)]).
+
+    (For VLM decode, M-RoPE on generated text positions is exactly standard
+    RoPE with t=h=w=pos, so the 2D position path is used, as the
+    reference's.)"""
     check_ported(cfg)
+    _no_decode(cfg)
     x = layers.embed(params["embed"], batch["token"][:, None], _compute_dtype(cfg))  # (B,1,dm)
     x = _scale_embeddings(x, cfg)
     x, new_caches = _backbone_decode(params, x, batch["pos"], caches, cfg)
@@ -375,13 +501,22 @@ def forward_decode(params, batch: dict, caches, cfg: ModelConfig, return_hidden=
     return logits, next_tok, new_caches
 
 
+def _no_decode(cfg: ModelConfig) -> None:
+    if cfg.encoder_only:
+        raise ValueError(f"{cfg.name} is encoder-only: it has no decode step or caches")
+
+
 def init_caches(batch: int, seq_len: int, cfg: ModelConfig, device=None) -> dict:
     """Zero caches for decode-from-scratch (serving bootstrap)."""
     check_ported(cfg)
+    _no_decode(cfg)
     dtype, dev = _compute_dtype(cfg), resolve_device(device)
 
     def cache_for(kind):
-        clen = attention.cache_len_for(kind, cfg, seq_len)
+        if kind == "mamba2":
+            return ssm.init_mamba_cache(batch, cfg, cfg.ssm, dtype, dev)
+        ak = _attn_kind(kind if kind != "shared_attn" else "attn")
+        clen = attention.cache_len_for(ak, cfg, seq_len)
         return attention.init_kv_cache(batch, clen, cfg, dtype, dev)
 
     caches: dict[str, Any] = {}

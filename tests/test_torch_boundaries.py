@@ -277,16 +277,6 @@ def test_shard_still_raises_naming_item_12(tmp_path):
             index.shard(None)
 
 
-@pytest.mark.parametrize("mode,arch", [("lm", "llama4-scout-17b-16e"), ("lm", "mamba2-2.7b")])
-def test_serve_unported_modes_raise(mode, arch):
-    """Every serve mode is ported; the LM mode raises for the architectures
-    it does not run yet (MoE, SSM), naming their ROADMAP.md item."""
-    from repro_torch.launch import serve
-
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A item 14c"):
-        serve.main(["--mode", mode, "--arch", arch, "--device", "cpu"])
-
-
 def test_serve_alsh_runs_on_cpu(capsys):
     from repro_torch.launch import serve
 

@@ -137,20 +137,30 @@ def test_params_from_jax_names_a_bad_leaf():
         tmodels.params_from_jax(tree, tcfg, device="cpu")
 
 
-@pytest.mark.parametrize("arch,part", [
-    ("llama4-scout-17b-16e", "MoE"),
-    ("mamba2-2.7b", "mamba2"),
-    ("zamba2-7b", "shared_attn"),
-    ("qwen2-vl-2b", "vision frontend"),
-    ("hubert-xlarge", "audio frontend"),
-])
-def test_unported_families_raise_naming_roadmap(arch, part):
-    _, tcfg = _configs(arch)
-    for call in (lambda: tmodels.init_params(0, tcfg, device="cpu"),
-                 lambda: tmodels.forward_prefill({}, {"tokens": torch.zeros((1, 4))}, tcfg),
-                 lambda: tmodels.init_caches(1, 8, tcfg, device="cpu")):
-        with pytest.raises(NotImplementedError, match=f"{part}.*ROADMAP.md Queue A item 14c"):
-            call()
+def test_init_fills_the_stacked_leaves_with_the_per_unit_draws():
+    """``init_params`` fills the stacked unit leaves slice by slice; from the
+    same seed it is bit for bit the tree a list of per-unit draws stacked
+    afterwards gives (the order: embedding, lm_head, unit by unit and leaf
+    by leaf, the tail, ln_f)."""
+    from repro_torch.models import model as tmodel
+
+    _, tcfg = _configs("gemma3-1b")
+    got = tmodels.init_params(0, tcfg, device="cpu")
+    gen, dtype = torch.Generator(device="cpu").manual_seed(0), torch.float32
+    want = {"embed": tlayers.init_embed(gen, tcfg.vocab_size, tcfg.d_model, dtype)}
+    if not tcfg.tie_embeddings:
+        want["lm_head"] = tlayers.init_linear(gen, tcfg.d_model, tcfg.vocab_size, dtype, std=0.02)
+    units = [{f"p{i}": tmodel._init_block(gen, kind, tcfg, dtype)
+              for i, kind in enumerate(tcfg.scan_unit)} for _ in range(tcfg.resolved_units)]
+    want["units"] = jax.tree.map(lambda *ts: torch.stack(ts), *units)
+    want["tail"] = {f"p{i}": tmodel._init_block(gen, kind, tcfg, dtype)
+                    for i, kind in enumerate(tcfg.tail)}
+    want["ln_f"] = tlayers.init_rmsnorm(tcfg.d_model, dtype)
+    jflat, tflat = (jax.tree_util.tree_flatten_with_path(t)[0] for t in (want, got))
+    assert [p for p, _ in jflat] == [p for p, _ in tflat]
+    for (path, a), (_, b) in zip(jflat, tflat):
+        assert torch.equal(a, b), jax.tree_util.keystr(path)
+    assert bool(want["units"]["p0"]["attn"]["wq"]["w"].any())
 
 
 # ---------------------------------------------------------------------------

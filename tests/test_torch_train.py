@@ -267,9 +267,13 @@ def test_remat_recomputes_in_the_backward_pass():
 
 
 def test_forward_train_refuses_unported_families_and_specs():
-    for arch in ("llama4-scout-17b-16e", "mamba2-2.7b", "hubert-xlarge"):
-        cfg = tconfigs.reduced_model(tconfigs.get_bundle(arch).model)
-        with pytest.raises(NotImplementedError, match="Queue A item 14c"):
+    """Every family trains; the shard_map MoE impls and the PartitionSpec
+    trees are refused, naming Queue A item 14d."""
+    for impl in ("ep_shardmap", "a2a_shardmap"):
+        cfg = dataclasses.replace(
+            tconfigs.reduced_model(tconfigs.get_bundle("llama4-scout-17b-16e").model),
+            moe_impl=impl)
+        with pytest.raises(NotImplementedError, match=f"moe_impl='{impl}'.*Queue A item 14d"):
             tmodels.forward_train({}, {"tokens": torch.zeros((1, 4), dtype=torch.int32)}, cfg)
     mcfg = tconfigs.reduced_model(tconfigs.get_bundle("gemma3-1b").model)
     trc = tconfigs.TrainConfig()
