@@ -200,6 +200,18 @@ Phases, each of which fails the run (exit code 1) when it fails:
         layers 1e-5 with and without dropped tokens, one train step under
         the train path's bars); then the retrieval steps' kernels at their
         captured shapes against their plain versions;
+     o. mesh (see ``phase_mesh_path``): ``launch.dryrun`` over every
+        runnable (arch x shape) of the ten archs on the abstract pod1
+        mesh, the llama4 train_4k cells also on pod2 and under
+        ``--optimized``, each cell's step run on meta tensors at its global
+        shape in worker processes (ok or skipped, with argument bytes a
+        device, aten ops and the whole-program live peak); the decode
+        cells predicted to fit the card run on a (1, 1) mesh of cuda:0
+        (the bytes asked of the allocator equal to the predicted argument
+        bytes, the allocator's peak beside the live peak, ms a step); the
+        MoE mesh impls on a (2, 4) mesh of the card (ep_shardmap against
+        gspmd, a2a_shardmap with drops against the CPU, grads finite). No
+        kernel runs on this path (launches 0);
   6. check: on a small input, the card's answers agree with the plain
      PyTorch path on the CPU over the same index state (f32 probe and
      exact, int8 screened probe).
@@ -261,7 +273,7 @@ KERNEL_META = {
                    "src/repro/kernels/wl1_distance.py:112"),
 }
 PATHS = ("f32", "quantized", "multiprobe", "stream", "unfused", "early_exit", "persist", "plan",
-         "broker", "sharded", "static_contracts", "lm", "train", "families")
+         "broker", "sharded", "static_contracts", "lm", "train", "families", "mesh")
 # The stream path: the reference service's defaults (serve --mode stream)
 STREAM_CAP = 8192  # --delta-capacity
 STREAM_THRESHOLD = 0.75  # --compact-threshold
@@ -3316,6 +3328,8 @@ LM_NEAR_NOISE = 0.01  # near-duplicate keys: a datastore record + U(-0.01, 0.01)
 def _tree_leaves(tree):
     if isinstance(tree, dict):
         return [t for v in tree.values() for t in _tree_leaves(v)]
+    if isinstance(tree, tuple):  # a batch of trees, a KVCache, a MambaCache
+        return [t for v in tree for t in _tree_leaves(v)]
     return [tree]
 
 
@@ -4642,6 +4656,275 @@ def phase_families_path(run, card):
     return counts, out
 
 
+MESH_LLAMA4 = ("llama4-scout-17b-16e", "llama4-maverick-400b-a17b")  # train_4k on pod2, --optimized
+MESH_FIT_SHARE = 0.95  # of the card's free bytes a one-card cell may be predicted to need
+# The caching allocator's rounding: a block is a multiple of 512 bytes, and a
+# large one (over 1 MiB) may keep the unsplit rest of its 2 MiB-rounded segment
+MESH_ALLOC_ROUND = (512, 2 << 20)
+MESH_STEPS = 3  # timed decode steps a one-card cell (after one warm-up)
+MESH_MOE = (8, 64)  # (B, S) of the reduced scout's MoE layer on the (2, 4) mesh
+MESH_MOE_BAR = 2e-4  # ep_shardmap against gspmd: the reference's bar (tests/test_distributed.py)
+MESH_MOE_CPU_TOL = 1e-5  # a2a with drops, the card against the CPU (the scatter tolerance)
+MESH_MOE_DROP_FACTOR = 0.5
+
+
+def _mesh_dryrun(out):
+    """``launch.dryrun.run_cell`` for every (arch, shape) on pod1, the
+    MESH_LLAMA4 train_4k cells also on pod2 and under ``--optimized`` on
+    both, in spawned worker processes (one meta run per (arch, shape,
+    config), reused across meshes where nothing changes); one line per cell
+    from its record."""
+    import os
+    import tempfile
+
+    from repro_torch.configs import SHAPES, get_bundle, list_archs
+    from repro_torch.launch import dryrun
+
+    workers = max(1, (os.cpu_count() or 3) - 2)  # a core left for the card's phases
+    cells = {}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        plain, opt = os.path.join(tmp, "plain"), os.path.join(tmp, "opt")
+        os.makedirs(plain)
+        os.makedirs(opt)
+        both = ["pod1", "pod2"]
+        tasks = [(a, s, both if (a in MESH_LLAMA4 and s == "train_4k") else ["pod1"], plain,
+                  False, False) for a in list_archs() for s in SHAPES]
+        tasks += [(a, "train_4k", both, opt, False, True) for a in MESH_LLAMA4]
+        ok = dryrun.run_groups(tasks, workers=workers)
+        for d, optimized in ((plain, False), (opt, True)):
+            for name in sorted(os.listdir(d)):
+                with open(os.path.join(d, name)) as f:
+                    cells[("opt " if optimized else "") + name[:-5]] = json.load(f)
+    out["dryrun_s"] = time.perf_counter() - t0
+    out["dryrun_workers"] = workers
+    n_ok = n_skip = 0
+    for key, rec in cells.items():
+        if rec["status"] == "skipped":
+            n_skip += 1
+            print(f"  [mesh] dryrun {key}: skipped ({rec['reason']})")
+            continue
+        if rec["status"] != "ok":
+            raise AssertionError(f"dry-run cell {key}: {rec.get('error')}")
+        n_ok += 1
+        print(f"  [mesh] dryrun {key}: {rec['argument_size_in_bytes']} argument bytes a device, "
+              f"{rec['aten_ops']} aten ops, whole-program live peak (meta) "
+              f"{rec['whole_program_live_bytes_peak']} B, meta run {rec['meta_run_s']:.2f} s"
+              + (" (reused)" if rec["meta_run_reused"] else ""))
+    want = sum(len(get_bundle(a).runnable_shapes()) for a in list_archs()) + 3 * len(MESH_LLAMA4)
+    if not ok or n_ok != want:
+        raise AssertionError(f"dry run: {n_ok} cells ok of {want}")
+    print(f"  [mesh] dry run: {n_ok} cells ok, {n_skip} skipped, in {out['dryrun_s']:.1f} s on "
+          f"{workers} worker processes")
+    out["dryrun"] = {k: {f: r.get(f) for f in ("status", "argument_size_in_bytes",
+                                                 "output_size_in_bytes", "aten_ops",
+                                                 "whole_program_live_bytes_peak", "meta_run_s",
+                                                 "meta_run_reused")}
+                     for k, r in cells.items()}
+
+
+def _requested_bytes():
+    """The bytes the live tensors asked the caching allocator for, before
+    its rounding (None where this torch does not count them)."""
+    import torch
+
+    return torch.cuda.memory_stats().get("requested_bytes.all.current")
+
+
+def _mesh_one_card(out):
+    """Every (arch, decode shape) whose argument bytes plus its meta run's
+    live peak (a lower bound on what the step holds) fit MESH_FIT_SHARE of
+    the card's free bytes, on ``make_local_mesh()`` (a (1, 1) mesh of
+    cuda:0): real parameters (from a seed) and caches allocated on the card,
+    ``memory_allocated`` against the predicted argument bytes, one warm-up
+    and MESH_STEPS timed decode steps at the cell's full shape."""
+    import torch
+
+    from repro_torch import models
+    from repro_torch.configs import SHAPES, get_bundle, list_archs
+    from repro_torch.launch import compile as lc
+    from repro_torch.launch import specs as input_specs
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.runtime.serve_step import make_decode_step
+
+    mesh = make_local_mesh()
+    if mesh.shape != {"data": 1, "model": 1}:
+        raise AssertionError(f"make_local_mesh() on one card: {mesh}")
+    res = out["one_card"] = {}
+    for arch in list_archs():
+        bundle = get_bundle(arch)
+        for name in ("decode_32k", "long_500k"):
+            if name in bundle.shape_skips:
+                continue
+            shape, cfg = SHAPES[name], bundle.model
+            cell = lc.lower_cell(bundle, shape, mesh)
+            _free_card()
+            free = torch.cuda.mem_get_info()[0]
+            need = cell.argument_size_in_bytes + cell.whole_program_live_bytes_peak
+            if need > MESH_FIT_SHARE * free:
+                print(f"  [mesh] one card {arch} x {name}: predicted {need} B (arguments "
+                      f"{cell.argument_size_in_bytes} + live peak "
+                      f"{cell.whole_program_live_bytes_peak}) > {MESH_FIT_SHARE} of {free} "
+                      f"free: not run")
+                continue
+            r = res[f"{arch} x {name}"] = {"predicted_argument_bytes": cell.argument_size_in_bytes,
+                                           "predicted_live_peak": cell.whole_program_live_bytes_peak,
+                                           "free_bytes": free}
+            base = torch.cuda.memory_allocated()
+            base_req = _requested_bytes()
+            torch.cuda.reset_peak_memory_stats()
+            params = models.init_params(SEED, cfg, device="cuda")
+            caches = models.init_caches(shape.global_batch, shape.seq_len, cfg, device="cuda")
+            batch = input_specs.decode_batch(cfg, shape.global_batch, shape.seq_len - 1,
+                                             concrete=True, device="cuda")
+            torch.cuda.synchronize()
+            leaves = _tree_leaves((params, batch, caches))
+            got = torch.cuda.memory_allocated() - base
+            requested = None if base_req is None else _requested_bytes() - base_req
+            rounding = sum(MESH_ALLOC_ROUND[t.numel() * t.element_size() > 1 << 20]
+                           for t in leaves)
+            r.update(allocated_bytes=got, requested_bytes=requested, leaves=len(leaves))
+            if not 0 <= got - cell.argument_size_in_bytes <= rounding or requested not in (
+                    None, cell.argument_size_in_bytes):
+                raise AssertionError(f"{arch} x {name}: {got} B allocated ({requested} "
+                                     f"requested), {cell.argument_size_in_bytes} predicted")
+            step = make_decode_step(cfg)
+            torch.cuda.reset_peak_memory_stats()
+            with torch.no_grad():
+                logits, tok, new = step(params, batch, caches)
+                del new
+                torch.cuda.synchronize()
+                r["step_peak_bytes"] = torch.cuda.max_memory_allocated() - base
+                ms = []
+                for _ in range(MESH_STEPS):
+                    t = time.perf_counter()
+                    new = step(params, batch, caches)[2]
+                    torch.cuda.synchronize()
+                    ms.append((time.perf_counter() - t) * 1e3)
+                    del new
+            if logits.shape != (shape.global_batch, cfg.vocab_size) or not bool(
+                    torch.isfinite(logits).all()):
+                raise AssertionError(f"{arch} x {name}: logits {tuple(logits.shape)} not finite")
+            r.update(ms=ms, ms_median=statistics.median(ms),
+                     peak_allocated_bytes=torch.cuda.max_memory_allocated() - base)
+            print(f"  [mesh] one card {arch} x {name} (B={shape.global_batch}, cache "
+                  f"{shape.seq_len}): predicted argument bytes {cell.argument_size_in_bytes}, "
+                  f"requested {requested}, allocated {got} ({len(leaves)} tensors); live peak "
+                  f"(meta) "
+                  f"{cell.whole_program_live_bytes_peak} B; allocator peak over the arguments "
+                  f"{r['step_peak_bytes'] - got} B in a step ({r['peak_allocated_bytes']} B in "
+                  f"all); {r['ms_median']:.2f} ms a decode step (median of {MESH_STEPS}: "
+                  f"{', '.join(f'{m:.2f}' for m in ms)})")
+            del params, caches, batch, logits, tok, leaves
+            _free_card()
+    if not res:
+        raise AssertionError("no decode cell was predicted to fit the card")
+
+
+def _mesh_moe(out):
+    """The reduced llama4-scout's MoE layer on a (2, 4) ("data", "model")
+    mesh of [cuda:0] * 8: ep_shardmap (megatron and dp_over_model layouts)
+    against ``moe_ffn_gspmd`` at its capacity factor (>= T: nothing drops)
+    within MESH_MOE_BAR; a2a_shardmap at MESH_MOE_DROP_FACTOR (tokens drop)
+    against the same impl on the CPU within MESH_MOE_CPU_TOL; every gradient
+    of both finite."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_bundle, reduced_model
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import moe, sharding
+
+    red = reduced_model(get_bundle("llama4-scout-17b-16e").model)
+    gen = torch.Generator().manual_seed(SEED + 13)
+    layer = moe.init_moe(gen, red, red.moe, torch.float32)
+    B, S = MESH_MOE
+    x = torch.randn((B, S, red.d_model), generator=gen)
+    card = make_local_mesh(2, 4, devices=[torch.device("cuda", 0)] * 8)
+    cpu = make_local_mesh(2, 4, devices=[torch.device("cpu")] * 8)
+    res = out["moe"] = {}
+
+    def run(impl, cfg, mesh, params, xin, dp):
+        live = {k: v for k, v in _tree_to(params, xin.device).items()}
+        leaves = [t.requires_grad_() for t in _tree_leaves(live)]
+        xg = xin.clone().requires_grad_()
+        sharding.set_policy(dp_over_model=dp)
+        try:
+            with sharding.use_mesh(mesh):
+                y = getattr(moe, f"moe_ffn_{impl}")(live, xg, cfg, cfg.moe)
+        finally:
+            sharding.set_policy()
+        grads = torch.autograd.grad(y.sum(), [xg, *leaves])
+        if not all(bool(torch.isfinite(g).all()) for g in grads):
+            raise AssertionError(f"{impl}: a gradient is not finite")
+        return y.detach(), grads
+
+    want = moe.moe_ffn_gspmd(_tree_to(layer, "cuda"), x.cuda(), red, red.moe)
+    for dp in (False, True):
+        y, _ = run("ep_shardmap", red, card, layer, x.cuda(), dp)
+        err = float((y - want).abs().max())
+        res[f"ep_shardmap dp_over_model={dp}"] = err
+        print(f"  [mesh] MoE ep_shardmap on the card's (2, 4) mesh (dp_over_model={dp}), "
+              f"{B * S} tokens over {red.moe.n_experts} experts: max_abs_err against gspmd "
+              f"{err:.3g} (bar {MESH_MOE_BAR}); grads finite")
+        if not torch.allclose(y, want, rtol=MESH_MOE_BAR, atol=MESH_MOE_BAR):
+            raise AssertionError(f"ep_shardmap against gspmd: {err}")
+    drop = dataclasses.replace(red, moe=dataclasses.replace(red.moe,
+                                                            capacity_factor=MESH_MOE_DROP_FACTOR))
+    y_card, _ = run("a2a_shardmap", drop, card, layer, x.cuda(), True)
+    y_cpu, _ = run("a2a_shardmap", drop, cpu, layer, x, True)
+    routed_cpu = y_cpu - moe.mlp.mlp(layer["shared"], x.reshape(B * S, -1), "swiglu").reshape(
+        B, S, -1)
+    dropped = int((routed_cpu.abs().amax(dim=-1) == 0).sum())
+    err = float((y_card.cpu() - y_cpu).abs().max())
+    res["a2a_shardmap drops"] = {"err": err, "tokens_without_routed_output": dropped}
+    print(f"  [mesh] MoE a2a_shardmap at capacity factor {MESH_MOE_DROP_FACTOR} "
+          f"({dropped} of {B * S} tokens without a routed output): card vs CPU max_abs_err "
+          f"{err:.3g} (tolerance {MESH_MOE_CPU_TOL}); grads finite")
+    if dropped == 0 or not torch.allclose(y_card.cpu(), y_cpu, rtol=MESH_MOE_CPU_TOL,
+                                          atol=MESH_MOE_CPU_TOL):
+        raise AssertionError(f"a2a_shardmap: card vs CPU {err}, {dropped} dropped")
+
+
+def phase_mesh_path(run, card):
+    """The mesh and dry-run tooling (ROADMAP.md Queue A item 14d):
+
+    a. the dry run (``_mesh_dryrun``): every runnable (arch x shape) of the
+       ten archs on the abstract pod1 mesh, and the llama4 train_4k cells on
+       pod2 and under ``--optimized`` (a2a_shardmap on the (16, 16) mesh),
+       each ok or skipped with its bundle's reason; its worker processes run
+       on the host's cores while (b) and (c) run on the card;
+    b. one card (``_mesh_one_card``): the decode cells predicted to fit,
+       allocated and stepped on a (1, 1) mesh of cuda:0, the allocator
+       beside the prediction;
+    c. the MoE mesh impls on a (2, 4) mesh of the card (``_mesh_moe``).
+
+    No kernel of the port runs on this path: its launch counts, zeroed
+    first and read last, must all be 0 (the dry run's workers are processes
+    of their own, on meta tensors)."""
+    import concurrent.futures
+
+    from repro_torch.kernels import _build
+
+    t_phase = time.perf_counter()
+    out = {"card": card}
+    _free_card()
+    _build.reset_launch_counts()
+    with concurrent.futures.ThreadPoolExecutor(1) as waiter:
+        dry = waiter.submit(_mesh_dryrun, out)
+        _mesh_one_card(out)
+        _mesh_moe(out)
+        dry.result()
+    counts = _path_counts("mesh", ())
+    if any(counts.values()):
+        raise AssertionError(f"the mesh path launched a kernel: {counts}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  [mesh] phase {out['phase_s']:.1f} s, {card}")
+    print(f"  [mesh] numbers: {json.dumps(out, default=str)}")
+    return counts, out
+
+
 def phase_small_check():
     """The card's answers against the plain PyTorch path on the CPU, over
     one index state (built on the card, copied to the CPU)."""
@@ -4756,6 +5039,9 @@ def main() -> int:
         run.phase("main path (families: hubert-xlarge, qwen2-vl-2b, mamba2-2.7b, zamba2-7b, "
                   "llama4-scout cut to 2 units at full width; all six reduced, card vs CPU)",
                   phase_families_path, run, dev["card"]),
+        run.phase("main path (mesh: the dry run of every cell, decode cells on one card, the "
+                  "MoE mesh impls on a (2, 4) mesh of the card)", phase_mesh_path, run,
+                  dev["card"]),
     ]
     run.phase("check against the CPU path", phase_small_check)
     if run.failures or any(p is None for p in paths):

@@ -29,25 +29,12 @@ attachment, whose lookups run the kernels below; ``serve --mode lm``); and
 their training (``models.forward_train``, ``optim/``, ``data/``,
 ``runtime/train_step.py``, ``runtime/fault.py``: checkpointed restarts
 with ``ckpt.AsyncCheckpointer``, ``runtime/pipeline.py``;
-``launch/train.py``).
+``launch/train.py``); and the mesh and dry-run tooling (``models/sharding.py``:
+the PartitionSpec trees; the shard_map MoE impls in ``models/moe.py``;
+``launch/specs.py``, ``launch/mesh.py``, ``launch/compile.py``,
+``launch/dryrun.py``: every (arch × shape × mesh) cell run on meta tensors).
 Its eight kernels are hand-written in CUDA for Hopper (``kernels/csrc``):
 every Pallas kernel of the reference has a counterpart. Entry points run on the CUDA card unless
 the caller asks for ``device="cpu"``; on CPU tensors the kernels' plain
 PyTorch versions run.
-Parts that are not ported yet (the PartitionSpec trees, the mesh-jitted
-train step, the shard_map MoE impls) raise :class:`NotImplementedError`
-naming the ROADMAP item that ports them.
 """
-
-from __future__ import annotations
-
-__all__ = ["not_ported"]
-
-
-def not_ported(feature: str, roadmap_item: str) -> NotImplementedError:
-    """The error every unported mode raises: names the feature and the
-    ``ROADMAP.md`` item that will port it (never a silent fallback)."""
-    return NotImplementedError(
-        f"{feature} is not ported to repro_torch yet (ROADMAP.md {roadmap_item}); "
-        f"use the JAX package `repro` for it"
-    )

@@ -325,6 +325,11 @@ class Tracker(TorchDispatchMode):
         inputs = [t for t in tree_flatten((args, kwargs))[0] if isinstance(t, torch.Tensor)]
         out = func(*args, **kwargs)
         outputs = [t for t in tree_flatten(out)[0] if isinstance(t, torch.Tensor)]
+        self._account(func, inputs, outputs)
+        return out
+
+    def _account(self, func, inputs, outputs) -> None:
+        """Count the op, check its dtypes, charge its new storages."""
         self.ops += 1
         self._check(func.overloadpacket.__name__, inputs, outputs)
         owned = {_storage_key(t) for t in inputs}
@@ -337,7 +342,6 @@ class Tracker(TorchDispatchMode):
             self.current += self.live[key]
             self.peak = max(self.peak, self.current)
             weakref.finalize(storage, self._free, key)
-        return out
 
 
 def peak_live_bytes(fn) -> int:

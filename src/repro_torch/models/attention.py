@@ -44,6 +44,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers
+from repro_torch.models.sharding import FSDP, TP
 
 NEG_INF = -1e30  # repro: allow[RPR003] additive attention-mask logit floor, not a wl1 distance fill (softmax needs finite)
 
@@ -64,6 +65,19 @@ def init_attention(generator, cfg: ModelConfig, dtype) -> dict:
     if cfg.qk_norm:
         p["q_norm"] = layers.init_rmsnorm(D, dtype, layers.init_device(generator))
         p["k_norm"] = layers.init_rmsnorm(D, dtype, layers.init_device(generator))
+    return p
+
+
+def attention_specs(cfg: ModelConfig) -> dict:
+    p = {
+        "wq": layers.linear_specs(FSDP, TP),
+        "wk": layers.linear_specs(FSDP, TP),
+        "wv": layers.linear_specs(FSDP, TP),
+        "wo": layers.linear_specs(TP, FSDP),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = layers.rmsnorm_specs()
+        p["k_norm"] = layers.rmsnorm_specs()
     return p
 
 

@@ -24,7 +24,7 @@ from repro_torch import ckpt
 from repro_torch.api.index import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention, ssm
-from repro_torch.models.model import check_ported, init_tree
+from repro_torch.models.model import init_tree
 
 
 def params_from_jax(tree: dict, cfg: ModelConfig, device=None) -> dict:
@@ -56,7 +56,6 @@ def caches_from_jax(tree: dict, cfg: ModelConfig, device=None) -> dict:
     (or any object with ``k``, ``v``, ``k_pos``) becomes an
     ``attention.KVCache``, a ``mamba2`` layer's ``MambaCache`` (``conv``,
     ``state``) an ``ssm.MambaCache``."""
-    check_ported(cfg)
     dev = resolve_device(device)
     groups = {"units": cfg.scan_unit if cfg.resolved_units else (), "tail": cfg.tail}
     out = {}

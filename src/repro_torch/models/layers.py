@@ -1,10 +1,9 @@
 """Shared neural net layers: norms, rotary embeddings, initializers.
 
 Counterpart of ``repro.models.layers``. Functional style, as there:
-``init_*`` build parameter trees (nested dicts of tensors) and apply
-functions are plain functions of (params, inputs). The reference's
-``*_specs`` (PartitionSpec trees) have no counterpart: the port runs one
-process per card.
+``init_*`` build parameter trees (nested dicts of tensors), ``*_specs``
+the matching PartitionSpec trees (``models.sharding``), and apply
+functions are plain functions of (params, inputs).
 
 Casts follow the reference op for op, since they fix the bits: ``linear``
 casts its weight to the input's dtype on every call and ``embed`` casts the
@@ -18,6 +17,8 @@ bf16 product rounded afterwards.
 from __future__ import annotations
 
 import torch
+
+from repro_torch.models.sharding import FSDP, TP, P
 
 
 class DeferredDraws:
@@ -70,6 +71,10 @@ def truncated_normal_init(generator, shape, std: float, dtype) -> torch.Tensor:
 
 def init_rmsnorm(dim: int, dtype, device=None) -> dict:
     return {"scale": torch.zeros((dim,), dtype=dtype, device=device)}  # gemma (1 + scale) form
+
+
+def rmsnorm_specs() -> dict:
+    return {"scale": P(None)}
 
 
 def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -134,6 +139,10 @@ def init_embed(generator, vocab: int, d_model: int, dtype) -> dict:
     return {"table": truncated_normal_init(generator, (vocab, d_model), 0.02, dtype)}
 
 
+def embed_specs() -> dict:
+    return {"table": P(TP, FSDP)}  # vocab over model axis, d_model over data (FSDP)
+
+
 def embed(params: dict, tokens: torch.Tensor, compute_dtype) -> torch.Tensor:
     # the whole table is cast before the lookup, as the reference does
     return params["table"].to(compute_dtype)[tokens.long()]
@@ -154,6 +163,10 @@ def unembed(params: dict, x: torch.Tensor) -> torch.Tensor:
 def init_linear(generator, d_in: int, d_out: int, dtype, std: float | None = None) -> dict:
     std = std if std is not None else d_in**-0.5
     return {"w": truncated_normal_init(generator, (d_in, d_out), std, dtype)}
+
+
+def linear_specs(spec_in, spec_out) -> dict:
+    return {"w": P(spec_in, spec_out)}
 
 
 def linear(params: dict, x: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,8 @@
 """Feed-forward blocks: SwiGLU / GeGLU / GELU.
 
-Counterpart of ``repro.models.mlp`` (its tensor-parallel sharding hint has
-no counterpart on one card). JAX's ``gelu(approximate=True)`` is torch's
+Counterpart of ``repro.models.mlp``, tensor-parallel over d_ff in its spec
+tree (``mlp_specs``; the reference's sharding hint on the hidden
+activation is ``maybe_shard``, the identity here). JAX's ``gelu(approximate=True)`` is torch's
 ``gelu(approximate="tanh")``.
 """
 
@@ -11,6 +12,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers
+from repro_torch.models.sharding import FSDP, TP
 
 
 def init_mlp(generator, d_model: int, d_ff: int, activation: str, dtype) -> dict:
@@ -20,6 +22,16 @@ def init_mlp(generator, d_model: int, d_ff: int, activation: str, dtype) -> dict
     }
     if activation in ("swiglu", "geglu"):
         p["w_gate"] = layers.init_linear(generator, d_model, d_ff, dtype)
+    return p
+
+
+def mlp_specs(activation: str) -> dict:
+    p = {
+        "w_up": layers.linear_specs(FSDP, TP),
+        "w_down": layers.linear_specs(TP, FSDP),
+    }
+    if activation in ("swiglu", "geglu"):
+        p["w_gate"] = layers.linear_specs(FSDP, TP)
     return p
 
 

@@ -21,9 +21,8 @@ Frontends: ``frontend="audio"`` maps ``batch["frames"]`` through
 ``vision_proj`` patch prefix before the token embeddings and rotates by the
 ``(3, B, S)`` M-RoPE ``batch["positions"]`` (LM loss on text positions only).
 ``encoder_only`` models prefill to full ``(B, S, V)`` logits and no caches.
-The one refusal left is ``moe_impl`` other than ``"gspmd"`` (ROADMAP.md
-Queue A item 14d, see ``models.moe``), as are ``param_specs`` and
-``cache_specs`` (PartitionSpec trees).
+``param_specs`` and ``cache_specs`` are the trees' PartitionSpecs
+(``models.sharding``), the layout the dry run divides each leaf by.
 
 Run modes:
   forward_train   — full-sequence forward + next-token (or masked) CE loss
@@ -58,6 +57,7 @@ from torch.utils import checkpoint as ckpt_util
 from repro_torch.api.index import as_generator, resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention, layers, mlp, moe, ssm
+from repro_torch.models.sharding import BATCH, FSDP, TP, P, spec_tree_map
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -74,13 +74,6 @@ def _attn_kind(kind: str) -> str:
 
 def _is_moe(kind: str) -> bool:
     return kind.endswith("_moe")
-
-
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise ``not_ported`` for the one part of a config this package does
-    not run: MoE layers under a ``moe_impl`` other than ``"gspmd"``."""
-    if any(_is_moe(k) for k in (*cfg.scan_unit, *cfg.tail)):
-        moe.check_impl(cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -108,6 +101,26 @@ def _init_block(generator, kind: str, cfg: ModelConfig, dtype) -> dict:
     else:
         d_ff = cfg.moe.d_ff_dense if cfg.moe is not None else cfg.d_ff
         p["ffn"] = mlp.init_mlp(generator, cfg.d_model, d_ff, cfg.activation, dtype)
+    return p
+
+
+def _block_specs(kind: str, cfg: ModelConfig) -> dict:
+    if kind == "shared_attn":
+        return {}
+    if kind == "mamba2":
+        return {
+            "ln1": layers.rmsnorm_specs(),
+            "mamba": ssm.mamba2_specs(cfg, cfg.ssm),
+        }
+    p = {
+        "ln1": layers.rmsnorm_specs(),
+        "attn": attention.attention_specs(cfg),
+        "ln2": layers.rmsnorm_specs(),
+    }
+    if _is_moe(kind):
+        p["ffn"] = moe.moe_specs(cfg.moe, impl=cfg.moe_impl)
+    else:
+        p["ffn"] = mlp.mlp_specs(cfg.activation)
     return p
 
 
@@ -184,7 +197,6 @@ def init_tree(generator: torch.Generator | None, cfg: ModelConfig) -> dict:
     """``init_params``'s tree drawn from ``generator``; with ``None``, meta
     tensors of the same shapes and dtypes (what a handover must match)."""
     cfg.validate()
-    check_ported(cfg)
     gen = generator
     dtype = _dtype(cfg.param_dtype)
     params: dict[str, Any] = {}
@@ -207,6 +219,35 @@ def init_tree(generator: torch.Generator | None, cfg: ModelConfig) -> dict:
         params["shared_block"] = _init_block(gen, "attn", cfg, dtype)
     params["ln_f"] = layers.init_rmsnorm(cfg.d_model, dtype, layers.init_device(gen))
     return params
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    """The PartitionSpec tree of ``init_params``'s tree (the reference's)."""
+    cfg.validate()
+    specs: dict[str, Any] = {}
+    if cfg.frontend == "audio":
+        specs["frontend_proj"] = layers.linear_specs(None, FSDP)
+        specs["head"] = layers.linear_specs(FSDP, TP)
+    else:
+        if cfg.embed_table_spec == "dm_data":
+            # vocab replicated, d_model FSDP-sharded (the reference's lever)
+            specs["embed"] = {"table": P(None, FSDP)}
+        else:
+            specs["embed"] = layers.embed_specs()
+        if cfg.frontend == "vision":
+            specs["vision_proj"] = layers.linear_specs(None, FSDP)
+        if not cfg.tie_embeddings:
+            specs["lm_head"] = layers.linear_specs(FSDP, TP)
+    if cfg.resolved_units:
+        # stacked along a leading (n_units) axis — prepend None to every spec
+        unit = {f"p{i}": _block_specs(kind, cfg) for i, kind in enumerate(cfg.scan_unit)}
+        specs["units"] = spec_tree_map(lambda s: P(None, *s), unit)
+    if cfg.tail:
+        specs["tail"] = {f"p{i}": _block_specs(kind, cfg) for i, kind in enumerate(cfg.tail)}
+    if "shared_attn" in (*cfg.scan_unit, *cfg.tail):
+        specs["shared_block"] = _block_specs("attn", cfg)
+    specs["ln_f"] = layers.rmsnorm_specs()
+    return specs
 
 
 # ---------------------------------------------------------------------------
@@ -434,7 +475,6 @@ def forward_train(params, batch: dict, cfg: ModelConfig) -> torch.Tensor:
     """Mean loss (0-d f32). LM: next-token CE over ``batch["tokens"]``
     (B, S) (vision: on the text positions only); audio encoder: the
     masked-prediction CE over ``batch["targets"]`` where ``batch["mask"]``."""
-    check_ported(cfg)
     x, positions = _embed_inputs(params, batch, cfg)
     x = _backbone_train(params, x, positions, cfg)
     if cfg.frontend == "audio":
@@ -472,7 +512,6 @@ def forward_prefill(params, batch: dict, cfg: ModelConfig, cache_len: int | None
     cache_len: total serving-cache slots (>= seq_len to leave decode room);
     defaults to seq_len.
     """
-    check_ported(cfg)
     x, positions = _embed_inputs(params, batch, cfg)
     if cfg.encoder_only:
         return _logits(params, _backbone_train(params, x, positions, cfg), cfg), None
@@ -489,7 +528,6 @@ def forward_decode(params, batch: dict, caches, cfg: ModelConfig, return_hidden=
     (For VLM decode, M-RoPE on generated text positions is exactly standard
     RoPE with t=h=w=pos, so the 2D position path is used, as the
     reference's.)"""
-    check_ported(cfg)
     _no_decode(cfg)
     x = layers.embed(params["embed"], batch["token"][:, None], _compute_dtype(cfg))  # (B,1,dm)
     x = _scale_embeddings(x, cfg)
@@ -508,7 +546,6 @@ def _no_decode(cfg: ModelConfig) -> None:
 
 def init_caches(batch: int, seq_len: int, cfg: ModelConfig, device=None) -> dict:
     """Zero caches for decode-from-scratch (serving bootstrap)."""
-    check_ported(cfg)
     _no_decode(cfg)
     dtype, dev = _compute_dtype(cfg), resolve_device(device)
 
@@ -526,3 +563,36 @@ def init_caches(batch: int, seq_len: int, cfg: ModelConfig, device=None) -> dict
     if cfg.tail:
         caches["tail"] = {f"p{i}": cache_for(k) for i, k in enumerate(cfg.tail)}
     return caches
+
+
+def cache_specs(cfg: ModelConfig) -> dict:
+    """PartitionSpecs for the cache tree (batch over data, heads over model)."""
+
+    def spec_for(kind, stacked: bool):
+        lead = (None,) if stacked else ()
+        if kind == "mamba2":
+            return ssm.MambaCache(
+                conv=P(*lead, BATCH, None, TP),
+                state=P(*lead, BATCH, TP, None, None),
+            )
+        # KV caches shard their SEQUENCE dim over "model" by default: head
+        # counts (kv=1 MQA) can't split 16 ways, the sequence always can;
+        # "heads_model" shards the kv heads instead
+        if cfg.cache_spec_mode == "heads_model":
+            return attention.KVCache(
+                k=P(*lead, BATCH, None, TP, None),
+                v=P(*lead, BATCH, None, TP, None),
+                k_pos=P(*lead, BATCH, None),
+            )
+        return attention.KVCache(
+            k=P(*lead, BATCH, TP, None, None),
+            v=P(*lead, BATCH, TP, None, None),
+            k_pos=P(*lead, BATCH, TP),
+        )
+
+    specs: dict[str, Any] = {}
+    if cfg.resolved_units:
+        specs["units"] = {f"p{i}": spec_for(k, True) for i, k in enumerate(cfg.scan_unit)}
+    if cfg.tail:
+        specs["tail"] = {f"p{i}": spec_for(k, False) for i, k in enumerate(cfg.tail)}
+    return specs

@@ -28,6 +28,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, SSMConfig
 from repro_torch.models import layers
+from repro_torch.models.sharding import FSDP, TP, P
 
 CLIP = -60.0  # exponent floor of every decay, as the reference's
 
@@ -54,6 +55,19 @@ def init_mamba2(generator, cfg: ModelConfig, scfg: SSMConfig, dtype) -> dict:
         "norm": layers.init_rmsnorm(d_inner, dtype, dev),
         "out_proj": layers.init_linear(generator, d_inner, cfg.d_model, dtype,
                                        std=d_inner**-0.5),
+    }
+
+
+def mamba2_specs(cfg: ModelConfig, scfg: SSMConfig) -> dict:
+    return {
+        "in_proj": layers.linear_specs(FSDP, TP),
+        "conv_w": P(None, TP),
+        "conv_b": P(TP),
+        "A_log": P(None),
+        "D": P(None),
+        "dt_bias": P(None),
+        "norm": layers.rmsnorm_specs(),
+        "out_proj": layers.linear_specs(TP, FSDP),
     }
 
 

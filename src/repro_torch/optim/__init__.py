@@ -1,6 +1,5 @@
-"""AdamW and gradient compression — counterpart of ``repro.optim``
-(``opt_state_specs``, a PartitionSpec tree, waits for ROADMAP.md Queue A
-item 14d and is not exported)."""
+"""AdamW and gradient compression — counterpart of ``repro.optim``, with
+the optimizer state's PartitionSpec tree (``opt_state_specs``)."""
 
 from repro_torch.optim.adamw import (
     AdamWState,
@@ -10,6 +9,7 @@ from repro_torch.optim.adamw import (
     decompress_accumulate,
     init_opt_state,
     lr_schedule,
+    opt_state_specs,
 )
 
 __all__ = [
@@ -20,4 +20,5 @@ __all__ = [
     "decompress_accumulate",
     "init_opt_state",
     "lr_schedule",
+    "opt_state_specs",
 ]

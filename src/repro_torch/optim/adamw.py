@@ -24,7 +24,6 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch import not_ported
 from repro_torch.configs.base import TrainConfig
 
 
@@ -71,10 +70,14 @@ def init_opt_state(params, tcfg: TrainConfig) -> AdamWState:
     )
 
 
-def opt_state_specs(pspecs, tcfg: TrainConfig):
-    """The reference's PartitionSpec tree for the optimizer state: no
-    counterpart on one controller yet."""
-    raise not_ported("opt_state_specs (PartitionSpec trees)", "Queue A item 14d")
+def opt_state_specs(pspecs, tcfg: TrainConfig) -> AdamWState:
+    """Moments shard exactly like their parameters (ZeRO)."""
+    from repro_torch.models.sharding import P
+
+    ef = None
+    if tcfg.grad_compression == "int8_ef":
+        ef = pspecs
+    return AdamWState(step=P(), m=pspecs, v=pspecs, ef=ef)
 
 
 def _f32(x: float, like: torch.Tensor) -> torch.Tensor:

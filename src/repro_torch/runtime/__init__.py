@@ -13,6 +13,7 @@ from repro_torch.runtime.train_step import (
     make_train_step,
     train_state_from_leaves,
     train_state_leaves,
+    train_state_specs,
 )
 
 __all__ = [
@@ -25,4 +26,5 @@ __all__ = [
     "make_train_step",
     "train_state_from_leaves",
     "train_state_leaves",
+    "train_state_specs",
 ]

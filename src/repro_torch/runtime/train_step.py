@@ -8,10 +8,10 @@ counterpart of ``jax.value_and_grad``: each step takes fresh leaves
 (``detach().requires_grad_()``) of the state's parameters, and the update
 runs under ``torch.no_grad()`` and returns new tensors, so no step's graph
 reaches back into an earlier one and the state it was given is left as it
-was. ``train_state_specs``, ``batch_pytree_specs`` and ``jit_train_step``
-(the reference's PartitionSpec trees and its mesh-jit) raise
-``not_ported``: one controller drives the card (ROADMAP.md Queue A item
-14d).
+was. ``train_state_specs`` and ``batch_pytree_specs`` are the reference's
+PartitionSpec trees (``models.sharding``); ``jit_train_step`` has no jit
+to call: it checks those trees against the state and the batch under an
+active mesh and returns the eager step, since one controller runs it.
 
 A training state's leaves have names, the reference's checkpoint keys
 (``ckpt/checkpoint.py:_path_str`` over ``tree_flatten_with_path``):
@@ -27,13 +27,12 @@ from typing import Mapping, NamedTuple
 
 import torch
 
-from repro_torch import ckpt, models, not_ported, optim
+from repro_torch import ckpt, models, optim
 from repro_torch.api.index import resolve_device
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.models.model import init_tree
+from repro_torch.models.sharding import BATCH, P, get_mesh, sanitize_spec_tree
 from repro_torch.optim.adamw import tree_leaves, tree_map
-
-SPECS_ITEM = "Queue A item 14d"
 
 
 class TrainState(NamedTuple):
@@ -56,16 +55,37 @@ def train_state_template(mcfg: ModelConfig, tcfg: TrainConfig) -> TrainState:
     return TrainState(params=params, opt=optim.init_opt_state(params, tcfg))
 
 
-def train_state_specs(mcfg: ModelConfig, tcfg: TrainConfig):
-    raise not_ported("train_state_specs (PartitionSpec trees)", SPECS_ITEM)
+def train_state_specs(mcfg: ModelConfig, tcfg: TrainConfig) -> TrainState:
+    pspecs = models.param_specs(mcfg)
+    return TrainState(params=pspecs, opt=optim.opt_state_specs(pspecs, tcfg))
 
 
-def batch_pytree_specs(batch_shape_tree):
-    raise not_ported("batch_pytree_specs (PartitionSpec trees)", SPECS_ITEM)
+def batch_pytree_specs(batch_shape_tree) -> dict:
+    """Batch inputs shard over ("pod","data") on the leading batch dim.
+
+    The M-RoPE ``positions`` leaf is (3, B, S) — batch on dim 1.
+    """
+
+    def spec_for(name, leaf):
+        if isinstance(leaf, dict):
+            return {k: spec_for(k, v) for k, v in leaf.items()}
+        if name == "positions":
+            return P(None, BATCH, None)
+        return P(BATCH, *([None] * (len(leaf.shape) - 1)))
+
+    return {k: spec_for(k, v) for k, v in batch_shape_tree.items()}
 
 
 def jit_train_step(mcfg: ModelConfig, tcfg: TrainConfig, batch_tree):
-    raise not_ported("jit_train_step (the mesh-sharded jit)", SPECS_ITEM)
+    """``make_train_step``'s step: the port has no jit, and one controller
+    holds the whole state. Under an active mesh the state's and the batch's
+    spec trees must first sanitize against ``train_state_template`` and
+    ``batch_tree`` (a tree mismatch raises)."""
+    mesh = get_mesh()
+    if mesh is not None:
+        sanitize_spec_tree(train_state_specs(mcfg, tcfg), train_state_template(mcfg, tcfg), mesh)
+        sanitize_spec_tree(batch_pytree_specs(batch_tree), batch_tree, mesh)
+    return make_train_step(mcfg, tcfg)
 
 
 # ---------------------------------------------------------------------------

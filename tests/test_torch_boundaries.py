@@ -1,8 +1,7 @@
 """Boundaries of the port: it imports neither ``jax`` nor ``repro`` (nor
 ``msgpack`` or ``ml_dtypes``, which the reference's persistence needs), its
 entry points default to the CUDA card and refuse to carry on without one,
-every part it does not port yet raises ``NotImplementedError``, and the
-modes a slice ported (early exit, ``--stats``, persistence, quality-first
+and the modes a slice ported (early exit, ``--stats``, persistence, quality-first
 planning, the tuner, ``serve --recall-target``, sharding) run on the CPU (``serve
 --mode broker`` is held in ``test_torch_serving.py``)."""
 

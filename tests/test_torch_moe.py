@@ -18,9 +18,13 @@ Adam's eps of 0: its first step, lr·g/(|g| + eps), turns the last bits of
 such a gradient (1e-7 of its leaf's largest, within the gradient bar) into
 any part of the lr. The reduced configs set the capacity factor to the
 expert count, so nothing drops there; the drop cases set it to 0.5. The
-reference's ``ep_shardmap``/``a2a_shardmap`` have no ground truth (their own
-tests fail, ROADMAP.md Queue C item 2): the port refuses them, naming Queue
-A item 14d.
+mesh impls (``ep_shardmap``, ``a2a_shardmap``): with no mesh each equals the
+reference's (gspmd's answer, 1e-5); one rank's bodies equal the
+reference's (1e-5); under a (2, 4) CPU mesh without drops both are within
+the reference's own bar of gspmd (2e-4), gradients included; and a2a with
+drops equals an oracle that runs the reference's shard_map body rank by
+rank (1e-5), since the reference's own mesh tests fail under jax 0.9.0
+(ROADMAP.md Queue C item 2).
 """
 
 import dataclasses
@@ -40,6 +44,7 @@ from repro.runtime import train_step as jts
 import repro_torch.configs as tconfigs
 import repro_torch.models as tmodels
 from repro_torch.models import moe as tmoe
+from repro_torch.models import sharding as tsh
 from repro_torch.runtime import train_step as tts
 
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -223,25 +228,186 @@ def test_aux_load_balance_loss_and_capacity():
         assert tmoe._capacity(T, E, f) == jmoe._capacity(T, E, f), (T, E, f)
 
 
+# ---------------------------------------------------------------------------
+# the mesh impls (ep_shardmap, a2a_shardmap)
+# ---------------------------------------------------------------------------
+
+MESH_BAR = 2e-4  # the reference's bar for ep_shardmap against gspmd (tests/test_distributed.py)
+MESH_B, MESH_S = 8, 16
+
+
+@pytest.fixture
+def cpu_mesh():
+    """A (2, 4) ("data", "model") mesh of the CPU; the policy reset after."""
+    from repro_torch.launch.mesh import make_local_mesh
+
+    yield make_local_mesh(2, 4, devices=[torch.device("cpu")] * 8)
+    tsh.set_policy()
+
+
+def _mesh_layer(capacity=None, seed=51, B=MESH_B, S=MESH_S):
+    """The reduced scout's MoE layer (4 experts, one an EP rank of 4) and a
+    (B, S, dm) input."""
+    jcfg, tcfg = _configs("llama4-scout-17b-16e", capacity)
+    jp = jmoe.init_moe(jax.random.PRNGKey(seed), jcfg, jcfg.moe, jnp.float32)
+    tp = jax.tree.map(lambda a: torch.from_numpy(np.array(a)), jp)
+    x = np.random.default_rng(seed).normal(size=(B, S, jcfg.d_model)).astype(np.float32)
+    return jcfg, tcfg, jp, tp, x
+
+
 @pytest.mark.parametrize("impl", ["ep_shardmap", "a2a_shardmap"])
-def test_shardmap_impls_raise_naming_queue_a_item_14d(impl):
-    """The mesh programs are refused, before any work, by every entry point
-    and by ``moe_ffn`` itself; ``moe_ffn_gspmd`` stays callable."""
-    _, tcfg = _configs("llama4-scout-17b-16e", moe_impl=impl)
-    tp = _model("llama4-scout-17b-16e")[3]
-    toks = {"tokens": torch.zeros((1, 4), dtype=torch.int32)}
-    x = torch.zeros((1, 4, tcfg.d_model))
-    for call in (lambda: tmodels.init_params(0, tcfg, device="cpu"),
-                 lambda: tmodels.forward_prefill(tp, toks, tcfg),
-                 lambda: tmodels.forward_train(tp, toks, tcfg),
-                 lambda: tmodels.init_caches(1, 8, tcfg, device="cpu"),
-                 lambda: tmodels.params_from_jax({}, tcfg, device="cpu"),
-                 lambda: tmoe.moe_ffn(tp["units"]["p0"]["ffn"], x, tcfg, tcfg.moe)):
-        with pytest.raises(NotImplementedError,
-                           match=f"moe_impl='{impl}'.*ROADMAP.md Queue A item 14d"):
-            call()
-    p0 = {k: v for k, v in tmodels.model._index(tp["units"], 0)["p0"]["ffn"].items()}
-    assert tmoe.moe_ffn_gspmd(p0, x, tcfg, tcfg.moe).shape == x.shape
+@pytest.mark.parametrize("capacity", [None, 0.5])
+def test_mesh_impls_without_a_mesh_are_the_reference_s(impl, capacity):
+    """No mesh active: both packages' impls answer as gspmd (seed 52)."""
+    jcfg, tcfg, jp, tp, x = _mesh_layer(capacity, 52)
+    jcfg, tcfg = (dataclasses.replace(c, moe_impl=impl) for c in (jcfg, tcfg))
+    want = getattr(jmoe, f"moe_ffn_{impl}")(jp, jnp.asarray(x), jcfg, jcfg.moe)
+    got = getattr(tmoe, f"moe_ffn_{impl}")(tp, torch.from_numpy(x), tcfg, tcfg.moe)
+    np.testing.assert_allclose(_np(got), _np(want), **MOE_TOL)
+    np.testing.assert_array_equal(_np(tmoe.moe_ffn(tp, torch.from_numpy(x), tcfg, tcfg.moe)),
+                                  _np(got))
+
+
+@pytest.mark.parametrize("offset", [0, 1, 3])
+def test_dispatch_bodies_match_the_reference(offset):
+    """One EP rank's bodies (seed 53, 64 tokens, capacity 5 so tokens drop):
+    ``_dispatch_compute_combine`` at ``E_offset`` over its local experts and
+    ``_dispatch_by_ids`` over ids with -1 padding."""
+    jcfg, tcfg, jp, tp, x = _mesh_layer(None, 53, B=4)
+    rs = np.random.default_rng(53 + offset)
+    xf = x.reshape(-1, jcfg.d_model)
+    logits = (xf @ np.asarray(jp["router"]["w"])).astype(np.float32)
+    E_local, C = 1, 5
+    jwe = {k: v[offset:offset + E_local] for k, v in jp["experts"].items()}
+    twe = {k: v[offset:offset + E_local] for k, v in tp["experts"].items()}
+    want = jmoe._dispatch_compute_combine(jnp.asarray(xf), jnp.asarray(logits), jwe, E_local, C,
+                                          E_offset=offset)
+    got = tmoe._dispatch_compute_combine(torch.from_numpy(xf), torch.from_numpy(logits), twe,
+                                         E_local, C, E_offset=offset)
+    np.testing.assert_allclose(_np(got), _np(want), **MOE_TOL)
+    mine = int((np.argmax(logits, -1) == offset).sum())
+    assert mine > C and int((_np(got) != 0).any(-1).sum()) == C  # dropped past C
+    E2 = 2
+    jwe2 = {k: v[:E2] for k, v in jp["experts"].items()}
+    twe2 = {k: v[:E2] for k, v in tp["experts"].items()}
+    ids = rs.integers(-1, E2, size=xf.shape[0]).astype(np.int32)
+    want = jmoe._dispatch_by_ids(jnp.asarray(xf), jnp.asarray(ids), jwe2, E2, C + 10)
+    got = tmoe._dispatch_by_ids(torch.from_numpy(xf), torch.from_numpy(ids).long(), twe2, E2,
+                                C + 10)
+    np.testing.assert_allclose(_np(got), _np(want), **MOE_TOL)
+    assert not _np(got)[ids < 0].any()
+
+
+def _grads(fn, tp, x):
+    """fn's output and the grads of its sum over x and every parameter leaf."""
+    leaves = tts.tree_leaves(tp)
+    live = [t.clone().requires_grad_() for t in leaves]
+    it = iter(live)
+    params = tts.tree_map(lambda _: next(it), tp)
+    xt = torch.from_numpy(x).requires_grad_()
+    out = fn(params, xt)
+    return out.detach(), torch.autograd.grad(out.sum(), [xt, *live])
+
+
+@pytest.mark.parametrize("dp_over_model", [False, True])
+@pytest.mark.parametrize("impl", ["ep_shardmap", "a2a_shardmap"])
+def test_mesh_impls_under_a_cpu_mesh_match_gspmd(cpu_mesh, impl, dp_over_model):
+    """Under a (2, 4) CPU mesh at the reduced capacity factor (>= T: nothing
+    drops), megatron layout (tokens replicated over EP; a2a hands over to
+    ep_shardmap) and dp_over_model (tokens split over data x model): the
+    output and every gradient within the reference's bar of gspmd's, all
+    finite (seed 54)."""
+    jcfg, tcfg, jp, tp, x = _mesh_layer(None, 54)
+    want, wgrads = _grads(lambda p, xt: tmoe.moe_ffn_gspmd(p, xt, tcfg, tcfg.moe), tp, x)
+    tsh.set_policy(dp_over_model=dp_over_model)
+    with tsh.use_mesh(cpu_mesh):
+        got, grads = _grads(
+            lambda p, xt: getattr(tmoe, f"moe_ffn_{impl}")(p, xt, tcfg, tcfg.moe), tp, x)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=MESH_BAR, atol=MESH_BAR)
+    for g, w in zip(grads, wgrads):
+        assert torch.isfinite(g).all()
+        np.testing.assert_allclose(_np(g), _np(w), rtol=MESH_BAR, atol=MESH_BAR)
+
+
+def _a2a_oracle(jp, x, jcfg, n_data=2, ep=4):
+    """The reference's a2a ``shard_map`` body, run per rank with its own jnp
+    ops under dp_over_model on an (n_data, ep) mesh: each rank's pack (its
+    scatter-add and scatter-set), the all_to_all as a transpose of the send
+    buffers, ``jmoe._dispatch_by_ids`` per receiving rank, the transpose
+    back and the unpack; then the shared expert. Also how many tokens each
+    stage dropped."""
+    B, S, dm = x.shape
+    E, cf = jcfg.moe.n_experts, jcfg.moe.capacity_factor
+    E_local, Bl = E // ep, B // (n_data * ep)
+    T_l = Bl * S
+    Cp = max(8, int(cf * T_l / ep) + 1)
+    C2 = max(8, int(cf * ep * Cp / E_local) + 1)
+    blocks = x.reshape(n_data, ep, T_l, dm)
+    out = np.zeros_like(blocks)
+    dropped = [0, 0]
+    for d in range(n_data):
+        packs = []
+        for r in range(ep):
+            xf = jnp.asarray(blocks[d, r])
+            logits = (xf @ jp["router"]["w"]).astype(jnp.float32)
+            eg = jnp.argmax(logits, axis=-1).astype(jnp.int32)
+            gate = jax.nn.sigmoid(jnp.max(logits, axis=-1))
+            target = eg // E_local
+            sidx = jnp.argsort(target)
+            st = target[sidx]
+            counts = jnp.sum(jax.nn.one_hot(target, ep, dtype=jnp.int32), axis=0)
+            offs = jnp.concatenate([jnp.zeros((1,), jnp.int32), jnp.cumsum(counts)[:-1]])
+            pos = jnp.arange(T_l, dtype=jnp.int32) - offs[st]
+            keep = pos < Cp
+            safe = jnp.where(keep, pos, Cp - 1)
+            sbuf = jnp.zeros((ep, Cp, dm)).at[st, safe].add(xf[sidx] * keep[:, None])
+            smeta = jnp.full((ep, Cp), -1, jnp.int32).at[st, safe].set(
+                jnp.where(keep, eg[sidx] % E_local, -1))
+            dropped[0] += int((~keep).sum())
+            packs.append((sbuf, smeta, st, safe, keep, sidx, gate))
+        ys = []
+        for dst in range(ep):
+            rbuf = jnp.stack([packs[src][0][dst] for src in range(ep)]).reshape(ep * Cp, dm)
+            rmeta = jnp.stack([packs[src][1][dst] for src in range(ep)]).reshape(ep * Cp)
+            we = {k: v[dst * E_local:(dst + 1) * E_local] for k, v in jp["experts"].items()}
+            ids = np.asarray(rmeta)
+            per = np.bincount(ids[ids >= 0], minlength=E_local)
+            dropped[1] += int(np.maximum(per - C2, 0).sum())
+            ys.append(jmoe._dispatch_by_ids(rbuf, rmeta, we, E_local, C2).reshape(ep, Cp, dm))
+        for src in range(ep):
+            _, _, st, safe, keep, sidx, gate = packs[src]
+            ybuf = jnp.stack([ys[dst][src] for dst in range(ep)])
+            back = ybuf[st, safe] * keep[:, None]
+            out[d, src] = np.asarray(back[jnp.argsort(sidx)] * gate[:, None])
+    shared = jmodels.model.mlp.mlp(jp["shared"], jnp.asarray(x.reshape(B * S, dm)), "swiglu")
+    return out.reshape(B, S, dm) + np.asarray(shared).reshape(B, S, dm), dropped
+
+
+def test_a2a_with_drops_matches_the_per_rank_oracle(cpu_mesh):
+    """Capacity factor 0.5 under dp_over_model on the (2, 4) CPU mesh (seed
+    55, 8 x 64 tokens): tokens drop at the send (Cp) and at the receiving
+    experts (C2), and the port's answer is the oracle's."""
+    jcfg, tcfg, jp, tp, x = _mesh_layer(0.5, 55, S=64)
+    want, dropped = _a2a_oracle(jp, x, jcfg)
+    assert dropped[0] > 0 and dropped[1] > 0, dropped
+    tsh.set_policy(dp_over_model=True)
+    with tsh.use_mesh(cpu_mesh):
+        got = tmoe.moe_ffn_a2a_shardmap(tp, torch.from_numpy(x), tcfg, tcfg.moe)
+    np.testing.assert_allclose(_np(got), want, **MOE_TOL)
+
+
+@pytest.mark.parametrize("impl", ["ep_shardmap", "a2a_shardmap"])
+def test_forward_train_under_each_impl_without_a_mesh(impl):
+    """The reduced scout's loss with ``moe_impl`` set and no mesh (seed 56):
+    the reference's, and gspmd's."""
+    jcfg, tcfg, jp, tp = _model("llama4-scout-17b-16e")
+    jcfg, tcfg2 = (dataclasses.replace(c, moe_impl=impl) for c in (jcfg, tcfg))
+    batch = _batch(jcfg, 56)
+    want = jax.jit(lambda p, b: jmodels.forward_train(p, b, jcfg))(jp, _j(batch))
+    got = tmodels.forward_train(tp, _t(batch), tcfg2)
+    assert abs(float(got) - float(want)) <= F32_LOSS_TOL * abs(float(want))
+    assert float(got) == float(tmodels.forward_train(tp, _t(batch), tcfg))
+
 
 
 # ---------------------------------------------------------------------------

@@ -2,9 +2,8 @@
 ``repro_torch.core``, ``repro_torch.api``, ``repro_torch.analysis``,
 ``repro_torch.configs``, ``repro_torch.models``, ``repro_torch.runtime``,
 ``repro_torch.optim``, ``repro_torch.data`` and ``repro_torch.ckpt`` export
-every name their reference packages export (``ShardedIndex`` too) but those
-``HELD_BACK``
-names a later ROADMAP.md item ports, the legacy
+exactly the names their reference packages export (``ShardedIndex`` too)
+and the port's own handover names, the legacy
 shims warn as the reference's do, and each shim's answer equals
 ``Index.query``'s."""
 
@@ -40,10 +39,6 @@ PORT_ONLY = {"core": {"index_from_numpy"}, "api": {"validate_query_args"},
              "runtime": {"SimulatedFailure", "StragglerMonitor", "train_state_leaves",
                          "train_state_from_leaves"},
              "optim": set(), "data": set(), "ckpt": {"BFLOAT16", "Bits", "host_copy", "leaf_tensor"}}
-# the reference's names the port holds back (PartitionSpec trees), by the
-# ROADMAP.md item that ports them: Queue A item 14d
-HELD_BACK = {"models": {"param_specs", "cache_specs"}, "runtime": {"train_state_specs"},
-             "optim": {"opt_state_specs"}}
 
 
 @pytest.mark.parametrize("name,port,ref", [("core", tcore, jcore), ("api", tapi, japi),
@@ -55,9 +50,7 @@ HELD_BACK = {"models": {"param_specs", "cache_specs"}, "runtime": {"train_state_
                                            ("data", tdata, jdata),
                                            ("ckpt", tckpt, jckpt)])
 def test_all_matches_the_reference(name, port, ref):
-    held = HELD_BACK.get(name, set())
-    assert held <= set(ref.__all__)
-    assert set(port.__all__) == (set(ref.__all__) - held) | PORT_ONLY[name]
+    assert set(port.__all__) == set(ref.__all__) | PORT_ONLY[name]
     for sym in port.__all__:
         assert getattr(port, sym) is not None, sym
     if name == "api":

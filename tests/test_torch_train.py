@@ -266,22 +266,30 @@ def test_remat_recomputes_in_the_backward_pass():
     assert dots.mm == plain.mm and dots.ops > plain.ops, (dots.mm, dots.ops, plain.ops)
 
 
-def test_forward_train_refuses_unported_families_and_specs():
-    """Every family trains; the shard_map MoE impls and the PartitionSpec
-    trees are refused, naming Queue A item 14d."""
-    for impl in ("ep_shardmap", "a2a_shardmap"):
-        cfg = dataclasses.replace(
-            tconfigs.reduced_model(tconfigs.get_bundle("llama4-scout-17b-16e").model),
-            moe_impl=impl)
-        with pytest.raises(NotImplementedError, match=f"moe_impl='{impl}'.*Queue A item 14d"):
-            tmodels.forward_train({}, {"tokens": torch.zeros((1, 4), dtype=torch.int32)}, cfg)
-    mcfg = tconfigs.reduced_model(tconfigs.get_bundle("gemma3-1b").model)
-    trc = tconfigs.TrainConfig()
-    for call in (lambda: tts.train_state_specs(mcfg, trc), lambda: tts.batch_pytree_specs({}),
-                 lambda: tts.jit_train_step(mcfg, trc, {}),
-                 lambda: toptim.adamw.opt_state_specs({}, trc)):
-        with pytest.raises(NotImplementedError, match="Queue A item 14d"):
-            call()
+@pytest.mark.parametrize("mesh_shape", [None, (2, 2)])
+def test_jit_train_step_is_the_eager_step(mesh_shape):
+    """The port has no jit: ``jit_train_step`` returns ``make_train_step``'s
+    step, after checking (under a mesh) that the state's and the batch's
+    spec trees sanitize against them; one step from the same state on the
+    same batch (seed 57) gives the same bits either way."""
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import sharding as tsh
+
+    _, mcfg = _configs("gemma3-1b")
+    trc = tconfigs.TrainConfig(warmup_steps=2, total_steps=10)
+    batch = {"tokens": torch.from_numpy(_tokens(57, (4, 32), mcfg.vocab_size))}
+    mesh = None if mesh_shape is None else make_local_mesh(
+        *mesh_shape, devices=[torch.device("cpu")] * 4)
+    with tsh.use_mesh(mesh):
+        step = tts.jit_train_step(mcfg, trc, batch)
+    state = tts.init_train_state(5, mcfg, trc, device="cpu")
+    got_s, got_m = step(state, batch)
+    want_s, want_m = tts.make_train_step(mcfg, trc)(state, batch)
+    for k in ("loss", "grad_norm", "lr"):
+        assert torch.equal(got_m[k], want_m[k]), k
+    want = dict(tts.named_leaves(want_s))
+    for name, leaf in tts.named_leaves(got_s):
+        assert torch.equal(leaf, want[name]), name
 
 
 # ---------------------------------------------------------------------------
