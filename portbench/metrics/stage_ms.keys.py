@@ -1,0 +1,10 @@
+"""Milliseconds a batch of the stage ``keys``, key enumeration (discretize,
+the projection, the multiprobe flips and their sort): from the stream reaching
+the stage to its last operation done, timed by the program's own stage
+span."""
+
+from portbench.spans import stage_ms
+
+
+def read(ctx):
+    return stage_ms(ctx, "keys")

@@ -37,4 +37,12 @@ Its eight kernels are hand-written in CUDA for Hopper (``kernels/csrc``):
 every Pallas kernel of the reference has a counterpart. Entry points run on the CUDA card unless
 the caller asks for ``device="cpu"``; on CPU tensors the kernels' plain
 PyTorch versions run.
+
+``obs.py`` is the port's own, with no counterpart in the reference: the
+query path's stage spans (``repro_torch.query``, ``.validate``, ``.keys``,
+``.probe``, ``.dedupe``, ``.gather``, ``.scan``). An operator turns them on
+by running any ``torch.profiler`` session around their calls; the spans are
+then host events of that trace, and ``obs.stage_ms()`` gives each stage's
+device-stream milliseconds. With no profiler recording they cost one check
+each and record nothing.
 """

@@ -61,7 +61,7 @@ import warnings
 import numpy as np
 import torch
 
-from repro_torch import engine
+from repro_torch import engine, obs
 from repro_torch.api import persist
 from repro_torch.api.planner import Planner, QueryReport
 from repro_torch.api.spec import PlannedSpec, QualitySpec, QuerySpec, UpdateSpec
@@ -374,21 +374,24 @@ class Index:
         :class:`PlannedSpec`, or a :class:`QualitySpec` (planned on first
         use, memoized after). A mutable index adds the delta key match and
         the tombstone mask to the sealed window source. Invalid result
-        slots are ``ids == -1`` / ``dists == +inf``."""
-        queries = torch.as_tensor(queries)
-        weights = torch.as_tensor(weights)
-        validate_query_args(self.config.d, queries, weights)
-        qspec, cfg, _ = self.resolve(spec)
-        _check_probe_reach(cfg, qspec)
-        return engine.query(
-            self.state,
-            self.delta if self.mutable else None,
-            self.tombstones if self.mutable else None,
-            queries, weights, cfg, k=qspec.k, mode=qspec.mode,
-            n_probes=qspec.n_probes, max_flips=qspec.max_flips, screen_alpha=qspec.screen_alpha,
-            early_exit=qspec.early_exit, exit_group=qspec.exit_group, exit_slack=qspec.exit_slack,
-            impl=qspec.impl,
-        )
+        slots are ``ids == -1`` / ``dists == +inf``. Under a profiler the
+        call is the span ``repro_torch.query`` (:mod:`repro_torch.obs`)."""
+        with obs.span("query"):
+            queries = torch.as_tensor(queries)
+            weights = torch.as_tensor(weights)
+            with obs.span("validate"):
+                validate_query_args(self.config.d, queries, weights)
+            qspec, cfg, _ = self.resolve(spec)
+            _check_probe_reach(cfg, qspec)
+            return engine.query(
+                self.state,
+                self.delta if self.mutable else None,
+                self.tombstones if self.mutable else None,
+                queries, weights, cfg, k=qspec.k, mode=qspec.mode,
+                n_probes=qspec.n_probes, max_flips=qspec.max_flips,
+                screen_alpha=qspec.screen_alpha, early_exit=qspec.early_exit,
+                exit_group=qspec.exit_group, exit_slack=qspec.exit_slack, impl=qspec.impl,
+            )
 
     def explain(self, queries, weights, spec=QuerySpec()) -> QueryReport:
         """Run ``query`` and return a :class:`QueryReport` wrapping the result

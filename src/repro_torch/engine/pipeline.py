@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch import quant
+from repro_torch import obs, quant
 from repro_torch.core import transforms
 from repro_torch.core.families import n_flip_subsets
 from repro_torch.core.index import (
@@ -122,22 +122,28 @@ def execute(
     proxy distance (``quant.proxy_query``: no decode, the gather moves
     encoded bytes) and only the top ``ceil(k·α)`` survivors reach the exact
     rerank. The caller passes α = 0 for f32 storage and exact mode
-    (``query`` folds it)."""
-    blocks = [s.emit(queries, weights) for s in sources]
+    (``query`` folds it). Under a profiler the window probe, the dedupe and
+    the gathers are the stages ``probe``, ``dedupe`` and ``gather``
+    (:mod:`repro_torch.obs`)."""
+    dev = queries.device
+    with obs.stage("probe", dev):
+        blocks = [s.emit(queries, weights) for s in sources]
     cand = blocks[0] if len(blocks) == 1 else torch.cat(blocks, dim=1)
-    if len(sources) == 1 and sources[0].pre_deduped:
-        n_candidates = (cand < n_valid).sum(dim=1).to(torch.int32)
-    else:
-        cand, n_candidates = _dedupe_candidates(cand, n_valid)
+    with obs.stage("dedupe", dev):
+        if len(sources) == 1 and sources[0].pre_deduped:
+            n_candidates = (cand < n_valid).sum(dim=1).to(torch.int32)
+        else:
+            cand, n_candidates = _dedupe_candidates(cand, n_valid)
     keep = quant.screen_keep(k, screen_alpha, cand.shape[1])
-    if keep:
-        qp, wp = quant.proxy_query(queries, weights, main_data.dtype, scales)
-        _, surv = ops.gather_rerank_topk(main_data, cand, qp, wp, keep, delta=delta_data)
-        # survivors come back -1-padded; map them to the candidate sentinel
-        # so invalid slots stay invalid (never row 0)
-        cand = torch.where(surv >= 0, surv, torch.full_like(surv, n_valid))
-    dists, ids = ops.gather_rerank_topk(main_data, cand, queries, weights, k, scales=scales,
-                                        delta=delta_data)
+    with obs.stage("gather", dev):
+        if keep:
+            qp, wp = quant.proxy_query(queries, weights, main_data.dtype, scales)
+            _, surv = ops.gather_rerank_topk(main_data, cand, qp, wp, keep, delta=delta_data)
+            # survivors come back -1-padded; map them to the candidate sentinel
+            # so invalid slots stay invalid (never row 0)
+            cand = torch.where(surv >= 0, surv, torch.full_like(surv, n_valid))
+        dists, ids = ops.gather_rerank_topk(main_data, cand, queries, weights, k, scales=scales,
+                                            delta=delta_data)
     return QueryResult(dists=dists, ids=ids, n_candidates=n_candidates)
 
 
@@ -190,7 +196,9 @@ def dispatch(
     None), and otherwise the gather tail over every live row of both
     segments. ``early_exit=True`` sends the ALSH key lattice through
     :func:`execute_streamed` instead of ``execute`` (``query`` folds it off
-    where streaming cannot apply). Runs on ``state``'s device."""
+    where streaming cannot apply). Runs on ``state``'s device; under a
+    profiler key enumeration is the stage ``keys`` and the sealed exact scan
+    the stage ``scan`` (:mod:`repro_torch.obs`)."""
     n_main = state.n
     cap = delta.capacity if delta is not None else 0
     segmented = tombstones is not None or delta is not None
@@ -198,7 +206,8 @@ def dispatch(
     if mode == "exact":
         if not segmented:
             table = quant.decode_table(state.data, state.scales)  # f32: the same tensor
-            dists, ids = ops.wl1_scan_topk(table, queries, weights, k)
+            with obs.stage("scan", queries.device):
+                dists, ids = ops.wl1_scan_topk(table, queries, weights, k)
             n_candidates = torch.full((queries.shape[0],), n_main, dtype=torch.int32,
                                       device=queries.device)
             return QueryResult(dists=dists, ids=ids, n_candidates=n_candidates)
@@ -207,8 +216,9 @@ def dispatch(
         src = ExhaustiveSource(state, delta, tombstones)
         return execute([src], state.data, delta_data, queries, weights, k,
                        n_valid=n_main + cap, scales=state.scales)
-    keys = probe_keys(state, queries, weights, cfg, mode=mode, n_probes=n_probes,
-                      max_flips=max_flips, impl=impl)
+    with obs.stage("keys", queries.device):
+        keys = probe_keys(state, queries, weights, cfg, mode=mode, n_probes=n_probes,
+                          max_flips=max_flips, impl=impl)
     if early_exit:
         return execute_streamed(state, delta, tombstones, queries, weights, cfg, keys, k,
                                 exit_group=exit_group, exit_slack=exit_slack)
