@@ -59,7 +59,13 @@ Phases, each of which fails the run (exit code 1) when it fails:
      main path's recall check (b=64) and the recorded shape (n=65,536,
      b=64), and at each must also equal, bit for bit, ``wl1_scan`` then a
      stable sort of each query's distances (the first k, +inf -> id -1),
-     with the row splits S it used. ``alsh_project`` (build and query
+     with the row splits S it used. The multiprobe key enumeration
+     ``multiprobe_keys`` runs at the multiprobe cell's shape (the index's
+     projections of the first 1000 service queries, L=32, K=12, 8 probes,
+     3 flips): equal to its plain version on projections rounded to
+     multiples of 2**-8, and on the raw ones differing only between subsets
+     whose float64 scores agree within 1e-6 relative, timed beside the
+     plain version's chain of ATen ops. ``alsh_project`` (build and query
      width) must return the same bytes from two calls, and prints a
      sha256 of its output's bytes;
   5. main paths, each with every launch counter zeroed just before its
@@ -76,8 +82,9 @@ Phases, each of which fails the run (exit code 1) when it fails:
         quantized kernel must launch twice per screened and once per
         unscreened batch;
      c. multiprobe: theta, 8 probes per table, up to 3 flipped bits, on
-        the f32 index and batch of a probe batch; its j-th distance is
-        never worse than the probe batch's;
+        the f32 index and batch of a probe batch, its keys from the
+        ``multiprobe_keys`` kernel; its j-th distance is never worse than
+        the probe batch's;
      d. stream, in the order of ``serve --mode stream``: the f32 theta
         index built with ``UpdateSpec(delta_capacity=8192,
         compact_threshold=0.75)`` must answer the service batch as the
@@ -253,6 +260,8 @@ L2_RECALL_FLOOR = 0.5
 QUANT_RECALL_FLOOR = 0.5  # recall@10 of a quantized batch against its own exact mode
 SCREEN_ALPHA = 2.0  # the serve CLI's default --screen-alpha
 SURVIVOR_CALLS = 20  # calls profiled for the device time of the exact pass over the survivors
+# The multiprobe key enumeration's shape: the multiprobe cell's batch, probes and flips
+MP_BATCH, MP_PROBES, MP_FLIPS = 1000, 8, 3
 
 KERNEL_META = {
     "alsh_project": ("src/repro_torch/kernels/csrc/alsh_project.cu",
@@ -271,6 +280,8 @@ KERNEL_META = {
                  "src/repro/kernels/wl1_distance.py:66"),
     "wl1_rerank": ("src/repro_torch/kernels/csrc/wl1_distance.cu",
                    "src/repro/kernels/wl1_distance.py:112"),
+    "multiprobe_keys": ("src/repro_torch/kernels/csrc/multiprobe_keys.cu",
+                        "none (jnp: src/repro/core/families.py ThetaFamily.multiprobe_keys)"),
 }
 PATHS = ("f32", "quantized", "multiprobe", "stream", "unfused", "early_exit", "persist", "plan",
          "broker", "sharded", "static_contracts", "lm", "train", "families", "mesh")
@@ -773,6 +784,82 @@ def phase_alsh_project(run, svc):
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "library_ms": lib_ms,
                 "max_abs_err": err, "device_ms": dev_ms, "sha256": sha,
             }
+
+
+def _flip_scores(proj, keys):
+    """The float64 score of the flip subset behind each (b, L, P) key: the
+    |proj| summed over the bits where the key differs from the sign key."""
+    import torch
+
+    K = proj.shape[-1]
+    bit = torch.ones((), dtype=torch.int64, device=proj.device) << torch.arange(
+        K, device=proj.device)
+    base = ((proj >= 0).long() * bit).sum(-1)
+    bits = ((keys.long() ^ base[..., None])[..., None] & bit) != 0  # (b, L, P, K)
+    return (bits * proj.double().abs()[:, :, None, :]).sum(-1)
+
+
+def phase_multiprobe_keys(run, svc):
+    """The multiprobe key enumeration against its plain version at the
+    multiprobe cell's shape: the SERVICE index's projections of the first
+    MP_BATCH service queries (L=32, K=12), 8 probes, up to 3 flips. Keys
+    must be equal where the projections are rounded to multiples of 2**-8
+    (every subset sum exact), and on the raw ones may differ only between
+    subsets whose float64 scores agree within 1e-6 relative."""
+    import torch
+
+    from repro_torch.configs.paper_alsh import SERVICE
+    from repro_torch.core.families import n_flip_subsets
+    from repro_torch.core.transforms import discretize
+    from repro_torch.kernels import ops
+
+    cfg = SERVICE.index_config
+    tables = svc.index.state.tables
+    q, w = svc.q[:MP_BATCH], svc.w[:MP_BATCH]
+    proj = ops.alsh_project(discretize(q, cfg.space), tables.folded, w, tiled=tables.tiled)
+    proj = proj.reshape(MP_BATCH, cfg.L, cfg.K)
+    dyadic = torch.round(proj * 256) / 256
+
+    def kernel():
+        return ops.multiprobe_keys(proj, MP_PROBES, MP_FLIPS)
+
+    def plain():
+        return ops.multiprobe_keys(proj, MP_PROBES, MP_FLIPS, force="plain")
+
+    exact = torch.equal(ops.multiprobe_keys(dyadic, MP_PROBES, MP_FLIPS),
+                        ops.multiprobe_keys(dyadic, MP_PROBES, MP_FLIPS, force="plain"))
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    differ = got != want
+    sg, sw = _flip_scores(proj, got), _flip_scores(proj, want)
+    gap = float(((sg - sw).abs() / torch.maximum(sg, sw).clamp_min(1e-30))[differ].max()
+                ) if bool(differ.any()) else 0.0
+    print(f"  proj ({MP_BATCH}, {cfg.L}, {cfg.K}), {MP_PROBES} probes, {MP_FLIPS} flips: keys "
+          f"{tuple(got.shape)}; bit-equal on dyadic projections: {exact}; on the raw ones "
+          f"{int(differ.sum())} keys differ, largest relative score gap {gap:.3g} (limit 1e-6)")
+    if not exact or gap > 1e-6:
+        raise AssertionError("multiprobe_keys: kernel disagrees with the plain version")
+    ms = time_ms(kernel, iters=50, warmup=3)
+    plain_ms = time_ms(plain, iters=10, warmup=2)
+    dev_us = device_us_per_call("multiprobe_keys", kernel)
+    plain_into = {}
+    profile("multiprobe_keys plain version, 5 calls", lambda: [plain() for _ in range(5)], top=40,
+            into=plain_into)
+    plain_dev_us = plain_into.get("busy_us", 0) / 5 or None
+    plain_ops = sum(c for _, _, c in plain_into.get("top", [])) / 5 or None
+    pairs, S = MP_BATCH * cfg.L, n_flip_subsets(cfg.K, MP_FLIPS)
+    nbytes = 4 * pairs * (cfg.K + MP_PROBES)
+    adds = pairs * sum(r * math.comb(cfg.K, r) for r in range(1, MP_FLIPS + 1))
+    b_ms, b_by = bound(nbytes, adds)
+    numbers = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                   library_ms=None, device_us=dev_us, plain_device_us=plain_dev_us,
+                   plain_device_ops=plain_ops, subsets=S,
+                   host_us_per_call=host_us_per_call(kernel))
+    print(f"  kernel {ms * 1e3:.1f} us (device {_fmt_us(dev_us)} per call, host "
+          f"{numbers['host_us_per_call']:.1f} us per call), plain {plain_ms:.3f} ms (device "
+          f"{_fmt_us(plain_dev_us)}, {plain_ops} device ops a call); bound {b_ms * 1e3:.2f} us "
+          f"by {b_by} ({nbytes / 1e6:.2f} MB, {adds / 1e6:.1f} M adds over {S} subsets a pair)")
+    run.record("multiprobe_keys", **numbers)
 
 
 def _check_topk(label, got, want, data, q, w, quiet=False):
@@ -1566,7 +1653,7 @@ def phase_multiprobe_path(svc):
     if worse or not bool((mp.n_candidates >= probe.n_candidates).all()):
         raise AssertionError("multiprobe must see a superset of the probe batch's candidates")
     profile("of one theta multiprobe batch", lambda: index.query(q, w, mspec), top=6)
-    counts = _path_counts("multiprobe", ("alsh_project", "gather_rerank_topk"))
+    counts = _path_counts("multiprobe", ("alsh_project", "multiprobe_keys", "gather_rerank_topk"))
     return counts, {"ms": ms, "cand_frac": cand_frac, "recall": rec, "recall_probe": rec_probe}
 
 
@@ -3067,7 +3154,7 @@ def phase_sharded_path(svc, card):
 # (wl1_scan and wl1_rerank lie only on the unfused path)
 LATTICE_KERNELS = ("alsh_project", "gather_rerank_topk", "gather_rerank_topk_two_seg",
                    "gather_rerank_topk_blocked", "gather_rerank_topk_blocked_two_seg",
-                   "wl1_scan_topk")
+                   "wl1_scan_topk", "multiprobe_keys")
 SYNC_WARNING = "called a synchronizing CUDA operation"
 
 
@@ -3238,7 +3325,8 @@ def phase_static_contracts(svc, card):
     if report["failures"] or (ck["raw_points"], ck["count"]) != (146, budgets.RETRACE_BUDGET):
         raise AssertionError(f"the audit failed on the card: {len(report['failures'])} failures")
     bad_int8 = [row["name"] for row in report["paths"] if "int8_kernels" in row
-                and set(row["launches"]) - {"alsh_project", "wl1_scan_topk", *audit.STORED_KERNELS}]
+                and set(row["launches"]) - {"alsh_project", "multiprobe_keys", "wl1_scan_topk",
+                                            *audit.STORED_KERNELS}]
     if bad_int8:
         raise AssertionError(f"int8 paths launched a kernel outside the stored-type gathers: "
                              f"{bad_int8}")
@@ -5005,6 +5093,7 @@ def main() -> int:
     run.phase("kernel wl1_scan_topk", phase_scan, run, svc)
     run.phase("kernel wl1_scan", phase_wl1_scan, run)
     run.phase("kernel wl1_rerank", phase_wl1_rerank, run)
+    run.phase("kernel multiprobe_keys", phase_multiprobe_keys, run, svc)
     seg = run.phase("two-segment set-up (a full delta, a stream batch's candidates)",
                     TwoSegment, svc)
     if seg is not None:

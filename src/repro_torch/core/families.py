@@ -18,6 +18,8 @@ from typing import TYPE_CHECKING
 
 import torch
 
+from repro_torch.kernels import ops
+
 if TYPE_CHECKING:
     from repro_torch.core.index import IndexConfig
 
@@ -111,20 +113,10 @@ class ThetaFamily(HashFamily):
         """Query-directed probing (Lv et al., VLDB'07): probe the buckets
         whose keys flip the lowest-|margin| bits of the query's code, in
         increasing total flipped margin. Ties go to the earlier subset in
-        ``flip_subsets`` order (a stable sort, as ``lax.top_k`` breaks them)."""
-        K = proj_lk.shape[-1]
-        dev = proj_lk.device
-        masks = flip_subsets(K, max_flips, device=dev)  # (S, K)
-        # score of a subset = total margin flipped (lower = more likely)
-        scores = torch.einsum("blk,sk->bls", proj_lk.abs(), masks.to(proj_lk.dtype))
-        n_probes = min(n_probes, masks.shape[0])
-        probe_idx = torch.sort(scores, dim=-1, stable=True).indices[..., :n_probes]  # (b, L, P)
-        shifts = torch.ones((), dtype=torch.int64, device=dev) << torch.arange(
-            K, dtype=torch.int64, device=dev
-        )
-        base_key = torch.sum((proj_lk >= 0).to(torch.int64) * shifts, dim=-1)  # (b, L)
-        flip_key = torch.sum(masks.to(torch.int64) * shifts, dim=-1)  # (S,) xor masks
-        return torch.bitwise_xor(base_key[..., None], flip_key[probe_idx]).to(torch.int32)
+        ``flip_subsets`` order (a stable sort, as ``lax.top_k`` breaks them).
+        On the card one kernel enumerates the subsets; on the CPU the plain
+        version scores the ``flip_subsets`` table (``kernels.ops``)."""
+        return ops.multiprobe_keys(proj_lk, n_probes, max_flips)
 
 
 class L2Family(HashFamily):

@@ -200,10 +200,16 @@ WL1_RERANK = Kernel(
     "wl1_distance.cu",
     {"wl1_rerank_launch": [_P, _P, _P, _P, _I, _I, _I, _P]},
 )
+MULTIPROBE_KEYS = Kernel(
+    "multiprobe_keys",
+    "multiprobe_keys.cu",
+    {"multiprobe_keys_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P]},
+)
 KERNELS = {
     k.name: k
     for k in (ALSH_PROJECT, GATHER_RERANK, GATHER_RERANK_BLOCKED, WL1_SCAN_TOPK,
-              GATHER_RERANK_TWO_SEG, GATHER_RERANK_BLOCKED_TWO_SEG, WL1_SCAN, WL1_RERANK)
+              GATHER_RERANK_TWO_SEG, GATHER_RERANK_BLOCKED_TWO_SEG, WL1_SCAN, WL1_RERANK,
+              MULTIPROBE_KEYS)
 }
 
 

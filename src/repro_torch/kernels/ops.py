@@ -96,6 +96,22 @@ def wl1_scan_topk(
     return ref.wl1_scan_topk(data, queries, weights, k)
 
 
+def multiprobe_keys(
+    proj_lk: torch.Tensor,
+    n_probes: int,
+    max_flips: int,
+    force: str | None = None,
+) -> torch.Tensor:
+    """Query-directed multiprobe keys: (b, L, K) raw projections -> (b, L, P)
+    int32 probe keys, most likely first (P is ``n_probes`` clamped to the
+    flip subsets of at most ``max_flips`` bits)."""
+    if _use_kernel(proj_lk, force):
+        from repro_torch.kernels.multiprobe_keys import multiprobe_keys_cuda
+
+        return multiprobe_keys_cuda(proj_lk, n_probes, max_flips)
+    return ref.multiprobe_keys(proj_lk, n_probes, max_flips)
+
+
 def gather_rerank_topk(
     data: torch.Tensor,
     ids: torch.Tensor,

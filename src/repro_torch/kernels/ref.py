@@ -203,6 +203,32 @@ def gather_rerank_topk_segmented(
     return _finish(top_d, top_i)
 
 
+def multiprobe_keys(proj_lk: torch.Tensor, n_probes: int, max_flips: int) -> torch.Tensor:
+    """Query-directed probing (Lv et al., VLDB'07): probe the buckets
+    whose keys flip the lowest-|margin| bits of the query's code, in
+    increasing total flipped margin. Ties go to the earlier subset in
+    ``flip_subsets`` order (a stable sort, as ``lax.top_k`` breaks them).
+
+    (b, L, K) raw projections -> (b, L, P) int32 keys, P = ``n_probes``
+    clamped to the subset count. The subset table is built on the host at
+    every call (imported here: ``repro_torch.core`` imports this module)."""
+    from repro_torch.core.families import flip_subsets
+
+    K = proj_lk.shape[-1]
+    dev = proj_lk.device
+    masks = flip_subsets(K, max_flips, device=dev)  # (S, K)
+    # score of a subset = total margin flipped (lower = more likely)
+    scores = torch.einsum("blk,sk->bls", proj_lk.abs(), masks.to(proj_lk.dtype))
+    n_probes = min(n_probes, masks.shape[0])
+    probe_idx = torch.sort(scores, dim=-1, stable=True).indices[..., :n_probes]  # (b, L, P)
+    shifts = torch.ones((), dtype=torch.int64, device=dev) << torch.arange(
+        K, dtype=torch.int64, device=dev
+    )
+    base_key = torch.sum((proj_lk >= 0).to(torch.int64) * shifts, dim=-1)  # (b, L)
+    flip_key = torch.sum(masks.to(torch.int64) * shifts, dim=-1)  # (S,) xor masks
+    return torch.bitwise_xor(base_key[..., None], flip_key[probe_idx]).to(torch.int32)
+
+
 def unexplained_id_mismatches(
     got_i: torch.Tensor,
     want_d: torch.Tensor,

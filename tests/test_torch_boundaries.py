@@ -352,6 +352,7 @@ def test_kernel_dispatch_never_quietly_falls_back():
         gather_rerank_topk_blocked_cuda,
         gather_rerank_topk_cuda,
     )
+    from repro_torch.kernels.multiprobe_keys import multiprobe_keys_cuda
     from repro_torch.kernels.wl1_distance import wl1_rerank_cuda, wl1_scan_cuda
     from repro_torch.kernels.wl1_topk import wl1_scan_topk_cuda
 
@@ -369,6 +370,8 @@ def test_kernel_dispatch_never_quietly_falls_back():
         wl1_scan_cuda(x, x[:2], x[:2])
     with pytest.raises(ValueError, match="CUDA"):
         wl1_rerank_cuda(x[None], x[:1], x[:1])
+    with pytest.raises(ValueError, match="CUDA"):
+        multiprobe_keys_cuda(x[None], 8, 3)
     with pytest.raises(ValueError, match="CUDA"):
         gather_rerank_topk_cuda(x, lv, x[:2], x[:2], 1)
     with pytest.raises(ValueError, match="CUDA"):

@@ -266,6 +266,82 @@ def test_multiprobe_on_the_card_sees_a_superset_of_probe(dev):
     assert torch.all(mp.dists <= pr.dists + 1e-6)
 
 
+# (K, max_flips, n_probes): the register lists of 1 to 32 slots and the
+# device-memory list (P > 32), P clamped to the subset count (299 at K=12, 3
+# flips; 32 at K=5, 5 flips), no flips, one probe
+MULTIPROBE_KEY_CASES = [(12, 3, 8), (12, 3, 299), (12, 3, 400), (31, 2, 40), (5, 5, 32),
+                        (12, 0, 8), (12, 1, 1), (8, 2, 16), (4, 3, 3), (6, 1, 2)]
+
+
+def _flip_scores(proj, keys):
+    """The float64 score of the flip subset behind each (b, L, P) key: the
+    |proj| summed over the bits where the key differs from the sign key."""
+    K = proj.shape[-1]
+    bit = np.int64(1) << np.arange(K, dtype=np.int64)
+    base = ((proj >= 0).astype(np.int64) * bit).sum(-1)
+    flips = keys.astype(np.int64) ^ base[..., None]
+    bits = (flips[..., None] & bit) != 0  # (b, L, P, K)
+    return (bits * np.abs(proj.astype(np.float64))[:, :, None, :]).sum(-1)
+
+
+@pytest.mark.parametrize("K,max_flips,n_probes", MULTIPROBE_KEY_CASES)
+def test_multiprobe_keys_kernel_equals_plain_on_dyadic_projections(dev, K, max_flips, n_probes):
+    """Multiples of 2**-8 in [-4, 4]: every subset sum is exact in f32 and
+    ties are frequent, so the keys and their tie order must be equal."""
+    rs = np.random.default_rng(K * 1000 + max_flips * 100 + n_probes)
+    proj = _t((rs.integers(-1024, 1025, (64, 8, K)) / 256).astype(np.float32), dev)
+    got = ops.multiprobe_keys(proj, n_probes, max_flips)
+    want = ops.multiprobe_keys(proj, n_probes, max_flips, force="plain")
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and got.shape == want.shape
+    assert torch.equal(got, want)
+
+
+def test_multiprobe_keys_kernel_on_normal_projections(dev):
+    """At the multiprobe cell's shape (b=1000, L=32, K=12, 8 probes, 3
+    flips) the two versions add in different orders: a key may differ only
+    where both subsets' float64 scores agree within 1e-6 relative."""
+    rs = np.random.default_rng(31)
+    proj = rs.normal(size=(1000, 32, 12)).astype(np.float32)
+    got = ops.multiprobe_keys(_t(proj, dev), 8, 3).cpu().numpy()
+    want = ops.multiprobe_keys(_t(proj, dev), 8, 3, force="plain").cpu().numpy()
+    assert got.shape == want.shape == (1000, 32, 8)
+    sg, sw = _flip_scores(proj, got), _flip_scores(proj, want)
+    differ = got != want
+    assert np.all(np.abs(sg - sw)[differ] <= 1e-6 * np.maximum(sg, sw)[differ])
+    assert differ.mean() < 1e-3
+
+
+def test_multiprobe_keys_kernel_counts_one_launch(dev):
+    from repro_torch.kernels import _build
+
+    before = _build.launch_counts()["multiprobe_keys"]
+    ops.multiprobe_keys(torch.randn((4, 3, 12), device=dev), 8, 3)
+    assert _build.launch_counts()["multiprobe_keys"] == before + 1
+
+
+def test_multiprobe_query_on_the_card_builds_no_subset_table(dev, monkeypatch):
+    """A multiprobe query on the card never calls ``flip_subsets``; the
+    plain version, which builds that table, does."""
+    import repro_torch.api as tapi
+    from repro_torch.core import families
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("flip_subsets called")
+
+    rs = np.random.default_rng(9)
+    cfg = tapi.IndexConfig(d=32, M=32, K=12, L=8, max_candidates=64,
+                           space=tapi.BoundedSpace(0.0, 1.0, 32.0))
+    idx = tapi.Index.build(13, rs.uniform(0, 1, (4096, 32)).astype(np.float32), cfg)
+    q = rs.uniform(0, 1, (32, 32)).astype(np.float32)
+    w = (np.abs(rs.normal(size=(32, 32))) + 0.1).astype(np.float32)
+    monkeypatch.setattr(families, "flip_subsets", refuse)
+    res = idx.query(q, w, tapi.QuerySpec(k=10, mode="multiprobe", n_probes=8, max_flips=3))
+    assert res.ids.shape == (32, 10)
+    with pytest.raises(AssertionError, match="flip_subsets"):
+        ops.multiprobe_keys(torch.randn((2, 8, 12), device=dev), 8, 3, force="plain")
+
+
 def _persist_case(storage, mutable):
     """A small index on the card (n=8192, d=32), mutable ones with a filled
     delta and tombstones, and a query batch."""

@@ -313,6 +313,29 @@ def test_multiprobe_keys_bit_equal(n_probes, max_flips, exact_tables):
     assert torch.equal(only, tk)
 
 
+@pytest.mark.parametrize("Kb,max_flips,n_probes", [(12, 3, 8), (12, 3, 400), (31, 2, 40),
+                                                  (5, 5, 32), (12, 0, 8), (12, 1, 1)])
+def test_multiprobe_keys_dispatch_on_cpu_is_the_plain_version(Kb, max_flips, n_probes):
+    """``ops.multiprobe_keys`` on CPU tensors runs the plain version, which
+    gives the reference family's keys, and launches no kernel."""
+    from repro.core.families import THETA as JTHETA
+    from repro_torch.core.families import THETA as TTHETA
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import ref as tref
+
+    rs = np.random.default_rng(Kb * 100 + max_flips * 10 + n_probes)
+    proj = (rs.integers(-1024, 1025, (6, 4, Kb)) / 256).astype(np.float32)
+    before = _build.launch_counts()["multiprobe_keys"]
+    got = tops.multiprobe_keys(torch.from_numpy(proj), n_probes, max_flips)
+    assert got.dtype == torch.int32
+    assert torch.equal(got, tref.multiprobe_keys(torch.from_numpy(proj), n_probes, max_flips))
+    assert torch.equal(got, TTHETA.multiprobe_keys(torch.from_numpy(proj), n_probes, max_flips))
+    assert np.array_equal(got.numpy(),
+                          np.asarray(JTHETA.multiprobe_keys(jnp.asarray(proj), n_probes,
+                                                            max_flips)))
+    assert _build.launch_counts()["multiprobe_keys"] == before
+
+
 @pytest.mark.parametrize("family", ["theta", "l2"])
 def test_candidates_do_not_depend_on_the_codec(family):
     """Hashing sees the raw rows, so the port's own builds from one seed
