@@ -122,9 +122,9 @@ def execute(
     proxy distance (``quant.proxy_query``: no decode, the gather moves
     encoded bytes) and only the top ``ceil(k·α)`` survivors reach the exact
     rerank. The caller passes α = 0 for f32 storage and exact mode
-    (``query`` folds it). Under a profiler the window probe, the dedupe and
-    the gathers are the stages ``probe``, ``dedupe`` and ``gather``
-    (:mod:`repro_torch.obs`)."""
+    (``query`` folds it). Under a profiler the window probe, the dedupe, the
+    proxy screen and the exact rerank are the stages ``probe``, ``dedupe``,
+    ``screen`` (only when it runs) and ``gather`` (:mod:`repro_torch.obs`)."""
     dev = queries.device
     with obs.stage("probe", dev):
         blocks = [s.emit(queries, weights) for s in sources]
@@ -135,13 +135,14 @@ def execute(
         else:
             cand, n_candidates = _dedupe_candidates(cand, n_valid)
     keep = quant.screen_keep(k, screen_alpha, cand.shape[1])
-    with obs.stage("gather", dev):
-        if keep:
+    if keep:
+        with obs.stage("screen", dev):
             qp, wp = quant.proxy_query(queries, weights, main_data.dtype, scales)
             _, surv = ops.gather_rerank_topk(main_data, cand, qp, wp, keep, delta=delta_data)
             # survivors come back -1-padded; map them to the candidate sentinel
             # so invalid slots stay invalid (never row 0)
             cand = torch.where(surv >= 0, surv, torch.full_like(surv, n_valid))
+    with obs.stage("gather", dev):
         dists, ids = ops.gather_rerank_topk(main_data, cand, queries, weights, k, scales=scales,
                                             delta=delta_data)
     return QueryResult(dists=dists, ids=ids, n_candidates=n_candidates)

@@ -130,3 +130,39 @@ def test_stage_ms_times_each_stage_of_a_probe_query_on_the_card():
     assert set(got) == {"keys", "probe", "dedupe", "gather"}
     for ms, calls in got.values():
         assert ms > 0 and calls == 1
+
+
+@pytest.mark.parametrize("alpha", [0.0, 2.0])
+def test_the_proxy_screen_is_a_stage_of_its_own(monkeypatch, alpha):
+    """On int8 storage the proxy screen (alpha > 0) runs in ``screen`` and
+    the exact rerank alone in ``gather``; without a screen only ``gather``
+    is recorded. Each gather call is marked to see which stage it ran in."""
+    from repro_torch.engine import pipeline
+
+    cfg = tapi.IndexConfig(d=8, M=8, K=6, L=8, max_candidates=32,
+                           space=tapi.BoundedSpace(0, 1, 8), storage="int8")
+    x = np.random.default_rng(0).uniform(0, 1, (2048, 8)).astype(np.float32)
+    index = tapi.Index.build(0, x, cfg, device="cpu")
+    q, w = torch.from_numpy(x[:16] + 0.01), torch.ones((16, 8))
+    spec = tapi.QuerySpec(k=3, screen_alpha=alpha)
+    real = pipeline.ops.gather_rerank_topk
+
+    def marked(*args, **kwargs):
+        with torch.profiler.record_function("test.gather_call"):
+            return real(*args, **kwargs)
+
+    monkeypatch.setattr(pipeline.ops, "gather_rerank_topk", marked)
+    index.query(q, w, spec)  # warm
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        index.query(q, w, spec)
+    spans = _spans(prof)
+    stages = {s[0][len(obs.PREFIX):]: s for s in spans
+              if s[0] in (obs.PREFIX + "screen", obs.PREFIX + "gather")}
+    assert set(stages) == ({"screen", "gather"} if alpha else {"gather"})
+    calls = [s for s in spans if s[0] == "test.gather_call"]
+    assert len(calls) == len(stages)
+    for name, (_, start, end) in stages.items():
+        inside = [c for c in calls if start <= c[1] and c[2] <= end]
+        assert len(inside) == 1, name
+    if alpha:
+        assert stages["screen"][2] <= stages["gather"][1]
