@@ -65,7 +65,12 @@ Phases, each of which fails the run (exit code 1) when it fails:
      3 flips): equal to its plain version on projections rounded to
      multiples of 2**-8, and on the raw ones differing only between subsets
      whose float64 scores agree within 1e-6 relative, timed beside the
-     plain version's chain of ATen ops. ``alsh_project`` (build and query
+     plain version's chain of ATen ops. The candidate dedupe
+     ``dedupe_candidates`` runs on the raw window blocks of a clustered 1M x
+     128 index at the sift1m cells' shapes (10,000 probe queries, P=4,096;
+     1,000 multiprobe queries, P=32,768): packed ids and counts bit-equal to
+     its plain version (two ``torch.sort`` passes), timed beside it, with its
+     launch plan and ``-Xptxas -v`` lines. ``alsh_project`` (build and query
      width) must return the same bytes from two calls, and prints a
      sha256 of its output's bytes;
   5. main paths, each with every launch counter zeroed just before its
@@ -171,7 +176,8 @@ Phases, each of which fails the run (exit code 1) when it fails:
         greedy decode steps plain, with ALSH retrieval over 65,536 records
         (``RetrievalConfig()``) and with a growing datastore (one
         ``extend_datastore`` a step): ms per step (median of 3 loops),
-        launches per step (one projection and one gather a retrieval step),
+        launches per step (one projection, one dedupe and one gather a
+        retrieval step),
         device busy and idle share, the host time's split, peak bytes and
         host syncs of a step, recall@8 against exact mode; then the exact
         lookup and its scan against the plain path, recall on uniform and
@@ -262,6 +268,10 @@ SCREEN_ALPHA = 2.0  # the serve CLI's default --screen-alpha
 SURVIVOR_CALLS = 20  # calls profiled for the device time of the exact pass over the survivors
 # The multiprobe key enumeration's shape: the multiprobe cell's batch, probes and flips
 MP_BATCH, MP_PROBES, MP_FLIPS = 1000, 8, 3
+# The candidate dedupe's shapes: the sift1m cells' table (n=1,000,000, d=128)
+# under SERVICE's index geometry, with the probe-b10k and multiprobe-b1k batches
+DEDUPE_N, DEDUPE_D = 1_000_000, 128
+DEDUPE_CELLS = (("probe-b10k", 10_000, "probe"), ("multiprobe-b1k", MP_BATCH, "multiprobe"))
 
 KERNEL_META = {
     "alsh_project": ("src/repro_torch/kernels/csrc/alsh_project.cu",
@@ -282,6 +292,8 @@ KERNEL_META = {
                    "src/repro/kernels/wl1_distance.py:112"),
     "multiprobe_keys": ("src/repro_torch/kernels/csrc/multiprobe_keys.cu",
                         "none (jnp: src/repro/core/families.py ThetaFamily.multiprobe_keys)"),
+    "dedupe_candidates": ("src/repro_torch/kernels/csrc/dedupe_candidates.cu",
+                          "none (jnp: src/repro/core/index.py _dedupe_candidates, two sorts)"),
 }
 PATHS = ("f32", "quantized", "multiprobe", "stream", "unfused", "early_exit", "persist", "plan",
          "broker", "sharded", "static_contracts", "lm", "train", "families", "mesh")
@@ -860,6 +872,81 @@ def phase_multiprobe_keys(run, svc):
           f"{_fmt_us(plain_dev_us)}, {plain_ops} device ops a call); bound {b_ms * 1e3:.2f} us "
           f"by {b_by} ({nbytes / 1e6:.2f} MB, {adds / 1e6:.1f} M adds over {S} subsets a pair)")
     run.record("multiprobe_keys", **numbers)
+
+
+def phase_dedupe_candidates(run):
+    """The candidate dedupe against its plain version (two ``torch.sort``
+    passes) at the two sift1m cells' shapes: a clustered 1M x 128 table under
+    SERVICE's index geometry, and the raw window blocks of 10,000 probe
+    queries (P = 4,096) and of 1,000 multiprobe queries (8 probes, 3 flips:
+    P = 32,768). The packed ids and the counts must be bit-equal. Prints the
+    kernel's ``-Xptxas -v`` lines, its device and host time per call beside
+    its bound (8·b·P + 4·b bytes) and the plain version's times."""
+    import torch
+
+    import repro_torch.api as tapi
+    from repro_torch.configs.paper_alsh import SERVICE
+    from repro_torch.engine.pipeline import probe_keys, sources_for
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels.dedupe_candidates import tile_plan
+
+    cfg = SERVICE.index_config
+    wl = Workload(DEDUPE_N, DEDUPE_D)
+    index = tapi.Index.build(SEED + 3, wl.data, cfg)
+    n = index.n
+    _build.DEDUPE_CANDIDATES.lib()
+    for line in _build.DEDUPE_CANDIDATES.build_log.splitlines():
+        if "Compiling entry" in line or "registers" in line or "spill" in line:
+            print(f"  ptxas: {line.strip()}")
+    for cell, b, mode in DEDUPE_CELLS:
+        q, w = wl.batch(b, SEED + 4)
+        keys = probe_keys(index.state, q, w, cfg, mode=mode, n_probes=MP_PROBES,
+                          max_flips=MP_FLIPS)
+        cand = sources_for(index.state, None, None, cfg, keys)[0].emit(q, w)
+        del keys, q, w
+        P = cand.shape[1]
+
+        def kernel():
+            return ops.dedupe_candidates(cand, n)
+
+        def plain():
+            return ops.dedupe_candidates(cand, n, force="plain")
+
+        want, want_n = plain()
+        print(f"  {cell}: cand {tuple(cand.shape)}, n={n}, tiles/summary words/dynamic shared "
+              f"bytes {tile_plan(n)}; "
+              f"{int((cand < n).sum())} valid slots, {int(want_n.sum())} distinct ids "
+              f"({float(want_n.float().mean()):.1f} a query)")
+        nbytes = 8 * b * P + 4 * b
+        b_ms, b_by = bound(nbytes, 0)
+        plain_ms = time_ms(plain, iters=10, warmup=2)
+        plain_into = {}
+        profile(f"dedupe_candidates plain version at {cell}, 5 calls",
+                lambda: [plain() for _ in range(5)], top=12, into=plain_into)
+        plain_dev_us = plain_into.get("busy_us", 0) / 5 or None
+        got, got_n = kernel()
+        torch.cuda.synchronize()
+        same = torch.equal(got, want) and torch.equal(got_n, want_n)
+        print(f"  {cell}: bit-equal to the plain version: {same}")
+        if not same:
+            raise AssertionError(f"dedupe_candidates at {cell}: kernel differs from the plain "
+                                 "version")
+        del got, got_n
+        ms = time_ms(kernel, iters=50, warmup=3)
+        dev_us = device_us_per_call(f"dedupe_candidates at {cell}", kernel)
+        host_us = host_us_per_call(kernel)
+        print(f"  {cell}: kernel {ms * 1e3:.1f} us (device {_fmt_us(dev_us)} per call, "
+              f"{_fmt_share(_share(dev_us, b_ms * 1e3))} of the bound; host {host_us:.1f} us per "
+              f"call), plain {plain_ms:.3f} ms (device {_fmt_us(plain_dev_us)}); bound "
+              f"{b_ms * 1e3:.2f} us by {b_by} ({nbytes / 1e6:.1f} MB)")
+        run.record("dedupe_candidates", max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                   bound_by=b_by, library_ms=None, **{
+                       f"{cell}.ms": ms, f"{cell}.device_us": dev_us,
+                       f"{cell}.plain_device_us": plain_dev_us,
+                       f"{cell}.host_us_per_call": host_us})
+        del cand, want, want_n
+    del index, wl
+    torch.cuda.empty_cache()
 
 
 def _check_topk(label, got, want, data, q, w, quiet=False):
@@ -1543,7 +1630,8 @@ def phase_main_path(svc):
     profile("of one theta probe batch", lambda: index.query(q, w, tapi.QuerySpec(k=10)),
             unprofiled_wall=True)
     *_, l2 = _serve("l2", 1, wl, W=L2_W)
-    counts = _path_counts("f32", ("alsh_project", "gather_rerank_topk", "wl1_scan_topk"))
+    counts = _path_counts("f32", ("alsh_project", "dedupe_candidates", "gather_rerank_topk",
+                                  "wl1_scan_topk"))
     for family, rows, floor in (("theta", theta, THETA_RECALL_FLOOR), ("l2", l2, L2_RECALL_FLOOR)):
         rec = sum(r["recall"] for r in rows) / len(rows)
         print(f"  [{family}] mean recall@10 {rec:.3f} (floor {floor})")
@@ -1619,8 +1707,8 @@ def phase_quant_path(svc):
     # f32 timed again after the quantized batches: f32, quantized, f32 in turns
     rows["f32_ms"] = [f32_ms, _median_ms(f32, q, w, tapi.QuerySpec(k=k))]
     print(f"  [f32] the same batch again: {rows['f32_ms'][1]:.2f} ms (median of 5 warm calls)")
-    counts = _path_counts("quantized", ("alsh_project", "gather_rerank_topk_blocked",
-                                        "wl1_scan_topk"))
+    counts = _path_counts("quantized", ("alsh_project", "dedupe_candidates",
+                                        "gather_rerank_topk_blocked", "wl1_scan_topk"))
     return counts, rows
 
 
@@ -1653,7 +1741,8 @@ def phase_multiprobe_path(svc):
     if worse or not bool((mp.n_candidates >= probe.n_candidates).all()):
         raise AssertionError("multiprobe must see a superset of the probe batch's candidates")
     profile("of one theta multiprobe batch", lambda: index.query(q, w, mspec), top=6)
-    counts = _path_counts("multiprobe", ("alsh_project", "multiprobe_keys", "gather_rerank_topk"))
+    counts = _path_counts("multiprobe", ("alsh_project", "multiprobe_keys", "dedupe_candidates",
+                                         "gather_rerank_topk"))
     return counts, {"ms": ms, "cand_frac": cand_frac, "recall": rec, "recall_probe": rec_probe}
 
 
@@ -1796,7 +1885,8 @@ def phase_stream_path(svc):
             if rec < QUANT_RECALL_FLOOR:
                 raise AssertionError(f"int8 alpha={alpha}: recall@{k} {rec:.3f} under its floor")
             quant_rows.append({"tick": t, "alpha": alpha, "ms": ms, "recall_own": rec})
-    counts = _path_counts("stream", ("alsh_project", "gather_rerank_topk_two_seg",
+    counts = _path_counts("stream", ("alsh_project", "dedupe_candidates",
+                                     "gather_rerank_topk_two_seg",
                                      "gather_rerank_topk_blocked_two_seg"))
     return counts, {"ticks": ticks, "int8": quant_rows}
 
@@ -2010,7 +2100,7 @@ def phase_early_exit_path(svc):
     mean_tp, n_win = stats[0].split("tables_probed~")[1].split()[0].split("/")
     if not 1.0 <= float(mean_tp) <= float(n_win):
         raise AssertionError(f"serve --stats: tables_probed {mean_tp} outside [1, {n_win}]")
-    counts = _path_counts("early exit", ("alsh_project", "gather_rerank_topk",
+    counts = _path_counts("early exit", ("alsh_project", "dedupe_candidates", "gather_rerank_topk",
                                          "gather_rerank_topk_two_seg",
                                          "gather_rerank_topk_blocked", "wl1_scan_topk"))
     return counts, rows
@@ -3154,7 +3244,7 @@ def phase_sharded_path(svc, card):
 # (wl1_scan and wl1_rerank lie only on the unfused path)
 LATTICE_KERNELS = ("alsh_project", "gather_rerank_topk", "gather_rerank_topk_two_seg",
                    "gather_rerank_topk_blocked", "gather_rerank_topk_blocked_two_seg",
-                   "wl1_scan_topk", "multiprobe_keys")
+                   "wl1_scan_topk", "multiprobe_keys", "dedupe_candidates")
 SYNC_WARNING = "called a synchronizing CUDA operation"
 
 
@@ -3325,8 +3415,8 @@ def phase_static_contracts(svc, card):
     if report["failures"] or (ck["raw_points"], ck["count"]) != (146, budgets.RETRACE_BUDGET):
         raise AssertionError(f"the audit failed on the card: {len(report['failures'])} failures")
     bad_int8 = [row["name"] for row in report["paths"] if "int8_kernels" in row
-                and set(row["launches"]) - {"alsh_project", "multiprobe_keys", "wl1_scan_topk",
-                                            *audit.STORED_KERNELS}]
+                and set(row["launches"]) - {"alsh_project", "multiprobe_keys", "dedupe_candidates",
+                                            "wl1_scan_topk", *audit.STORED_KERNELS}]
     if bad_int8:
         raise AssertionError(f"int8 paths launched a kernel outside the stored-type gathers: "
                              f"{bad_int8}")
@@ -3792,8 +3882,9 @@ def phase_lm_path(run, card):
               f"{steps[name]['ms_per_step']:.3f} ms/step (loops {[round(x, 3) for x in ms_all]}); "
               f"launches per step {first['launches']}; first tokens (seq 0) "
               f"{steps[name]['first_tokens']}")
-    want = {"retrieval": {"alsh_project": 1, "gather_rerank_topk": 1},
-            "growing": {"alsh_project": 2, "gather_rerank_topk_two_seg": 1}}
+    want = {"retrieval": {"alsh_project": 1, "dedupe_candidates": 1, "gather_rerank_topk": 1},
+            "growing": {"alsh_project": 2, "dedupe_candidates": 1,
+                        "gather_rerank_topk_two_seg": 1}}
     for name, need in want.items():
         if steps[name]["launches_per_step"] != need:
             raise AssertionError(f"{name} decode launched {steps[name]['launches_per_step']} "
@@ -3837,7 +3928,7 @@ def phase_lm_path(run, card):
           f"{q_all.shape[0]} decode-step keys: {out['recall_at_8']:.3f} "
           f"({out['cand_per_query']:.1f} candidates a query)")
     out["peak_allocated_bytes"] = torch.cuda.max_memory_allocated()
-    counts = _path_counts("lm", ("alsh_project", "gather_rerank_topk",
+    counts = _path_counts("lm", ("alsh_project", "dedupe_candidates", "gather_rerank_topk",
                                  "gather_rerank_topk_two_seg", "wl1_scan_topk"))
     print(f"  [lm] allocator peak over the path {out['peak_allocated_bytes']} B "
           f"({out['peak_allocated_bytes'] / 2**30:.2f} GiB)")
@@ -4474,7 +4565,8 @@ def _family_serve(arch, cfg, params, out, calls):
         ms_all = [r["ms"] for r in runs]
         if any(r["launches"] != runs[0]["launches"] for r in runs):
             raise AssertionError(f"{arch} {name} decode: the loops launched differently")
-        want = {"alsh_project": 1, "gather_rerank_topk": 1} if name == "retrieval" else {}
+        want = ({"alsh_project": 1, "dedupe_candidates": 1, "gather_rerank_topk": 1}
+                if name == "retrieval" else {})
         if runs[0]["launches"] != want:
             raise AssertionError(f"{arch} {name} decode launched {runs[0]['launches']} a step, "
                                  f"not {want}")
@@ -5094,6 +5186,7 @@ def main() -> int:
     run.phase("kernel wl1_scan", phase_wl1_scan, run)
     run.phase("kernel wl1_rerank", phase_wl1_rerank, run)
     run.phase("kernel multiprobe_keys", phase_multiprobe_keys, run, svc)
+    run.phase("kernel dedupe_candidates", phase_dedupe_candidates, run)
     seg = run.phase("two-segment set-up (a full delta, a stream batch's candidates)",
                     TwoSegment, svc)
     if seg is not None:

@@ -32,6 +32,7 @@ import torch
 from repro_torch.core import hash_families as hf
 from repro_torch.core import transforms
 from repro_torch.core.families import HashFamily, get_family
+from repro_torch.kernels import ops
 from repro_torch.quant.codecs import STORAGE_KINDS, get_codec, storage_dtype
 
 INT32_MAX = 2**31 - 1
@@ -450,14 +451,11 @@ def _probe_one_table(
 
 
 def _dedupe_candidates(cand: torch.Tensor, n: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Sort candidate ids, zap duplicates/invalids to the sentinel ``n`` and
-    pack the unique ids first: (b, P) -> ((b, P) int32, (b,) int32 counts)."""
-    cand = torch.sort(torch.clamp(cand, max=n), dim=1).values
-    first = torch.ones_like(cand, dtype=torch.bool)
-    first[:, 1:] = cand[:, 1:] != cand[:, :-1]
-    valid = (cand < n) & first
-    packed = torch.sort(torch.where(valid, cand, torch.full_like(cand, n)), dim=1).values
-    return packed.to(torch.int32), valid.sum(dim=1).to(torch.int32)
+    """Pack each row's distinct candidate ids below ``n`` first, ascending,
+    then the sentinel ``n``: (b, P) -> ((b, P) int32, (b,) int32 counts).
+    One kernel on the card (``ops.dedupe_candidates``), the two-sort plain
+    version on the CPU."""
+    return ops.dedupe_candidates(cand, n)
 
 
 def table_window_sizes(sorted_keys: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:

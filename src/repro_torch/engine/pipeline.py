@@ -8,7 +8,7 @@ Counterpart of ``repro.engine.pipeline``:
   2. ``sources_for`` — the sealed sorted-table window source, plus the
      delta key match when the index has a delta segment; tombstones are
      masked inside the sources, before the merge;
-  3. ``execute`` — merge the blocks, dedupe by sort (unique ids packed
+  3. ``execute`` — merge the blocks, dedupe (unique ids packed
      first; the unique count is the paper's sublinearity metric), then,
      for a quantized table with ``screen_alpha`` > 0, a proxy screen over
      the encoded rows that keeps ``ceil(k·α)`` survivors, then the fused
@@ -117,7 +117,7 @@ def execute(
 
     ``n_valid`` is the addressable row count (main plus delta capacity); an
     id >= n_valid is padding. A single ``pre_deduped`` source skips the
-    dedupe sort and counts its valid entries. With ``screen_alpha`` > 0 the
+    dedupe and counts its valid entries. With ``screen_alpha`` > 0 the
     same fused kernel first ranks every candidate by the compressed-domain
     proxy distance (``quant.proxy_query``: no decode, the gather moves
     encoded bytes) and only the top ``ceil(k·α)`` survivors reach the exact

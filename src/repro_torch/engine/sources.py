@@ -16,7 +16,7 @@ without translation. Three sources cover the query surface:
     the exact mode of a mutable index as a source.
 
 ``pre_deduped`` declares that a block already holds ascending unique ids
-with the sentinels packed last, so the tail skips its dedupe sort.
+with the sentinels packed last, so the tail skips its dedupe.
 """
 
 from __future__ import annotations

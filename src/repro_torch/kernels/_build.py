@@ -205,11 +205,17 @@ MULTIPROBE_KEYS = Kernel(
     "multiprobe_keys.cu",
     {"multiprobe_keys_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P]},
 )
+DEDUPE_CANDIDATES = Kernel(
+    "dedupe_candidates",
+    "dedupe_candidates.cu",
+    {"dedupe_candidates_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
+     "dedupe_candidates_plan": [_I, _P]},
+)
 KERNELS = {
     k.name: k
     for k in (ALSH_PROJECT, GATHER_RERANK, GATHER_RERANK_BLOCKED, WL1_SCAN_TOPK,
               GATHER_RERANK_TWO_SEG, GATHER_RERANK_BLOCKED_TWO_SEG, WL1_SCAN, WL1_RERANK,
-              MULTIPROBE_KEYS)
+              MULTIPROBE_KEYS, DEDUPE_CANDIDATES)
 }
 
 

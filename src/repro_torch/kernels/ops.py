@@ -112,6 +112,20 @@ def multiprobe_keys(
     return ref.multiprobe_keys(proj_lk, n_probes, max_flips)
 
 
+def dedupe_candidates(
+    cand: torch.Tensor,
+    n: int,
+    force: str | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Candidate dedupe: (b, P) ids (>= n ⇒ padding) -> ((b, P) int32, each
+    row's distinct ids below n ascending, then ``n``; (b,) int32 counts)."""
+    if _use_kernel(cand, force):
+        from repro_torch.kernels.dedupe_candidates import dedupe_candidates_cuda
+
+        return dedupe_candidates_cuda(cand, n)
+    return ref.dedupe_candidates(cand, n)
+
+
 def gather_rerank_topk(
     data: torch.Tensor,
     ids: torch.Tensor,

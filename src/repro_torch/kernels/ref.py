@@ -229,6 +229,17 @@ def multiprobe_keys(proj_lk: torch.Tensor, n_probes: int, max_flips: int) -> tor
     return torch.bitwise_xor(base_key[..., None], flip_key[probe_idx]).to(torch.int32)
 
 
+def dedupe_candidates(cand: torch.Tensor, n: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Sort candidate ids, zap duplicates/invalids to the sentinel ``n`` and
+    pack the unique ids first: (b, P) -> ((b, P) int32, (b,) int32 counts)."""
+    cand = torch.sort(torch.clamp(cand, max=n), dim=1).values
+    first = torch.ones_like(cand, dtype=torch.bool)
+    first[:, 1:] = cand[:, 1:] != cand[:, :-1]
+    valid = (cand < n) & first
+    packed = torch.sort(torch.where(valid, cand, torch.full_like(cand, n)), dim=1).values
+    return packed.to(torch.int32), valid.sum(dim=1).to(torch.int32)
+
+
 def unexplained_id_mismatches(
     got_i: torch.Tensor,
     want_d: torch.Tensor,

@@ -11,8 +11,9 @@ log(λ p_kNN)).
 
 The datastore index is a ``repro_torch.api`` :class:`Index`, so a lookup is
 one ``index.query(q, w, spec)`` through the engine: on the card the weighted
-``alsh_project`` and the fused ``gather_rerank_topk`` kernels (its
-two-segment form for a growing datastore). A growing datastore
+``alsh_project``, the ``dedupe_candidates`` and the fused
+``gather_rerank_topk`` kernels (its two-segment form for a growing
+datastore). A growing datastore
 (``delta_capacity > 0``) takes new records through ``extend_datastore``.
 
 The datastore is drawn from a CPU generator and moved to ``device``, so one

@@ -343,6 +343,25 @@ def test_query_validation_matches_reference_messages():
         idx.query(bad, np.ones((3, 4)))
 
 
+@pytest.mark.parametrize("case", ["dtype", "rank", "contiguity", "n", "cpu"])
+def test_dedupe_wrapper_refuses_what_the_kernel_does_not_take(case):
+    """The CUDA dedupe wrapper checks its input before any pointer reaches
+    C: int32 only, (b, P) only, contiguous only, n in [0, 2**31) only, CUDA
+    only."""
+    from repro_torch.kernels.dedupe_candidates import dedupe_candidates_cuda
+
+    cand = torch.zeros((4, 8), dtype=torch.int32)
+    bad, n, err, match = {
+        "dtype": (cand.long(), 5, TypeError, "int32"),
+        "rank": (cand.flatten(), 5, ValueError, "2 dims"),
+        "contiguity": (cand.T, 5, ValueError, "contiguous"),
+        "n": (cand, -1, ValueError, "n="),
+        "cpu": (cand, 5, ValueError, "CUDA"),
+    }[case]
+    with pytest.raises(err, match=match):
+        dedupe_candidates_cuda(bad, n)
+
+
 def test_kernel_dispatch_never_quietly_falls_back():
     """A CPU tensor takes the plain version; an unknown force is refused;
     the CUDA wrappers refuse CPU tensors instead of computing on them."""

@@ -1147,3 +1147,157 @@ def test_impl_spec_raises_on_the_card(dev, impl):
     idx = tapi.Index.build(4, data, cfg)
     with pytest.raises(ValueError, match="runs on CPU tensors only"):
         idx.query(q, w, tapi.QuerySpec(k=5, impl=impl))
+
+
+def _window_block(b, windows, C, n, seed, dev, starts_per_row=4, max_gap=12):
+    """(b, windows·C) int32, shaped like the probe's raw block: each window
+    holds a random number of ascending ids from a bucket start, then the
+    window sentinel n + C. A row's windows start at one of
+    ``starts_per_row`` points, so they share ids; ids past n - 1 are padding
+    as well."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    starts = torch.randint(0, max(n, 1), (b, starts_per_row), generator=g, device=dev)
+    start = torch.gather(starts, 1, torch.randint(0, starts_per_row, (b, windows), generator=g,
+                                                  device=dev))
+    gaps = torch.randint(1, max_gap, (b, windows, C), generator=g, device=dev)
+    ids = start[:, :, None] + torch.cumsum(gaps, dim=2) - gaps[:, :, :1]
+    fill = torch.randint(0, C + 1, (b, windows, 1), generator=g, device=dev)
+    ids = torch.where(torch.arange(C, device=dev) < fill, ids, n + C)
+    return ids.reshape(b, windows * C).to(torch.int32)
+
+
+def _dedupe_case(case, dev):
+    """(cand, n) of one named case: the two sift1m cells' shapes, the stream
+    group and two-segment widths, odd widths and ranges, b = 1, and id ranges
+    that take several tiles or several walk rounds of the kernel."""
+    g = torch.Generator(device=dev).manual_seed(len(case))
+
+    def rand(b, P, hi):
+        return torch.randint(0, hi, (b, P), generator=g, device=dev, dtype=torch.int32)
+
+    if case == "multiprobe-cell":
+        n, cand = 1_000_000, _window_block(1000, 256, 128, 1_000_000, 1, dev)
+    elif case == "probe-cell":
+        n, cand = 1_000_000, _window_block(10_000, 32, 128, 1_000_000, 2, dev)
+    elif case == "stream-group":  # k heap ids + G·C window slots = 10 + 8·128
+        n = 262_144 + 8192
+        cand = torch.cat([rand(1024, 10, n + 1), _window_block(1024, 8, 128, n, 3, dev)], dim=1)
+    elif case == "two-segment":  # L·P·C main slots + the delta's cap, n_valid = n + cap
+        n_main, cap = 262_144, 8192
+        n = n_main + cap
+        delta = torch.where(rand(64, cap, 4) == 0, n_main + torch.arange(cap, device=dev), n)
+        cand = torch.cat([_window_block(64, 32, 128, n_main, 4, dev), delta.to(torch.int32)],
+                         dim=1)
+    elif case == "odd-widths":  # P and n multiples of neither 32 nor the block
+        n = 999_983
+        cand = torch.cat([_window_block(7, 8, 129, n, 5, dev), rand(7, 5, n + 200)], dim=1)
+    elif case == "one-query":
+        n, cand = 50, rand(1, 33, 60)
+    elif case == "small-range":
+        n, cand = 30, rand(6, 24, 39)
+    elif case == "empty-range":
+        n, cand = 0, rand(3, 40, 5)
+    elif case == "many-words":  # more nonzero bitmap words than one walk step lists
+        n, cand = 1_000_000, rand(4, 20_000, 1_005_000)
+    elif case == "two-rounds":  # more summary words than threads in one tile
+        n, cand = 1_400_000, _window_block(64, 40, 128, 1_400_000, 6, dev)
+    elif case == "tiled":  # above one tile's ids: two tiles, a sparse row
+        n, cand = 2_500_000, rand(5, 5000, 2_600_000)
+    elif case == "three-tiles":
+        n, cand = 4_000_000, _window_block(3, 40, 128, 4_000_000, 7, dev, max_gap=2000)
+    elif case == "wide-range":  # a short row over three tiles
+        n, cand = 4096 * 1024 + 1, rand(9, 4096, 4096 * 1024 + 100)
+    else:
+        raise ValueError(case)
+    if cand.shape[0] >= 3:
+        cand[0] = n  # all sentinels
+        cand[1] = max(n - 1, 0)  # one id repeated (the last valid one)
+        cand[2, ::2] = n + 128  # the window sentinel and ids past n beside valid ones
+        cand[2, 1::4] = 0
+    return cand.contiguous(), n
+
+
+# each case and the id-range tiles the kernel walks it in
+DEDUPE_CASES = {"multiprobe-cell": 1, "probe-cell": 1, "stream-group": 1, "two-segment": 1,
+                "odd-widths": 1, "one-query": 1, "small-range": 1, "empty-range": 0,
+                "many-words": 1, "two-rounds": 1, "tiled": 2, "three-tiles": 3,
+                "wide-range": 3}
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("case", list(DEDUPE_CASES))
+def test_dedupe_candidates_kernel_equals_plain(dev, case, aligned):
+    """Packed ids and counts bit-equal to the two-sort plain version, with
+    one launch (and none for the plain version). With ``aligned`` False the
+    block starts 4 bytes past a 16-byte boundary, so the kernel reads it id
+    by id instead of in 16-byte groups."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.dedupe_candidates import tile_plan
+
+    cand, n = _dedupe_case(case, dev)
+    assert tile_plan(n)[0] == DEDUPE_CASES[case]
+    if not aligned:
+        buf = torch.empty(cand.numel() + 1, dtype=torch.int32, device=dev)
+        buf[1:] = cand.flatten()
+        cand = buf[1:].view(cand.shape)
+        assert cand.data_ptr() % 16 != 0 and cand.is_contiguous()
+    before = _build.launch_counts()["dedupe_candidates"]
+    got, got_n = ops.dedupe_candidates(cand, n)
+    assert _build.launch_counts()["dedupe_candidates"] == before + 1
+    want, want_n = ops.dedupe_candidates(cand, n, force="plain")
+    assert _build.launch_counts()["dedupe_candidates"] == before + 1  # the plain version: none
+    torch.cuda.synchronize()
+    assert got.dtype == got_n.dtype == torch.int32
+    assert got.shape == cand.shape and got_n.shape == (cand.shape[0],)
+    assert torch.equal(got_n, want_n)
+    assert torch.equal(got, want)
+    if cand.shape[0] >= 3:
+        assert int(got_n[0]) == 0 and int(got_n[1]) == (1 if n else 0)
+
+
+@pytest.mark.parametrize("n,plan", [
+    (0, (0, 0)), (1, (1, 1)), (1024, (1, 1)), (1025, (1, 2)), (1_000_000, (1, 977)),
+    (1384 * 1024, (1, 1384)), (1384 * 1024 + 1, (2, 693)), (2_500_000, (2, 1221)),
+    (4_000_000, (3, 1303)),
+])
+def test_dedupe_tile_plan(dev, n, plan):
+    """The kernel's cut of the id range: equal tiles of at most 1,384
+    summary words of 1,024 ids, covering [0, n), each block's shared memory
+    within the card's 227 KB."""
+    from repro_torch.kernels.dedupe_candidates import tile_plan
+
+    tiles, words, smem = tile_plan(n)
+    assert (tiles, words) == plan
+    assert tiles * words * 1024 >= n and smem <= 227 * 1024
+
+
+@pytest.mark.parametrize("mode", ["probe", "multiprobe"])
+def test_query_on_the_card_dedupes_without_torch_sort(dev, monkeypatch, mode):
+    """A sealed probe or multiprobe query on the card launches the dedupe
+    kernel once and never calls ``torch.sort``; its answer equals the one
+    with the plain dedupe."""
+    import repro_torch.api as tapi
+    from repro_torch.kernels import _build
+
+    rs = np.random.default_rng(33)
+    cfg = tapi.IndexConfig(d=32, M=32, K=12, L=8, max_candidates=64,
+                           space=tapi.BoundedSpace(0.0, 1.0, 32.0))
+    idx = tapi.Index.build(13, rs.uniform(0, 1, (4096, 32)).astype(np.float32), cfg)
+    q = rs.uniform(0, 1, (32, 32)).astype(np.float32)
+    w = (np.abs(rs.normal(size=(32, 32))) + 0.1).astype(np.float32)
+    spec = tapi.QuerySpec(k=10, mode=mode, n_probes=8, max_flips=3)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("torch.sort called")
+
+    before = _build.launch_counts()["dedupe_candidates"]
+    with monkeypatch.context() as m:
+        m.setattr(torch, "sort", refuse)
+        res = idx.query(q, w, spec)
+    assert _build.launch_counts()["dedupe_candidates"] == before + 1
+    kernel = ops.dedupe_candidates
+    with monkeypatch.context() as m:
+        m.setattr(ops, "dedupe_candidates", lambda cand, n: kernel(cand, n, force="plain"))
+        want = idx.query(q, w, spec)
+    for field in ("dists", "ids", "n_candidates"):
+        assert torch.equal(getattr(res, field), getattr(want, field)), field

@@ -113,7 +113,11 @@ def test_plain_gather_rerank_all_invalid_and_packed(monkeypatch, chunk_rows):
     assert np.all(got[1][0].numpy() == -1) and np.all(np.isinf(got[0][0].numpy()))
 
 
-@pytest.mark.parametrize("n,P", [(30, 24), (100, 7), (5, 40)])
+@pytest.mark.parametrize("n,P", [
+    (30, 24), (100, 7), (5, 40),
+    (270_336, 1034),  # a stream group: k + G·C = 10 + 8·128 slots, n + cap ids
+    (270_336, 12_288),  # the two-segment block: L·C + cap = 32·128 + 8192 slots
+])
 def test_dedupe_candidates_equal(n, P):
     rs = np.random.default_rng(n * P)
     cand = rs.integers(0, n + 9, (6, P)).astype(np.int32)
@@ -123,6 +127,20 @@ def test_dedupe_candidates_equal(n, P):
     assert got_c.dtype == torch.int32 and got_n.dtype == torch.int32
     assert np.array_equal(got_c.numpy(), np.asarray(want_c))
     assert np.array_equal(got_n.numpy(), np.asarray(want_n))
+
+
+def test_dedupe_candidates_on_cpu_takes_the_plain_version():
+    """A CPU tensor runs the plain version and launches nothing."""
+    from repro_torch.kernels import _build
+
+    rs = np.random.default_rng(33)
+    cand = torch.from_numpy(rs.integers(0, 60, (5, 70)).astype(np.int32))
+    before = _build.launch_counts()["dedupe_candidates"]
+    got = tops.dedupe_candidates(cand, 50)
+    want = tref.dedupe_candidates(cand, 50)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(got[0], t_dedupe(cand, 50)[0])
+    assert _build.launch_counts()["dedupe_candidates"] == before
 
 
 @pytest.mark.parametrize("C", [1, 4, 16])
