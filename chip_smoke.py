@@ -1,10 +1,27 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port (``src/repro_torch``) on one NVIDIA GPU.
+"""Card check of the PyTorch port (``src/repro_torch``) on one NVIDIA GPU:
+its paths at full width, with the checks that no benchmark cell and no CUDA
+test makes.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --digests    # only alsh_project's output digests
-    python3 chip_smoke.py --wl1-times  # only the wl1 kernels' times (see wl1_times)
     CUBLAS_WORKSPACE_CONFIG=:4096:8 python3 chip_smoke.py --restart-drill  # only the drill
+
+It times no kernel alone. A kernel's speed on the card is the benchmark's,
+``roofline.<kernel>`` and ``stage_ms.*`` read from the trace of a cell
+(``python3 portbench/run.py --workload <cell> --trace 1``); each kernel's
+agreement with its plain version over the shapes that reach each of its
+code paths is held by the CUDA tests (``PYTHONPATH=src python -m pytest -q
+--noconftest -m cuda tests/test_torch_cuda.py``). Here every kernel call of
+one batch of a path is caught (``_capture_kernel_calls``) and, untimed,
+made again through the kernel and through its plain version on the same
+inputs (``_kernels_against_plain``): the kernels at the shapes the paths
+give them. What it times are its paths: batch, tick and step times on the
+host clock, and the device's busy time, idle share and top operations over
+one call, from a ``torch.profiler`` trace read by
+``portbench.trace.Trace`` (``profile``). Rows and queries come from
+``portbench``'s ``clusters`` generator with the data parameters of the
+benchmark's configuration at the SERVICE width (``workload``).
 
 Phases, each of which fails the run (exit code 1) when it fails:
 
@@ -15,81 +32,34 @@ Phases, each of which fails the run (exit code 1) when it fails:
      with the ``-Xptxas -v`` register and shared-memory report;
   3. service set-up, made once and shared by the later phases: the
      ``SERVICE`` configuration's (n=262,144, d=128, M=32, K=12, L=32,
-     C=128) near-duplicate clusters (see ``Workload``) and query batch, the
-     f32 theta index built over them on the card with ``Index.build`` (one
-     more build profiled: device time by kernel and idle share), and the
-     batch's deduped probe candidates;
-  4. one phase per kernel, at the service widths: the kernel and its plain
-     PyTorch version run on the same seeded inputs on the card and must
-     agree (tolerances printed with each phase); the kernel's time (CUDA
-     events, warmed up), the plain version's time, one PyTorch library
-     call's time where one computes the same function, and the least time
-     the card could take (bytes over 3.35 TB/s or flops over 67 TFLOP/s
-     FP32, whichever is larger; a gather moves each distinct row once).
-     The f32 gather runs at four main-path shapes — the service batch's
-     candidates (b=1024, P=4096), a streamed early-exit merge's (b=1024,
-     P=1034), a stream batch's over two segments (b=1024, P=12,288) and
-     the exact mode of a mutable index (two segments, b=64, every id) — and
-     at each must also equal, bit for bit, the one-warp-per-query schedule
-     on the same inputs (``gather_rerank_topk_warp_cuda``, the reference
-     entry of the stored-type source), timed beside it with the number of
-     slot splits S the launch used.
-     The quantized gather runs four cases — over the service candidates
-     int8 with scales (the exact pass), int8 with the proxy query (the
-     screen pass) and bf16, and the exact pass over the screen's survivors —
-     each on the schedule the host picks (printed), and each must also
-     equal, bit for bit, the f32 kernel over the decoded table and the
-     one-warp schedule over the payload, both timed beside it (over the
-     survivors also as device time per call, from the profiler). The two
-     two-segment gathers (f32, and int8 with scales and with the proxy
-     query) run over the SERVICE main table plus a delta of 8192
-     near-duplicate rows, on a stream batch's deduped candidates from the
-     main windows and the delta match; each must also equal, bit for bit,
-     its single-segment kernel over ``torch.cat([main, delta])``, and the
-     quantized one also the f32 two-segment kernel over the decoded tables
-     and the one-warp schedule, all timed beside it. The materializing scan ``wl1_scan`` runs
-     at n=65,536 and 262,144 (b=64, d=128) and the re-rank ``wl1_rerank``
-     at b=64, d=128, C=512 and 4096, each also on a ragged shape, against
-     their plain versions at rtol/atol 1e-4, with the profiler's device
-     time per call and its share of the bound, the scan's issue floor
-     derived from the SM clock read under load in the run (printed, not
-     recorded), and the host time per call of 200 back-to-back calls
-     (printed on one line). The
-     exact scan ``wl1_scan_topk`` runs at the service batch (n=262,144, b=1024), the
-     main path's recall check (b=64) and the recorded shape (n=65,536,
-     b=64), and at each must also equal, bit for bit, ``wl1_scan`` then a
-     stable sort of each query's distances (the first k, +inf -> id -1),
-     with the row splits S it used. The multiprobe key enumeration
-     ``multiprobe_keys`` runs at the multiprobe cell's shape (the index's
-     projections of the first 1000 service queries, L=32, K=12, 8 probes,
-     3 flips): equal to its plain version on projections rounded to
-     multiples of 2**-8, and on the raw ones differing only between subsets
-     whose float64 scores agree within 1e-6 relative, timed beside the
-     plain version's chain of ATen ops. The candidate dedupe
-     ``dedupe_candidates`` runs on the raw window blocks of a clustered 1M x
-     128 index at the sift1m cells' shapes (10,000 probe queries, P=4,096;
-     1,000 multiprobe queries, P=32,768): packed ids and counts bit-equal to
-     its plain version (two ``torch.sort`` passes), timed beside it, with its
-     launch plan and ``-Xptxas -v`` lines. ``alsh_project`` (build and query
-     width) must return the same bytes from two calls, and prints a
-     sha256 of its output's bytes;
-  5. main paths, each with every launch counter zeroed just before its
-     queries and read just after; a kernel of the path that was never
-     launched fails the run:
+     C=128) clustered rows and query batch, and the f32 theta index built
+     over them on the card with ``Index.build`` (one more build profiled);
+  4. paths, each with every launch counter zeroed just before its queries
+     and read just after; a kernel of the path that was never launched
+     fails the run; the f32, quantized, multiprobe, stream, broker, lm and
+     families paths then hold their kernel calls against the plain
+     versions (``_kernels_against_plain``):
      a. f32: three probe-mode query batches of 1024 with k=10 on the
         service index, recall@10 against exact mode on the first 64
-        queries of each, held to a stated floor; then one l2 build and
-        batch at the same widths with bucket width ``L2_W``;
+        queries of each, held to a stated floor; ``wl1_rerank`` over the
+        candidate rows of 64 of those queries equal, bit for bit, to the
+        gather's distances on its split schedule; then one l2 build and
+        batch at the same widths with bucket width ``L2_W``; the kernels
+        of the theta build, a probe batch, an exact batch of 1024 and of
+        64, the re-rank check and the l2 batch against their plain
+        versions;
      b. quantized: the same theta index stored as int8 and as bf16 (same
         seed), served at screen α=2 and α=0: ``n_candidates`` must equal
         the f32 index's, recall@10 against the index's own exact mode must
         clear the floor, f32 storage at α=2 must equal α=0, and the
         quantized kernel must launch twice per screened and once per
-        unscreened batch;
+        unscreened batch; the kernels of one batch of each storage and α
+        against their plain versions;
      c. multiprobe: theta, 8 probes per table, up to 3 flipped bits, on
         the f32 index and batch of a probe batch, its keys from the
         ``multiprobe_keys`` kernel; its j-th distance is never worse than
-        the probe batch's;
+        the probe batch's; the kernels of one batch against their plain
+        versions;
      d. stream, in the order of ``serve --mode stream``: the f32 theta
         index built with ``UpdateSpec(delta_capacity=8192,
         compact_threshold=0.75)`` must answer the service batch as the
@@ -105,19 +75,15 @@ Phases, each of which fails the run (exit code 1) when it fails:
         answers). Then an int8 and an f32 mutable index take two ticks of
         the same operations: equal ``n_candidates``, and the quantized
         two-segment kernel launched twice per screened (α=2) and once per
-        unscreened batch;
-     e. unfused baseline (``benchmarks/kernels_bench.py``'s): ``wl1_scan``
-        then ``torch.topk`` beside ``wl1_scan_topk``, and ``data[ids]``
-        then ``wl1_rerank`` then ``torch.topk`` beside
-        ``gather_rerank_topk`` on real probe candidates, P=512…4096; the
-        two sides' dists must be equal bit for bit (see
-        ``phase_unfused_path``);
-     f. early exit (see ``phase_early_exit_path``): the streamed query at
+        unscreened batch; the kernels of tick 12's batch and exact check
+        and of the int8 index's first tick at both α against their plain
+        versions;
+     e. early exit (see ``phase_early_exit_path``): the streamed query at
         slack 0 equals the monolithic one (sealed f32, mutable, int8 with
         the screen off); at slack 0.1, probe and multiprobe, its batch
         time, windows probed, stop reasons and recall@10 (held to the
         floor); ``Index.explain`` and ``serve --early-exit --stats``;
-     g. persistence (see ``phase_persist_path``): ``Index.save`` then
+     f. persistence (see ``phase_persist_path``): ``Index.save`` then
         ``Index.load`` with the default device, at the service width: the
         f32 sealed index, int8 and f32 mutable indexes after two stream
         ticks, a bf16 sealed index; every leaf equal by bits and every
@@ -126,7 +92,7 @@ Phases, each of which fails the run (exit code 1) when it fails:
         seconds and the bytes on disk beside the card's name and power
         limit; a flipped payload byte and a removed COMMIT raise their
         named errors; msgpack and ml_dtypes are never imported;
-     h. planning (see ``phase_plan_path``): a ``QualitySpec`` build at the
+     g. planning (see ``phase_plan_path``): a ``QualitySpec`` build at the
         service width with the default planner, then one calibrating on
         the workload's weights (its geometry, attempts and seconds, each
         calibration rung's ms), ``query(quality)`` bit-equal to
@@ -136,8 +102,8 @@ Phases, each of which fails the run (exit code 1) when it fails:
         save/load (no calibration after the load), the tuner over the
         service's rows inline and on two spawned workers (equal records,
         equal launches) with its table as a prior at the 0.9 target, and
-        the candidates per ms the card re-ranks;
-     i. serving (see ``phase_broker_path``): a ``QualitySpec`` build at the
+        the candidates per ms of a batch's wall time;
+     h. serving (see ``phase_broker_path``): a ``QualitySpec`` build at the
         service width with the default planner and its degradation ladder
         (at least two rungs, each rung's held-out recall), each rung timed
         through the ``Broker`` at buckets 1, 8 and 64, a Poisson and a
@@ -145,9 +111,9 @@ Phases, each of which fails the run (exit code 1) when it fails:
         a 4-shard ``ShardSet`` whose exact mode equals the single index's,
         and its chaos drill (a shard killed mid-trace, two failed reloads,
         recovery, bit-identical answers after it); no kernel built after
-        warmup; then ``alsh_project`` and ``gather_rerank_topk`` timed at
-        rung 0's shapes (b=1, b=64, the b=64 calibration batch);
-     j. sharded (see ``phase_sharded_path``): 8 x 262,144 clustered rows
+        warmup; then the kernels against their plain versions on the
+        inputs rung 0 gave them (b=1, b=64, the b=64 calibration batch);
+     i. sharded (see ``phase_sharded_path``): 8 x 262,144 clustered rows
         (permuted before the partition) on a (2, 2, 2) mesh of the one
         card, ``Index.shard`` of a single-host index over all of them:
         probe (hierarchical equal to flat merge bit for bit, candidate
@@ -158,7 +124,7 @@ Phases, each of which fails the run (exit code 1) when it fails:
         the sharded compact equal to the single-host compact leaf for leaf;
         the ``Index.shard`` seconds and the sharded and single-host batch
         times beside the card;
-     k. static contracts (see ``phase_static_contracts``): the port's tree
+     j. static contracts (see ``phase_static_contracts``): the port's tree
         lints clean; ``repro_torch.analysis.audit`` on the card — 146 raw
         lattice points fold to 64 compile keys, every path under the memory
         envelope, no dtype finding, no drift against
@@ -171,7 +137,7 @@ Phases, each of which fails the run (exit code 1) when it fails:
         exact, stream (tick 12) and streamed early-exit batches at the
         SERVICE widths with their peak bytes (tracker and allocator) and
         host syncs per batch (``torch.cuda.set_sync_debug_mode("warn")``);
-     l. lm (see ``phase_lm_path``): full-width gemma3-1b with parameters
+     k. lm (see ``phase_lm_path``): full-width gemma3-1b with parameters
         drawn on the card, the prefill of 4 prompts of 64 tokens and 16
         greedy decode steps plain, with ALSH retrieval over 65,536 records
         (``RetrievalConfig()``) and with a growing datastore (one
@@ -184,25 +150,25 @@ Phases, each of which fails the run (exit code 1) when it fails:
         near-duplicate keys, each lookup against the CPU plain path over a
         copy of its datastore (ids equal, kNN log-probs within 1e-5), the
         kernels at the decode shapes against their plain versions, the
-        casts of one step alone, the reduced model on the card against the
-        CPU (logits 1e-4, tokens equal), and the full-width f32
-        prefill/decode gap at S=512 (within 2e-2) and S=600 (printed);
-     m. train (see ``phase_train_path``): full-width gemma3-1b under
+        reduced model on the card against the CPU (logits 1e-4, tokens equal), and the
+        full-width f32 prefill/decode gap at S=512 (within 2e-2) and S=600
+        (printed);
+     l. train (see ``phase_train_path``): full-width gemma3-1b under
         ``TrainConfig()`` at S=4096, batch 2 (1 past a 72 GB allocator
         peak): a warm-up and 5 timed steps (ms a step, tokens/s), one
-        profiled (busy, idle share, top device ops) and its ATen ops
-        counted, the peak, ``adamw_update`` alone, loss and grad norm
-        finite beside ln V; 2 steps at microbatch 2 with int8_ef; the
-        reduced model's loss, grads and one step on the card against the
-        CPU (the update by its relative L2 over the tree and, leaf by leaf,
-        at most 1% of the entries off by more than 0.05 of the lr);
-        ``pipeline_apply`` over 4 stages on the card against the
-        sequential stages; and the restart drill in a process of its own
-        (``--restart-drill``, deterministic): a failure at step 7 and a
-        restart from the step-5 commit, async checkpoints, equal to the
-        clean run bit for bit, its last commit restored on the CPU leaf
-        for leaf. No kernel runs on this path (launches 0);
-     n. families (see ``phase_families_path``): hubert-xlarge, qwen2-vl-2b,
+        profiled and its ATen ops counted, the peak, loss and grad norm
+        finite beside ln V; 2
+        steps at microbatch 2 with int8_ef; the reduced model's loss, grads
+        and one step on the card against the CPU (the update by its
+        relative L2 over the tree and, leaf by leaf, at most 1% of the
+        entries off by more than 0.05 of the lr); ``pipeline_apply`` over 4
+        stages on the card against the sequential stages; and the restart
+        drill in a process of its own (``--restart-drill``,
+        deterministic): a failure at step 7 and a restart from the step-5
+        commit, async checkpoints, equal to the clean run bit for bit, its
+        last commit restored on the CPU leaf for leaf. No kernel runs on
+        this path (launches 0);
+     m. families (see ``phase_families_path``): hubert-xlarge, qwen2-vl-2b,
         mamba2-2.7b and zamba2-7b at full width and llama4-scout-17b-16e
         with its depth cut to 2 units, one at a time: encode or prefill, 16
         decode steps (plain; with retrieval for qwen2-vl and mamba2, one
@@ -213,7 +179,7 @@ Phases, each of which fails the run (exit code 1) when it fails:
         layers 1e-5 with and without dropped tokens, one train step under
         the train path's bars); then the retrieval steps' kernels at their
         captured shapes against their plain versions;
-     o. mesh (see ``phase_mesh_path``): ``launch.dryrun`` over every
+     n. mesh (see ``phase_mesh_path``): ``launch.dryrun`` over every
         runnable (arch x shape) of the ten archs on the abstract pod1
         mesh, the llama4 train_4k cells also on pod2 and under
         ``--optimized``, each cell's step run on meta tensors at its global
@@ -225,13 +191,12 @@ Phases, each of which fails the run (exit code 1) when it fails:
         MoE mesh impls on a (2, 4) mesh of the card (ep_shardmap against
         gspmd, a2a_shardmap with drops against the CPU, grads finite). No
         kernel runs on this path (launches 0);
-  6. check: on a small input, the card's answers agree with the plain
+  5. check: on a small input, the card's answers agree with the plain
      PyTorch path on the CPU over the same index state (f32 probe and
      exact, int8 screened probe).
 
-The line before the last is a JSON object with each kernel's numbers; the
-last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
-without the rest of the repository beside it, the script exits non-zero
+The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
+or without the rest of the repository beside it, the script exits non-zero
 and prints no result.
 """
 
@@ -249,72 +214,30 @@ import traceback
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (data sheet)
-FP32_FLOPS = 67e12  # H100 SXM FP32 outside the tensor cores (data sheet)
 DIST_RTOL = DIST_ATOL = 1e-5  # f32 sums over d=128 in different orders
+WL1_RTOL = WL1_ATOL = 1e-4  # wl1_scan / wl1_rerank, elementwise against the plain version
 PROJ_ATOL = 2e-3  # |projection| <~ 100, 128 f32 terms: rounding <~ 128 * 2**-24 * 100
+MP_SCORE_RTOL = 1e-6  # multiprobe keys may differ only between subsets scored this close
+KERNEL_ENTRIES = ("alsh_project", "multiprobe_keys", "dedupe_candidates", "gather_rerank_topk",
+                  "wl1_scan_topk", "wl1_scan", "wl1_rerank")  # every entry of kernels/ops.py
 SEED = 0
-# Workload: the near-duplicate clusters of benchmarks/earlyexit_bench.py at
-# the service width. n rows in clusters of CLUSTER around centres drawn
-# uniform in [0.1, 0.9]^d, jitter SIGMA; queries sit on cluster centres, so
-# each query's true top-10 is its own cluster; weights 1 + 0.1 |N(0, 1)|.
-CLUSTER = 16
-SIGMA = 1e-3
+# The benchmark's configuration at the SERVICE width (d=128), whose data
+# parameters every workload here is drawn with: clusters of near-duplicates
+# around centres, so each query's true top-10 is its own cluster
+DATA_CONFIG = "sift1m-theta"
 THETA_RECALL_FLOOR = 0.5  # mean probe recall@10 over a batch's first 64 queries
 L2_W = 64.0  # l2 bucket width of the l2 batch (the projections' scale; see PERF.md)
 L2_RECALL_FLOOR = 0.5
 QUANT_RECALL_FLOOR = 0.5  # recall@10 of a quantized batch against its own exact mode
 SCREEN_ALPHA = 2.0  # the serve CLI's default --screen-alpha
-SURVIVOR_CALLS = 20  # calls profiled for the device time of the exact pass over the survivors
-# The multiprobe key enumeration's shape: the multiprobe cell's batch, probes and flips
-MP_BATCH, MP_PROBES, MP_FLIPS = 1000, 8, 3
-# The candidate dedupe's shapes: the sift1m cells' table (n=1,000,000, d=128)
-# under SERVICE's index geometry, with the probe-b10k and multiprobe-b1k batches
-DEDUPE_N, DEDUPE_D = 1_000_000, 128
-DEDUPE_CELLS = (("probe-b10k", 10_000, "probe"), ("multiprobe-b1k", MP_BATCH, "multiprobe"))
-
-KERNEL_META = {
-    "alsh_project": ("src/repro_torch/kernels/csrc/alsh_project.cu",
-                     "src/repro/kernels/alsh_project.py:103"),
-    "gather_rerank_topk": ("src/repro_torch/kernels/csrc/gather_rerank.cu",
-                           "src/repro/kernels/gather_rerank.py:365"),
-    "gather_rerank_topk_blocked": ("src/repro_torch/kernels/csrc/gather_rerank_blocked.cu",
-                                   "src/repro/kernels/gather_rerank.py:288"),
-    "wl1_scan_topk": ("src/repro_torch/kernels/csrc/wl1_topk.cu",
-                      "src/repro/kernels/wl1_topk.py:132"),
-    "gather_rerank_topk_two_seg": ("src/repro_torch/kernels/csrc/gather_rerank.cu",
-                                   "src/repro/kernels/gather_rerank.py:111"),
-    "gather_rerank_topk_blocked_two_seg": ("src/repro_torch/kernels/csrc/gather_rerank_blocked.cu",
-                                           "src/repro/kernels/gather_rerank.py:187"),
-    "wl1_scan": ("src/repro_torch/kernels/csrc/wl1_distance.cu",
-                 "src/repro/kernels/wl1_distance.py:66"),
-    "wl1_rerank": ("src/repro_torch/kernels/csrc/wl1_distance.cu",
-                   "src/repro/kernels/wl1_distance.py:112"),
-    "multiprobe_keys": ("src/repro_torch/kernels/csrc/multiprobe_keys.cu",
-                        "none (jnp: src/repro/core/families.py ThetaFamily.multiprobe_keys)"),
-    "dedupe_candidates": ("src/repro_torch/kernels/csrc/dedupe_candidates.cu",
-                          "none (jnp: src/repro/core/index.py _dedupe_candidates, two sorts)"),
-}
-PATHS = ("f32", "quantized", "multiprobe", "stream", "unfused", "early_exit", "persist", "plan",
-         "broker", "sharded", "static_contracts", "lm", "train", "families", "mesh")
 # The stream path: the reference service's defaults (serve --mode stream)
 STREAM_CAP = 8192  # --delta-capacity
 STREAM_THRESHOLD = 0.75  # --compact-threshold
-STREAM_INGEST = 512  # --ingest: 32 new centres x CLUSTER copies per tick
+STREAM_INGEST = 512  # --ingest: 32 new clusters of 16 rows a tick
 STREAM_RETIRE = 128  # --retire
 STREAM_TICKS = 13  # the 12th reaches the threshold; the 13th runs after the compact
 STREAM_ON_NEW = 32  # queries of a stream batch that sit on the tick's new centres
 STREAM_HIT_FLOOR = 0.9  # share of those that must return a delta id
-# The materializing scan and re-rank: the reference's own bar
-# (tests/test_kernels_wl1.py); both sum in another order than the plain version
-WL1_RTOL = WL1_ATOL = 1e-4
-# Their device time per call: the profiler over WL1_CALLS back-to-back calls;
-# their host cost per call: the host clock over HOST_CALLS calls, no sync
-WL1_CALLS = 20
-HOST_CALLS = 200
-# The unfused baseline of benchmarks/kernels_bench.py (its shapes)
-BASELINE_N, BASELINE_B, BASELINE_K = 65536, 64, 10
-BASELINE_P = (512, 1024, 2048, 4096)
 # Early exit: serve's --exit-group and --exit-slack defaults
 EXIT_GROUP = 8
 EXIT_SLACK = 0.1
@@ -346,87 +269,9 @@ SHARD_TICKS = 2
 SHARD_CHECK = 64  # queries of the exact and recall checks
 
 
-def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def time_ms(fn, iters: int, warmup: int = 1) -> float:
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def clock_under_load(fn, seconds: float = 0.6) -> str:
-    """``nvidia-smi``'s SM clock and power draw, read while ``fn`` runs back
-    to back on the card for about ``seconds`` (launches queued first)."""
-    import torch
-
-    reps = max(1, int(seconds * 1e3 / max(time_ms(fn, iters=2), 1e-3)))
-    for _ in range(reps):
-        fn()
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    )
-    torch.cuda.synchronize()
-    return smi.stdout.strip().splitlines()[0]
-
-
-def device_us_per_call(label, fn, calls: int = WL1_CALLS):
-    """The profiler's device time of one call of ``fn``, over ``calls``
-    back-to-back calls (None when not measured)."""
-    busy = profile(f"{label}, {calls} calls", lambda: [fn() for _ in range(calls)], top=2)
-    return None if busy is None else busy / calls
-
-
-def host_us_per_call(fn, calls: int = HOST_CALLS) -> float:
-    """Host clock per call over ``calls`` back-to-back calls with no sync
-    between them (warmed up; the device may still be busy at the end)."""
-    import torch
-
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(calls):
-        fn()
-    us = (time.perf_counter() - t0) / calls * 1e6
-    torch.cuda.synchronize()
-    return us
-
-
-def issue_floor_us(terms: int, clock: str):
-    """The scan's issue floor, derived from the SM clock that ``nvidia-smi``
-    read under load in this run (``clock``, as ``clock_under_load`` returns
-    it): two FP32 instructions (a subtract, an |.|-multiply-add) per
-    (query, row, coordinate) term, one warp instruction per clock on each
-    of an SM's 4 schedulers. None when the clock is not a number."""
-    import torch
-
-    try:
-        mhz = float(clock.split(" MHz")[0])
-    except ValueError:
-        return None
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return 2 * terms / (sms * 128 * mhz * 1e6) * 1e6
-
-
 class Run:
     def __init__(self):
         self.failures: list[str] = []
-        self.kernels: dict[str, dict] = {}
 
     def phase(self, name, fn, *args):
         print(f"== {name}", flush=True)
@@ -440,13 +285,6 @@ class Run:
             return None
         print(f"== {name}: ok ({time.perf_counter() - t0:.1f} s)", flush=True)
         return out
-
-    def record(self, name, **numbers):
-        src, replaces = KERNEL_META[name]
-        entry = self.kernels.setdefault(
-            name, {"name": name, "route": "cuda", "source": src, "replaces": replaces}
-        )
-        entry.update(numbers)
 
 
 def phase_device():
@@ -482,78 +320,53 @@ def phase_build():
                 print(f"    {line.strip()}")
 
 
-class Workload:
-    """The clustered rows (n, d) on the card and their cluster centres;
-    :meth:`batch` draws a query batch on the centres from its own seed."""
+def workload(n: int, d: int, seed: int = SEED):
+    """n clustered rows (n, d) on the card, ``.rows``, and their centres:
+    the benchmark's ``Clusters`` with ``DATA_CONFIG``'s data parameters;
+    ``.batch(b, seed)`` draws b queries on distinct centres and their
+    weights."""
+    from portbench import bench
+    from portbench.datagen.clusters import Clusters
 
-    def __init__(self, n: int, d: int, seed: int = SEED):
-        import torch
-
-        gen = torch.Generator(device="cuda").manual_seed(seed)
-        self.centres = torch.rand((n // CLUSTER, d), generator=gen, device="cuda") * 0.8 + 0.1
-        jitter = SIGMA * torch.randn((n // CLUSTER, CLUSTER, d), generator=gen, device="cuda")
-        self.data = (self.centres[:, None, :] + jitter).reshape(-1, d).contiguous()
-
-    def batch(self, b: int, seed: int):
-        import torch
-
-        gen = torch.Generator(device="cuda").manual_seed(seed)
-        c, d = self.centres.shape
-        pick = torch.randperm(c, generator=gen, device="cuda")[:b]
-        q = self.centres[pick] + SIGMA * torch.randn((b, d), generator=gen, device="cuda")
-        w = 1.0 + 0.1 * torch.randn((b, d), generator=gen, device="cuda").abs()
-        return q.contiguous(), w.contiguous()
+    config = bench.read_json(bench.PORTBENCH / "configs" / f"{DATA_CONFIG}.json")
+    return Clusters(config["data"], n, d, seed, "cuda")
 
 
 class Service:
     """What the SERVICE phases share, made once: the clustered workload
-    ``wl``, the service batch ``q``/``w``, the f32 theta ``index`` over the
-    rows, and the batch's deduped probe candidates ``cand`` (b, L*C) =
-    (1024, 4096) with their ``valid`` slot count and ``distinct`` row count."""
+    ``wl``, the service batch ``q``/``w`` and the f32 theta ``index`` over
+    the rows."""
 
     def __init__(self):
         import torch
 
         import repro_torch.api as tapi
         from repro_torch.configs.paper_alsh import SERVICE
-        from repro_torch.core.index import _dedupe_candidates
-        from repro_torch.engine.pipeline import probe_keys, sources_for
 
         cfg = SERVICE.index_config
-        self.wl = Workload(SERVICE.n_per_shard, SERVICE.d)
+        self.wl = workload(SERVICE.n_per_shard, SERVICE.d)
         self.q, self.w = self.wl.batch(SERVICE.query_batch, SEED + 1)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        self.index = tapi.Index.build(SEED + 2, self.wl.data, cfg)
+        self.index = tapi.Index.build(SEED + 2, self.wl.rows, cfg)
         torch.cuda.synchronize()
         print(f"  [theta] built the f32 index over n={self.index.n} d={cfg.d} K={cfg.K} "
               f"L={cfg.L} C={cfg.max_candidates} on {self.index.device} in "
               f"{time.perf_counter() - t0:.3f} s")
         profile("of one Index.build (SERVICE)",
-                lambda: tapi.Index.build(SEED + 2, self.wl.data, cfg), unprofiled_wall=True)
-        keys = probe_keys(self.index.state, self.q, self.w, cfg)
-        cand = sources_for(self.index.state, None, None, cfg, keys)[0].emit(self.q, self.w)
-        self.cand, n_cand = _dedupe_candidates(cand, self.index.n)
-        self.valid = int(n_cand.sum())
-        self.distinct = distinct_rows(self.cand, self.index.n)
-        print(f"  candidates: ids {tuple(self.cand.shape)}, {self.valid} valid "
-              f"({self.valid / self.cand.shape[0]:.1f} per query), {self.distinct} distinct rows")
+                lambda: tapi.Index.build(SEED + 2, self.wl.rows, cfg), unprofiled_wall=True)
 
 
-def stream_rows(seed: int, n_centres: int, d: int):
-    """``n_centres`` new centres uniform in [0.1, 0.9]^d and CLUSTER copies
-    of each jittered by SIGMA (the ``Workload`` recipe), drawn on the card."""
-    import torch
-
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    centres = torch.rand((n_centres, d), generator=gen, device="cuda") * 0.8 + 0.1
-    jitter = SIGMA * torch.randn((n_centres, CLUSTER, d), generator=gen, device="cuda")
-    return centres, (centres[:, None, :] + jitter).reshape(-1, d).contiguous()
+def stream_rows(seed: int, d: int):
+    """STREAM_INGEST new rows and their new centres, drawn on the card as
+    ``workload`` draws its rows."""
+    wl = workload(STREAM_INGEST, d, seed)
+    return wl.centres, wl.rows
 
 
 def stream_batch(wl, centres, seed: int):
     """A service batch whose first ``len(centres)`` queries sit on the given
-    (new) centres, jittered as ``Workload.batch`` jitters its queries."""
+    (new) centres, jittered as ``wl.batch`` jitters its queries."""
     import torch
 
     from repro_torch.configs.paper_alsh import SERVICE
@@ -561,65 +374,9 @@ def stream_batch(wl, centres, seed: int):
     q, w = wl.batch(SERVICE.query_batch, seed)
     gen = torch.Generator(device="cuda").manual_seed(seed + 1)
     m = centres.shape[0]
-    q[:m] = centres + SIGMA * torch.randn(centres.shape, generator=gen, device="cuda")
+    q[:m] = centres + float(wl.p["jitter"]) * torch.randn(centres.shape, generator=gen,
+                                                          device="cuda")
     return q.contiguous(), w
-
-
-class TwoSegment:
-    """The two-segment kernels' inputs: the SERVICE main table, a full delta
-    of STREAM_CAP rows (near-duplicates of 512 new centres) inserted into
-    the service index with ``delta_insert``, and a stream batch's deduped
-    candidates from the main windows plus the delta match."""
-
-    def __init__(self, svc):
-        import torch
-
-        from repro_torch.configs.paper_alsh import SERVICE
-        from repro_torch.core.index import DeltaSegment, _dedupe_candidates, delta_insert
-        from repro_torch.engine.pipeline import probe_keys, sources_for
-
-        cfg = SERVICE.index_config
-        state = svc.index.state
-        n, d = state.data.shape
-        self.n_tot = n + STREAM_CAP
-        centres, rows = stream_rows(SEED + 50, STREAM_CAP // CLUSTER, d)
-        delta = DeltaSegment.empty(cfg, STREAM_CAP, torch.float32, state.device)
-        self.delta, _ = delta_insert(state, delta, rows, cfg)
-        self.q, self.w = stream_batch(svc.wl, centres[:STREAM_ON_NEW], SEED + 51)
-        tomb = torch.zeros((self.n_tot,), dtype=torch.bool, device=state.device)
-        keys = probe_keys(state, self.q, self.w, cfg)
-        srcs = sources_for(state, self.delta, tomb, cfg, keys)
-        cand = torch.cat([s.emit(self.q, self.w) for s in srcs], dim=1)
-        self.cand, n_cand = _dedupe_candidates(cand, self.n_tot)
-        self.valid = int(n_cand.sum())
-        in_delta = int(((self.cand >= n) & (self.cand < self.n_tot)).sum())
-        print(f"  two-segment candidates: ids {tuple(self.cand.shape)} over main n={n} + delta "
-              f"cap={STREAM_CAP}, {self.valid} valid ({self.valid / self.cand.shape[0]:.1f} per "
-              f"query, {in_delta} in the delta), "
-              f"{distinct_rows(self.cand, self.n_tot)} distinct rows")
-
-
-def distinct_rows(ids, n: int) -> int:
-    """The number of distinct valid ids (< n) in ``ids``."""
-    import torch
-
-    return int(torch.unique(ids[ids < n]).numel())
-
-
-def gather_bound(ids, n: int, d: int, k: int, row_bytes: int, scaled: bool):
-    """The least time of one fused gather/rerank/top-k over ``ids`` (b, P):
-    each distinct valid row read once at its stored width, the ids, q and w
-    (and the scales) read once, the (b, k) outputs written once; 3 flops per
-    coordinate of every valid (query, row) pair (a subtract and a fused
-    multiply-add, the |.| a free operand modifier), 4 with the decode's
-    multiply. Also returns the bytes the queries gather row by row, which
-    the L2 serves beyond the distinct rows (not part of the bound)."""
-    b = ids.shape[0]
-    nv = int((ids < n).sum())
-    nbytes = (distinct_rows(ids, n) * d * row_bytes + 4 * ids.numel() + 4 * 2 * b * d
-              + 8 * b * k + (4 * d if scaled else 0))
-    flops = (4 if scaled else 3) * nv * d
-    return (*bound(nbytes, flops), nbytes, flops, nv * d * row_bytes)
 
 
 def digest(t) -> str:
@@ -629,10 +386,10 @@ def digest(t) -> str:
 
 def projection_digests() -> dict:
     """``alsh_project``'s output digests at build and query width on the
-    inputs ``phase_alsh_project`` uses, through ``ops.alsh_project(levels,
-    folded, weights)`` alone, so that the same file run beside an older tree
-    of the repository (``python3 chip_smoke.py --digests``) compares two
-    trees' kernels byte for byte."""
+    service rows and batch under SERVICE's tables, through
+    ``ops.alsh_project(levels, folded, weights)`` alone, so that the same
+    file run beside an older tree of the repository (``python3
+    chip_smoke.py --digests``) compares two trees' kernels byte for byte."""
     import torch
 
     from repro_torch.configs.paper_alsh import SERVICE
@@ -641,312 +398,13 @@ def projection_digests() -> dict:
     from repro_torch.kernels import ops
 
     cfg = SERVICE.index_config
-    wl = Workload(SERVICE.n_per_shard, SERVICE.d)
+    wl = workload(SERVICE.n_per_shard, SERVICE.d)
     q, w = wl.batch(SERVICE.query_batch, SEED + 1)
     tables = hf.make_prefix_tables(torch.Generator().manual_seed(SEED), cfg.lsh_params)
-    folded = tables.folded.to(wl.data.device).contiguous()
+    folded = tables.folded.to(wl.rows.device).contiguous()
     return {label: digest(ops.alsh_project(levels, folded, weights))
-            for label, levels, weights in (("build", discretize(wl.data, cfg.space), None),
+            for label, levels, weights in (("build", discretize(wl.rows, cfg.space), None),
                                            ("query", discretize(q, cfg.space), w))}
-
-
-def wl1_times() -> dict:
-    """CUDA-event time, device time per call (the profiler over WL1_CALLS
-    back-to-back calls) and host time per call (``host_us_per_call``) of
-    ``wl1_scan`` and ``wl1_rerank`` at the shapes of their phases, the
-    host time of the parts of one ``ops.wl1_rerank`` call at C=512
-    (``rerank_host_parts``), and the two times of ``wl1_scan_topk`` at the
-    three scan shapes, through ``ops`` alone, so that the same file run
-    beside an older tree of the repository (``python3 chip_smoke.py
-    --wl1-times``) times both trees' kernels with one method."""
-    import torch
-
-    from repro_torch.kernels import ops
-
-    def times(label, fn, host=False):
-        out = {"ms": time_ms(fn, iters=10, warmup=2), "device_us": device_us_per_call(label, fn)}
-        if host:
-            out["host_us"] = host_us_per_call(fn)
-        return out
-
-    out = {}
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 60)
-    for n in (BASELINE_N, 262144):
-        data, q, w = (torch.randn(s, generator=gen, device="cuda")
-                      for s in ((n, 128), (BASELINE_B, 128), (BASELINE_B, 128)))
-        out[f"wl1_scan n={n}"] = times(f"wl1_scan n={n}", lambda: ops.wl1_scan(data, q, w),
-                                       host=True)
-    for C in (512, 4096):
-        pts, q, w = (torch.randn(s, generator=gen, device="cuda")
-                     for s in ((BASELINE_B, C, 128), (BASELINE_B, 128), (BASELINE_B, 128)))
-        out[f"wl1_rerank C={C}"] = times(f"wl1_rerank C={C}", lambda: ops.wl1_rerank(pts, q, w),
-                                         host=True)
-        if C == 512:
-            out["wl1_rerank C=512 host parts"] = rerank_host_parts(pts, q, w)
-    wl = Workload(262144, 128)
-    q, w = wl.batch(1024, SEED + 1)
-    for label, n, b in (("service", 262144, 1024), ("main", 262144, 64),
-                        ("recorded", BASELINE_N, 64)):
-        dn, qb, wb = wl.data[:n].contiguous(), q[:b].contiguous(), w[:b].contiguous()
-        out[f"wl1_scan_topk {label}"] = times(f"wl1_scan_topk {label}",
-                                              lambda: ops.wl1_scan_topk(dn, qb, wb, 10))
-    return out
-
-
-def rerank_host_parts(pts, q, w) -> dict:
-    """Host us per call of the parts of one ``ops.wl1_rerank`` call, each
-    timed alone like ``host_us_per_call``: the three argument checks, the
-    output allocation, and the launch through ``ctypes`` (outside the
-    wrapper, so not counted; its error code checked)."""
-    import torch
-
-    from repro_torch.kernels._build import WL1_RERANK, require
-
-    dev = pts.device
-    b, C, d = pts.shape
-    lib = WL1_RERANK.lib()
-    out = torch.empty((b, C), dtype=torch.float32, device=dev)
-    ptrs = (pts.data_ptr(), q.data_ptr(), w.data_ptr(), out.data_ptr())
-    stream = torch.cuda.current_stream(dev).cuda_stream
-
-    def launch():
-        WL1_RERANK.check(lib.wl1_rerank_launch(*ptrs, b, C, d, stream), "wl1_rerank launch")
-
-    parts = {
-        "argument checks": lambda: [require(t, "t", torch.float32, t.ndim, dev)
-                                    for t in (pts, q, w)],
-        "output allocation": lambda: torch.empty((b, C), dtype=torch.float32, device=dev),
-        "ctypes launch": launch,
-    }
-    return {name: host_us_per_call(fn) for name, fn in parts.items()}
-
-
-def phase_alsh_project(run, svc):
-    import torch
-    import torch.nn.functional as F
-
-    from repro_torch.configs.paper_alsh import SERVICE
-    from repro_torch.core import hash_families as hf
-    from repro_torch.core.transforms import discretize
-    from repro_torch.kernels import ops
-
-    cfg = SERVICE.index_config
-    data, q, w = svc.wl.data, svc.q, svc.w
-    tables = hf.make_prefix_tables(torch.Generator().manual_seed(SEED), cfg.lsh_params).to(data.device)
-    folded, tiled = tables.folded.contiguous(), tables.tiled
-    H, d, m1 = folded.shape
-    for label, levels, weights in (
-        ("build", discretize(data, cfg.space), None),
-        ("query", discretize(q, cfg.space), w),
-    ):
-        n = levels.shape[0]
-
-        def kernel():
-            return ops.alsh_project(levels, folded, weights, tiled=tiled)
-
-        got = kernel()
-        want = ops.alsh_project(levels, folded, weights, force="plain")
-        again = kernel()
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        far = want.abs() > PROJ_ATOL  # theta codes are compared away from 0 only
-        flips = int(((got >= 0) != (want >= 0))[far].sum())
-        same = torch.equal(got.view(torch.int32), again.view(torch.int32))
-        sha = digest(got)
-        print(f"  {label}: levels ({n}, {d}) x folded ({H}, {d}, {m1})"
-              f"{' weighted' if weights is not None else ''}: max_abs_err={err:.3g} "
-              f"(atol {PROJ_ATOL}); theta-code flips away from 0: {flips} "
-              f"({int((~far).sum())} projections within atol of 0); two calls identical "
-              f"bytes: {same}; sha256 of the output bytes {sha}")
-        if err > PROJ_ATOL or flips:
-            raise AssertionError(f"alsh_project {label}: kernel disagrees with the plain version")
-        if not same:
-            raise AssertionError(f"alsh_project {label}: two calls returned different bytes")
-        del again
-        ms = time_ms(kernel, iters=10, warmup=2)
-        plain_ms = time_ms(lambda: ops.alsh_project(levels, folded, weights, force="plain"),
-                           iters=1)
-        dev_us = profile(f"alsh_project {label}", kernel, top=2)
-        clock = clock_under_load(kernel) if label == "build" else None
-        if clock:
-            print(f"  {label}: SM clock, power under a stream of calls: {clock}")
-        # library yardstick: the TPU kernel's own formulation, a one-hot
-        # (n, d*(M+1)) x (d*(M+1), H) f32 product (one-hot built outside the timing)
-        onehot = F.one_hot(levels.long(), m1).float()
-        if weights is not None:
-            onehot = onehot * weights[..., None]
-        lhs = onehot.reshape(n, d * m1)
-        rhs = folded.permute(1, 2, 0).reshape(d * m1, H).contiguous()
-        torch.backends.cuda.matmul.allow_tf32 = False
-        lib_ms = time_ms(lambda: torch.matmul(lhs, rhs), iters=5, warmup=1)
-        del onehot, lhs
-        nbytes = 4 * (n * d * (2 if weights is not None else 1) + H * d * m1 + n * H)
-        flops = n * H * d * (2 if weights is not None else 1)
-        b_ms, b_by = bound(nbytes, flops)
-        print(f"  {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, one-hot matmul "
-              f"{lib_ms:.4f} ms; bound {b_ms * 1e3:.1f} us by {b_by} "
-              f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
-        dev_ms = None if dev_us is None else dev_us / 1e3
-        if label == "build":  # the JSON line reports the build-width call
-            run.record("alsh_project", max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                       bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, device_ms=dev_ms,
-                       sha256=sha, clock_under_load=clock)
-        else:
-            run.kernels["alsh_project"]["query_shape"] = {
-                "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "library_ms": lib_ms,
-                "max_abs_err": err, "device_ms": dev_ms, "sha256": sha,
-            }
-
-
-def _flip_scores(proj, keys):
-    """The float64 score of the flip subset behind each (b, L, P) key: the
-    |proj| summed over the bits where the key differs from the sign key."""
-    import torch
-
-    K = proj.shape[-1]
-    bit = torch.ones((), dtype=torch.int64, device=proj.device) << torch.arange(
-        K, device=proj.device)
-    base = ((proj >= 0).long() * bit).sum(-1)
-    bits = ((keys.long() ^ base[..., None])[..., None] & bit) != 0  # (b, L, P, K)
-    return (bits * proj.double().abs()[:, :, None, :]).sum(-1)
-
-
-def phase_multiprobe_keys(run, svc):
-    """The multiprobe key enumeration against its plain version at the
-    multiprobe cell's shape: the SERVICE index's projections of the first
-    MP_BATCH service queries (L=32, K=12), 8 probes, up to 3 flips. Keys
-    must be equal where the projections are rounded to multiples of 2**-8
-    (every subset sum exact), and on the raw ones may differ only between
-    subsets whose float64 scores agree within 1e-6 relative."""
-    import torch
-
-    from repro_torch.configs.paper_alsh import SERVICE
-    from repro_torch.core.families import n_flip_subsets
-    from repro_torch.core.transforms import discretize
-    from repro_torch.kernels import ops
-
-    cfg = SERVICE.index_config
-    tables = svc.index.state.tables
-    q, w = svc.q[:MP_BATCH], svc.w[:MP_BATCH]
-    proj = ops.alsh_project(discretize(q, cfg.space), tables.folded, w, tiled=tables.tiled)
-    proj = proj.reshape(MP_BATCH, cfg.L, cfg.K)
-    dyadic = torch.round(proj * 256) / 256
-
-    def kernel():
-        return ops.multiprobe_keys(proj, MP_PROBES, MP_FLIPS)
-
-    def plain():
-        return ops.multiprobe_keys(proj, MP_PROBES, MP_FLIPS, force="plain")
-
-    exact = torch.equal(ops.multiprobe_keys(dyadic, MP_PROBES, MP_FLIPS),
-                        ops.multiprobe_keys(dyadic, MP_PROBES, MP_FLIPS, force="plain"))
-    got, want = kernel(), plain()
-    torch.cuda.synchronize()
-    differ = got != want
-    sg, sw = _flip_scores(proj, got), _flip_scores(proj, want)
-    gap = float(((sg - sw).abs() / torch.maximum(sg, sw).clamp_min(1e-30))[differ].max()
-                ) if bool(differ.any()) else 0.0
-    print(f"  proj ({MP_BATCH}, {cfg.L}, {cfg.K}), {MP_PROBES} probes, {MP_FLIPS} flips: keys "
-          f"{tuple(got.shape)}; bit-equal on dyadic projections: {exact}; on the raw ones "
-          f"{int(differ.sum())} keys differ, largest relative score gap {gap:.3g} (limit 1e-6)")
-    if not exact or gap > 1e-6:
-        raise AssertionError("multiprobe_keys: kernel disagrees with the plain version")
-    ms = time_ms(kernel, iters=50, warmup=3)
-    plain_ms = time_ms(plain, iters=10, warmup=2)
-    dev_us = device_us_per_call("multiprobe_keys", kernel)
-    plain_into = {}
-    profile("multiprobe_keys plain version, 5 calls", lambda: [plain() for _ in range(5)], top=40,
-            into=plain_into)
-    plain_dev_us = plain_into.get("busy_us", 0) / 5 or None
-    plain_ops = sum(c for _, _, c in plain_into.get("top", [])) / 5 or None
-    pairs, S = MP_BATCH * cfg.L, n_flip_subsets(cfg.K, MP_FLIPS)
-    nbytes = 4 * pairs * (cfg.K + MP_PROBES)
-    adds = pairs * sum(r * math.comb(cfg.K, r) for r in range(1, MP_FLIPS + 1))
-    b_ms, b_by = bound(nbytes, adds)
-    numbers = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                   library_ms=None, device_us=dev_us, plain_device_us=plain_dev_us,
-                   plain_device_ops=plain_ops, subsets=S,
-                   host_us_per_call=host_us_per_call(kernel))
-    print(f"  kernel {ms * 1e3:.1f} us (device {_fmt_us(dev_us)} per call, host "
-          f"{numbers['host_us_per_call']:.1f} us per call), plain {plain_ms:.3f} ms (device "
-          f"{_fmt_us(plain_dev_us)}, {plain_ops} device ops a call); bound {b_ms * 1e3:.2f} us "
-          f"by {b_by} ({nbytes / 1e6:.2f} MB, {adds / 1e6:.1f} M adds over {S} subsets a pair)")
-    run.record("multiprobe_keys", **numbers)
-
-
-def phase_dedupe_candidates(run):
-    """The candidate dedupe against its plain version (two ``torch.sort``
-    passes) at the two sift1m cells' shapes: a clustered 1M x 128 table under
-    SERVICE's index geometry, and the raw window blocks of 10,000 probe
-    queries (P = 4,096) and of 1,000 multiprobe queries (8 probes, 3 flips:
-    P = 32,768). The packed ids and the counts must be bit-equal. Prints the
-    kernel's ``-Xptxas -v`` lines, its device and host time per call beside
-    its bound (8·b·P + 4·b bytes) and the plain version's times."""
-    import torch
-
-    import repro_torch.api as tapi
-    from repro_torch.configs.paper_alsh import SERVICE
-    from repro_torch.engine.pipeline import probe_keys, sources_for
-    from repro_torch.kernels import _build, ops
-    from repro_torch.kernels.dedupe_candidates import tile_plan
-
-    cfg = SERVICE.index_config
-    wl = Workload(DEDUPE_N, DEDUPE_D)
-    index = tapi.Index.build(SEED + 3, wl.data, cfg)
-    n = index.n
-    _build.DEDUPE_CANDIDATES.lib()
-    for line in _build.DEDUPE_CANDIDATES.build_log.splitlines():
-        if "Compiling entry" in line or "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
-    for cell, b, mode in DEDUPE_CELLS:
-        q, w = wl.batch(b, SEED + 4)
-        keys = probe_keys(index.state, q, w, cfg, mode=mode, n_probes=MP_PROBES,
-                          max_flips=MP_FLIPS)
-        cand = sources_for(index.state, None, None, cfg, keys)[0].emit(q, w)
-        del keys, q, w
-        P = cand.shape[1]
-
-        def kernel():
-            return ops.dedupe_candidates(cand, n)
-
-        def plain():
-            return ops.dedupe_candidates(cand, n, force="plain")
-
-        want, want_n = plain()
-        print(f"  {cell}: cand {tuple(cand.shape)}, n={n}, tiles/summary words/dynamic shared "
-              f"bytes {tile_plan(n)}; "
-              f"{int((cand < n).sum())} valid slots, {int(want_n.sum())} distinct ids "
-              f"({float(want_n.float().mean()):.1f} a query)")
-        nbytes = 8 * b * P + 4 * b
-        b_ms, b_by = bound(nbytes, 0)
-        plain_ms = time_ms(plain, iters=10, warmup=2)
-        plain_into = {}
-        profile(f"dedupe_candidates plain version at {cell}, 5 calls",
-                lambda: [plain() for _ in range(5)], top=12, into=plain_into)
-        plain_dev_us = plain_into.get("busy_us", 0) / 5 or None
-        got, got_n = kernel()
-        torch.cuda.synchronize()
-        same = torch.equal(got, want) and torch.equal(got_n, want_n)
-        print(f"  {cell}: bit-equal to the plain version: {same}")
-        if not same:
-            raise AssertionError(f"dedupe_candidates at {cell}: kernel differs from the plain "
-                                 "version")
-        del got, got_n
-        ms = time_ms(kernel, iters=50, warmup=3)
-        dev_us = device_us_per_call(f"dedupe_candidates at {cell}", kernel)
-        host_us = host_us_per_call(kernel)
-        print(f"  {cell}: kernel {ms * 1e3:.1f} us (device {_fmt_us(dev_us)} per call, "
-              f"{_fmt_share(_share(dev_us, b_ms * 1e3))} of the bound; host {host_us:.1f} us per "
-              f"call), plain {plain_ms:.3f} ms (device {_fmt_us(plain_dev_us)}); bound "
-              f"{b_ms * 1e3:.2f} us by {b_by} ({nbytes / 1e6:.1f} MB)")
-        run.record("dedupe_candidates", max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                   bound_by=b_by, library_ms=None, **{
-                       f"{cell}.ms": ms, f"{cell}.device_us": dev_us,
-                       f"{cell}.plain_device_us": plain_dev_us,
-                       f"{cell}.host_us_per_call": host_us})
-        del cand, want, want_n
-    del index, wl
-    torch.cuda.empty_cache()
 
 
 def _check_topk(label, got, want, data, q, w, quiet=False):
@@ -971,340 +429,6 @@ def _check_topk(label, got, want, data, q, w, quiet=False):
     return err
 
 
-def _f32_gather_case(label, data, ids, q, w, k, delta=None, iters=10, old_iters=10):
-    """The f32 kernel at one main-path shape: against its plain version, bit
-    for bit against the one-warp-per-query schedule on the same inputs
-    (``gather_rerank_topk_warp_cuda``; a difference fails the run), and
-    timed beside both."""
-    import torch
-
-    from repro_torch.kernels import ops
-    from repro_torch.kernels.gather_rerank import f32_splits, gather_rerank_topk_warp_cuda
-
-    b, P = ids.shape
-    d = data.shape[1]
-    S = f32_splits(data, ids, delta)
-
-    def kernel():
-        return ops.gather_rerank_topk(data, ids, q, w, k, delta=delta)
-
-    def old():
-        return gather_rerank_topk_warp_cuda(data, ids, q, w, k, delta=delta)
-
-    got = kernel()
-    want = ops.gather_rerank_topk(data, ids, q, w, k, delta=delta, force="plain")
-    torch.cuda.synchronize()
-    table = data if delta is None else torch.cat([data, delta])
-    err = _check_topk(f"{label}: kernel vs plain", got, want, table, q, w)
-    ref = old()
-    bitwise = torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
-    print(f"  {label}: bit-equal to the one-warp-per-query schedule: {bitwise}")
-    if not bitwise:
-        raise AssertionError(f"{label}: differs from the one-warp-per-query schedule")
-    del table, ref
-    ms = time_ms(kernel, iters=iters, warmup=2)
-    old_ms = time_ms(old, iters=old_iters, warmup=1)
-    plain_ms = time_ms(lambda: ops.gather_rerank_topk(data, ids, q, w, k, delta=delta,
-                                                      force="plain"), iters=1)
-    n_tot = data.shape[0] + (0 if delta is None else delta.shape[0])
-    b_ms, b_by, nbytes, flops, l2_bytes = gather_bound(ids, n_tot, d, k, 4, scaled=False)
-    nv, nd = int(((ids >= 0) & (ids < n_tot)).sum()), distinct_rows(ids, n_tot)
-    print(f"  {label}: ids {tuple(ids.shape)}, {nv / b:.1f} valid per query, {nd} distinct rows; "
-          f"S={S}; kernel {ms:.4f} ms, one-warp schedule {old_ms:.4f} ms "
-          f"({old_ms / ms:.2f}x), plain {plain_ms:.4f} ms, library: none; bound "
-          f"{b_ms * 1e3:.1f} us by {b_by} ({nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP); "
-          f"rows gathered per query, served by HBM or L2: {l2_bytes / 1e6:.1f} MB")
-    return {"b": b, "P": P, "k": k, "splits": S, "valid_ids": nv, "distinct_rows": nd,
-            "max_abs_err": err, "ms": ms, "old_schedule_ms": old_ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by}
-
-
-def streamed_merge_ids(svc):
-    """The candidate block of the last per-group merge of a streamed
-    early-exit batch on the service index (slack 0, so every group runs):
-    the heap's ids and one group's windows, deduped — (1024, k + 8·128)."""
-    import dataclasses
-
-    import repro_torch.api as tapi
-    from repro_torch.configs.paper_alsh import SERVICE
-    from repro_torch.kernels import ops
-
-    seen = []
-    group_entry = ops.gather_rerank_topk_group
-
-    def spy(data, ids, *args, **kwargs):
-        seen.append(ids)
-        return group_entry(data, ids, *args, **kwargs)
-
-    spec = dataclasses.replace(tapi.QuerySpec(k=SERVICE.topk), early_exit=True,
-                               exit_group=EXIT_GROUP, exit_slack=0.0)
-    ops.gather_rerank_topk_group = spy
-    try:
-        svc.index.query(svc.q, svc.w, spec)
-    finally:
-        ops.gather_rerank_topk_group = group_entry
-    return seen[-1]
-
-
-def phase_gather_rerank(run, svc):
-    """The f32 kernel at the service batch's candidates (b=1024, P=4096) and
-    at a streamed early-exit merge's (b=1024, P=1034)."""
-    from repro_torch.configs.paper_alsh import SERVICE
-    from repro_torch.kernels import ops
-
-    data, q, w, k = svc.wl.data, svc.q, svc.w, SERVICE.topk
-    shapes = {"service": _f32_gather_case("service batch", data, svc.cand, q, w, k)}
-    profile("gather_rerank_topk", lambda: ops.gather_rerank_topk(data, svc.cand, q, w, k), top=2)
-    merge = streamed_merge_ids(svc)
-    shapes["streamed_merge"] = _f32_gather_case("streamed merge", data, merge, q, w, k)
-    main = shapes["service"]
-    run.record("gather_rerank_topk", max_abs_err=main["max_abs_err"], ms=main["ms"],
-               plain_ms=main["plain_ms"], bound_ms=main["bound_ms"], bound_by=main["bound_by"],
-               library_ms=None, splits=main["splits"], old_schedule_ms=main["old_schedule_ms"],
-               shapes=shapes)
-
-
-def _schedule(payload, ids, scales, delta=None) -> tuple[int, str]:
-    """The stored-type kernel's schedule for these inputs, as the wrapper
-    picks it, and how it reads."""
-    from repro_torch.kernels.gather_rerank import WARP_SCHEDULE, stored_schedule
-
-    S = stored_schedule(payload, ids, scales, delta)
-    return S, ("one warp per query" if S == WARP_SCHEDULE else f"split, S={S}")
-
-
-def _same_bits(label, got, ref, what):
-    """Fails the run unless ``got`` equals ``ref`` bit for bit."""
-    import torch
-
-    bitwise = torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
-    print(f"  {label}: bit-equal to {what}: {bitwise}")
-    if not bitwise:
-        raise AssertionError(f"{label}: differs from {what}")
-
-
-def phase_gather_rerank_blocked(run, svc):
-    import torch
-
-    from repro_torch import quant
-    from repro_torch.configs.paper_alsh import SERVICE
-    from repro_torch.kernels import ops
-    from repro_torch.kernels.gather_rerank import (
-        gather_rerank_topk_cuda,
-        gather_rerank_topk_warp_cuda,
-    )
-
-    data, q, w, cand = svc.wl.data, svc.q, svc.w, svc.cand
-    (n, d), P = data.shape, cand.shape[1]
-    k = SERVICE.topk
-    p8, s8 = quant.get_codec("int8").encode(data)
-    pb, _ = quant.get_codec("bf16").encode(data)
-    qp, wp = quant.proxy_query(q, w, p8.dtype, s8)
-    keep = quant.screen_keep(k, SCREEN_ALPHA, P)
-    # the survivors of the screen pass, -1 mapped to the sentinel, are the
-    # exact pass's candidates on the screened main path
-    _, surv = ops.gather_rerank_topk(p8, cand, qp, wp, keep)
-    surv = torch.where(surv >= 0, surv, torch.full_like(surv, n))
-    cases = (
-        ("int8, scales: exact pass over all candidates", p8, s8, cand, q, w, k),
-        (f"int8, proxy q/w: screen pass keeping {keep}", p8, None, cand, qp, wp, keep),
-        ("bf16: over all candidates", pb, None, cand, q, w, k),
-        (f"int8, scales: exact pass over the {keep} survivors", p8, s8, surv, q, w, k),
-    )
-    out = {}
-    for label, payload, scales, ids, qq, ww, kk in cases:
-        def kernel():
-            return ops.gather_rerank_topk(payload, ids, qq, ww, kk, scales=scales)
-
-        def one_warp():
-            return gather_rerank_topk_warp_cuda(payload, ids, qq, ww, kk, scales=scales)
-
-        S, sched = _schedule(payload, ids, scales)
-        got = kernel()
-        want = ops.gather_rerank_topk(payload, ids, qq, ww, kk, scales=scales, force="plain")
-        torch.cuda.synchronize()
-        decoded = quant.decode_table(payload, scales)
-        err = _check_topk(label, got, want, decoded, qq, ww)
-        _same_bits(label, got, gather_rerank_topk_cuda(decoded.contiguous(), ids, qq, ww, kk),
-                   "the f32 kernel (its split schedule) over the decoded table")
-        _same_bits(label, got, one_warp(), "the one-warp-per-query schedule")
-        ms = time_ms(kernel, iters=10, warmup=2)
-        warp_ms = time_ms(one_warp, iters=10, warmup=1)
-        plain_ms = time_ms(
-            lambda: ops.gather_rerank_topk(payload, ids, qq, ww, kk, scales=scales,
-                                           force="plain"), iters=1)
-        f32_ms = time_ms(lambda: gather_rerank_topk_cuda(decoded, ids, qq, ww, kk), iters=10,
-                         warmup=1)
-        b_ms, b_by, nbytes, flops, l2_bytes = gather_bound(
-            ids, n, d, kk, payload.element_size(), scaled=scales is not None)
-        nv, nd = int((ids < n).sum()), distinct_rows(ids, n)
-        print(f"  {label}: ids {tuple(ids.shape)}, {nv} valid, {nd} distinct rows; {sched}; "
-              f"kernel {ms:.4f} ms, one-warp schedule {warp_ms:.4f} ms ({warp_ms / ms:.2f}x), "
-              f"f32 kernel over the decoded table {f32_ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"library: none; bound {b_ms * 1e3:.1f} us by {b_by} ({nbytes / 1e6:.1f} MB, "
-              f"{flops / 1e9:.3f} GFLOP); rows gathered per query, served by HBM or L2: "
-              f"{l2_bytes / 1e6:.1f} MB")
-        out[label] = {"ids_shape": list(ids.shape), "valid_ids": nv, "distinct_rows": nd,
-                      "k": kk, "splits": S,
-                      "max_abs_err": err, "ms": ms, "old_schedule_ms": warp_ms,
-                      "plain_ms": plain_ms, "f32_ms": f32_ms,
-                      "bound_ms": b_ms, "bound_by": b_by}
-    profile("gather_rerank_topk_blocked (int8 screen pass)",
-            lambda: ops.gather_rerank_topk(p8, cand, qp, wp, keep), top=2)
-    # at 20 survivors per query the events time holds host time between
-    # launches; the profiler's device time of SURVIVOR_CALLS calls separates
-    # the two
-    decoded8 = quant.decode_table(p8, s8)
-    survivors = out[cases[3][0]]
-    for key, label, fn in (
-        ("device_us", "gather_rerank_topk_blocked (int8 exact pass over the survivors)",
-         lambda: ops.gather_rerank_topk(p8, surv, q, w, k, scales=s8)),
-        ("old_schedule_device_us", "one-warp schedule (int8 exact pass over the survivors)",
-         lambda: gather_rerank_topk_warp_cuda(p8, surv, q, w, k, scales=s8)),
-        ("f32_device_us", "gather_rerank_topk (f32 over the decoded survivors)",
-         lambda: gather_rerank_topk_cuda(decoded8, surv, q, w, k)),
-    ):
-        busy = profile(f"{label}, {SURVIVOR_CALLS} calls",
-                       lambda: [fn() for _ in range(SURVIVOR_CALLS)], top=2)
-        survivors[key] = None if busy is None else busy / SURVIVOR_CALLS
-        if busy is not None:
-            print(f"  {label}: device time per call {busy / SURVIVOR_CALLS:.2f} us")
-    main = out[cases[0][0]]
-    run.record("gather_rerank_topk_blocked", max_abs_err=main["max_abs_err"], ms=main["ms"],
-               plain_ms=main["plain_ms"], bound_ms=main["bound_ms"], bound_by=main["bound_by"],
-               library_ms=None, splits=main["splits"], old_schedule_ms=main["old_schedule_ms"],
-               cases=out)
-
-
-def phase_gather_rerank_two_seg(run, svc, seg):
-    """The f32 two-segment kernel over the SERVICE main table and a full
-    delta: at a stream batch's candidates (b=1024, P=12,288) and at the
-    exact mode of a mutable index (b=64, every id of both segments, from
-    ``ExhaustiveSource``); against its plain version, the one-warp schedule,
-    and the single-segment kernel over the concatenated table (bit for
-    bit)."""
-    import torch
-
-    from repro_torch.configs.paper_alsh import SERVICE
-    from repro_torch.engine.sources import ExhaustiveSource
-    from repro_torch.kernels import ops
-    from repro_torch.kernels.gather_rerank import gather_rerank_topk_cuda
-
-    main, delta, q, w, cand = svc.wl.data, seg.delta.data, seg.q, seg.w, seg.cand
-    k = SERVICE.topk
-    cat = torch.cat([main, delta])
-    got = ops.gather_rerank_topk(main, cand, q, w, k, delta=delta)
-    single = gather_rerank_topk_cuda(cat, cand, q, w, k)
-    bitwise = torch.equal(got[0], single[0]) and torch.equal(got[1], single[1])
-    print(f"  bit-equal to the single-segment kernel over torch.cat([main, delta]): {bitwise}")
-    if not bitwise:
-        raise AssertionError("two-segment kernel differs from the concatenated-table kernel")
-    single_ms = time_ms(lambda: gather_rerank_topk_cuda(cat, cand, q, w, k), iters=10, warmup=1)
-    print(f"  single-segment kernel over the concatenated table {single_ms:.4f} ms")
-    del cat, got, single
-    shapes = {"stream_batch": _f32_gather_case("stream batch", main, cand, q, w, k, delta=delta)}
-    profile("gather_rerank_topk_two_seg",
-            lambda: ops.gather_rerank_topk(main, cand, q, w, k, delta=delta), top=2)
-    tomb = torch.zeros((seg.n_tot,), dtype=torch.bool, device=main.device)
-    qx, wx = q[:64].contiguous(), w[:64].contiguous()  # the stream path's exact check
-    ex = ExhaustiveSource(svc.index.state, seg.delta, tomb).emit(qx, wx)
-    shapes["exhaustive"] = _f32_gather_case("exact mode of a mutable index", main, ex, qx, wx, k,
-                                            delta=delta, iters=5, old_iters=2)
-    profile("gather_rerank_topk_two_seg (exact mode)",
-            lambda: ops.gather_rerank_topk(main, ex, qx, wx, k, delta=delta), top=3)
-    main_case = shapes["stream_batch"]
-    run.record("gather_rerank_topk_two_seg", max_abs_err=main_case["max_abs_err"],
-               ms=main_case["ms"], plain_ms=main_case["plain_ms"], bound_ms=main_case["bound_ms"],
-               bound_by=main_case["bound_by"], library_ms=None, splits=main_case["splits"],
-               old_schedule_ms=main_case["old_schedule_ms"], single_segment_ms=single_ms,
-               shapes=shapes)
-
-
-def phase_gather_rerank_blocked_two_seg(run, svc, seg):
-    """The quantized two-segment kernel: int8 with scales (the exact pass)
-    and int8 with the proxy query (the screen pass) over the int8 main
-    table and the delta encoded with its scales; against the plain version
-    and, bit for bit, the single-segment kernel over the concatenated
-    payload, the f32 two-segment kernel over the decoded tables and the
-    one-warp schedule, each timed beside it."""
-    import torch
-
-    from repro_torch import quant
-    from repro_torch.configs.paper_alsh import SERVICE
-    from repro_torch.kernels import ops
-    from repro_torch.kernels.gather_rerank import (
-        gather_rerank_topk_blocked_cuda,
-        gather_rerank_topk_cuda,
-        gather_rerank_topk_warp_cuda,
-    )
-
-    main, q, w, cand = svc.wl.data, seg.q, seg.w, seg.cand
-    d, P, k = main.shape[1], cand.shape[1], SERVICE.topk
-    codec = quant.get_codec("int8")
-    p8, s8 = codec.encode(main)
-    d8 = codec.encode_rows(seg.delta.data, s8)  # the delta keeps the sealed scales
-    cat8 = torch.cat([p8, d8])
-    qp, wp = quant.proxy_query(q, w, p8.dtype, s8)
-    keep = quant.screen_keep(k, SCREEN_ALPHA, P)
-    out = {}
-    for label, scales, qq, ww, kk in (
-        ("int8, scales: exact pass over all candidates", s8, q, w, k),
-        (f"int8, proxy q/w: screen pass keeping {keep}", None, qp, wp, keep),
-    ):
-        dec_main = quant.decode_table(p8, scales).contiguous()
-        dec_delta = quant.decode_table(d8, scales).contiguous()
-
-        def kernel():
-            return ops.gather_rerank_topk(p8, cand, qq, ww, kk, scales=scales, delta=d8)
-
-        def one_warp():
-            return gather_rerank_topk_warp_cuda(p8, cand, qq, ww, kk, scales=scales, delta=d8)
-
-        def f32():
-            return gather_rerank_topk_cuda(dec_main, cand, qq, ww, kk, delta=dec_delta)
-
-        S, sched = _schedule(p8, cand, scales, d8)
-        got = kernel()
-        want = ops.gather_rerank_topk(p8, cand, qq, ww, kk, scales=scales, delta=d8,
-                                      force="plain")
-        torch.cuda.synchronize()
-        err = _check_topk(label, got, want, quant.decode_table(cat8, scales), qq, ww)
-        _same_bits(label, got, gather_rerank_topk_blocked_cuda(cat8, cand, qq, ww, kk,
-                                                               scales=scales),
-                   "the single-segment kernel over torch.cat([main, delta])")
-        _same_bits(label, got, f32(), "the f32 two-segment kernel over the decoded tables")
-        _same_bits(label, got, one_warp(), "the one-warp-per-query schedule")
-        ms = time_ms(kernel, iters=10, warmup=2)
-        warp_ms = time_ms(one_warp, iters=10, warmup=1)
-        f32_ms = time_ms(f32, iters=10, warmup=1)
-        plain_ms = time_ms(lambda: ops.gather_rerank_topk(p8, cand, qq, ww, kk, scales=scales,
-                                                          delta=d8, force="plain"), iters=1)
-        single_ms = time_ms(lambda: gather_rerank_topk_blocked_cuda(cat8, cand, qq, ww, kk,
-                                                                    scales=scales),
-                            iters=10, warmup=1)
-        b_ms, b_by, nbytes, flops, l2_bytes = gather_bound(cand, seg.n_tot, d, kk, 1,
-                                                           scaled=scales is not None)
-        print(f"  {label}: {sched}; kernel {ms:.4f} ms, one-warp schedule {warp_ms:.4f} ms "
-              f"({warp_ms / ms:.2f}x), single-segment kernel over the concatenated payload "
-              f"{single_ms:.4f} ms, f32 two-segment kernel over the decoded tables "
-              f"{f32_ms:.4f} ms, plain {plain_ms:.4f} ms, library: none; bound "
-              f"{b_ms * 1e3:.1f} us by {b_by} ({nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP); "
-              f"rows gathered per query, served by HBM or L2: {l2_bytes / 1e6:.1f} MB")
-        out[label] = {"k": kk, "splits": S, "max_abs_err": err, "ms": ms,
-                      "old_schedule_ms": warp_ms, "plain_ms": plain_ms,
-                      "single_segment_ms": single_ms, "f32_ms": f32_ms, "bound_ms": b_ms,
-                      "bound_by": b_by}
-        del dec_main, dec_delta
-    profile("gather_rerank_topk_blocked_two_seg (int8 screen pass)",
-            lambda: ops.gather_rerank_topk(p8, cand, qp, wp, keep, delta=d8), top=2)
-    main_case = next(iter(out.values()))
-    run.record("gather_rerank_topk_blocked_two_seg", max_abs_err=main_case["max_abs_err"],
-               ms=main_case["ms"], plain_ms=main_case["plain_ms"],
-               bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"], library_ms=None,
-               splits=main_case["splits"], old_schedule_ms=main_case["old_schedule_ms"],
-               cases=out)
-
-
 def sorted_scan_topk(data, q, w, k):
     """The first k of ``wl1_scan``'s distances under a stable sort, (+inf,
     -1) past the finite ones: what ``wl1_scan_topk`` must return bit for bit."""
@@ -1322,174 +446,6 @@ def sorted_scan_topk(data, q, w, k):
     out_i[:, :kk] = order[:, :kk].to(torch.int32)
     out_i[~torch.isfinite(out_d)] = -1
     return out_d, out_i
-
-
-def phase_scan(run, svc):
-    import torch
-
-    from repro_torch.kernels import ops
-    from repro_torch.kernels.wl1_topk import scan_splits
-
-    data, q, w = svc.wl.data, svc.q, svc.w
-    k = 10
-    sms = torch.cuda.get_device_properties(data.device).multi_processor_count
-    # service: exact mode on a full batch; main: the main path's recall check
-    # (exact mode on a batch's first 64 queries); recorded: the repo's kernel shape
-    for label, n, b in (("service", data.shape[0], q.shape[0]), ("main", data.shape[0], 64),
-                        ("recorded", 65536, 64)):
-        dn, qb, wb = data[:n].contiguous(), q[:b].contiguous(), w[:b].contiguous()
-        d = dn.shape[1]
-        got = ops.wl1_scan_topk(dn, qb, wb, k)
-        want = ops.wl1_scan_topk(dn, qb, wb, k, force="plain")
-        torch.cuda.synchronize()
-        err = _check_topk(f"wl1_scan_topk {label} n={n} b={b}", got, want, dn, qb, wb)
-        sd, si = sorted_scan_topk(dn, qb, wb, k)
-        bitwise = torch.equal(got[0], sd) and torch.equal(got[1], si)
-        print(f"  wl1_scan_topk {label}: bit-equal to wl1_scan + stable sort: {bitwise}")
-        if not bitwise:
-            raise AssertionError(f"wl1_scan_topk {label}: differs from wl1_scan + stable sort")
-        del sd, si
-        S = scan_splits(n, b, k, sms)
-        ms = time_ms(lambda: ops.wl1_scan_topk(dn, qb, wb, k), iters=5, warmup=2)
-        plain_ms = time_ms(lambda: ops.wl1_scan_topk(dn, qb, wb, k, force="plain"), iters=1)
-        dev_us = profile(f"wl1_scan_topk {label}", lambda: ops.wl1_scan_topk(dn, qb, wb, k),
-                         top=3)
-        clock = None
-        if label == "service":
-            clock = clock_under_load(lambda: ops.wl1_scan_topk(dn, qb, wb, k))
-            print(f"  {label}: SM clock, power under a stream of calls: {clock}")
-        nbytes = 4 * (n * d + 2 * b * d) + 8 * b * k
-        flops = 3 * b * n * d
-        b_ms, b_by = bound(nbytes, flops)
-        print(f"  {label}: S={S}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library: none; "
-              f"bound {b_ms * 1e3:.1f} us by {b_by} ({nbytes / 1e6:.1f} MB, "
-              f"{flops / 1e9:.1f} GFLOP)")
-        numbers = {"n": n, "b": b, "splits": S, "ms": ms, "plain_ms": plain_ms,
-                   "bound_ms": b_ms, "max_abs_err": err,
-                   "device_ms": None if dev_us is None else dev_us / 1e3}
-        if label == "service":
-            run.record("wl1_scan_topk", max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                       bound_ms=b_ms, bound_by=b_by, library_ms=None, splits=S,
-                       device_ms=numbers["device_ms"], clock_under_load=clock)
-        else:
-            run.kernels["wl1_scan_topk"][f"{label}_shape"] = numbers
-    torch.cuda.empty_cache()  # the stable-sort check's ~4 GB stays out of the later phases
-
-
-def _wl1_check(label, got, want):
-    """Elementwise agreement of a materializing kernel with its plain version."""
-    import torch
-
-    diff = (got - want).abs()
-    err = float(diff.max())
-    ok = bool((diff <= WL1_ATOL + WL1_RTOL * want.abs()).all()) and bool(torch.isfinite(got).all())
-    print(f"  {label}: max_abs_err={err:.3g} (rtol/atol {WL1_RTOL})")
-    if not ok:
-        raise AssertionError(f"{label}: kernel disagrees with the plain version")
-    return err
-
-
-def _share(us, of_us):
-    """``of_us`` over a measured device time ``us`` (None when either is)."""
-    return None if us is None or of_us is None else of_us / us
-
-
-def _fmt_us(us) -> str:
-    return "not measured" if us is None else f"{us:.2f} us"
-
-
-def _fmt_share(x) -> str:
-    return "not measured" if x is None else f"{x:.3f}"
-
-
-def phase_wl1_scan(run):
-    """The materializing scan against its plain version: the recorded shape
-    of benchmarks/kernels_bench.py (n=65,536, b=64, d=128; normal data,
-    queries and weights, so weights are negative too), the service width
-    (n=262,144) and a ragged shape (n, b and d not multiples of 32)."""
-    import torch
-
-    from repro_torch.kernels import ops
-
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 60)
-    for label, n, b, d in (("recorded", BASELINE_N, BASELINE_B, 128), ("service", 262144, 64, 128),
-                           ("ragged", 5003, 37, 130)):
-        data, q, w = (torch.randn(s, generator=gen, device="cuda") for s in ((n, d), (b, d), (b, d)))
-        got = ops.wl1_scan(data, q, w)
-        want = ops.wl1_scan(data, q, w, force="plain")
-        torch.cuda.synchronize()
-        err = _wl1_check(f"wl1_scan {label} n={n} b={b} d={d}", got, want)
-        if label == "ragged":
-            continue
-        ms = time_ms(lambda: ops.wl1_scan(data, q, w), iters=10, warmup=2)
-        plain_ms = time_ms(lambda: ops.wl1_scan(data, q, w, force="plain"), iters=1)
-        dev_us = device_us_per_call(f"wl1_scan {label}", lambda: ops.wl1_scan(data, q, w))
-        nbytes = 4 * (n * d + 2 * b * d + b * n)
-        flops = 3 * b * n * d
-        b_ms, b_by = bound(nbytes, flops)
-        numbers = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                       library_ms=None, device_us=dev_us,
-                       share_of_bound=_share(dev_us, b_ms * 1e3))
-        clock = clock_under_load(lambda: ops.wl1_scan(data, q, w))
-        floor_us = issue_floor_us(b * n * d, clock)
-        print(f"  {label}: kernel {ms:.4f} ms (device {_fmt_us(dev_us)} per call), plain "
-              f"{plain_ms:.4f} ms, library: none; bound {b_ms * 1e3:.1f} us by {b_by} "
-              f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); device share of bound "
-              f"{_fmt_share(numbers['share_of_bound'])}")
-        print(f"  {label}: SM clock, power under a stream of calls: {clock}; issue floor derived "
-              f"from that clock {_fmt_us(floor_us)} (2 FP32 instructions a term), device share "
-              f"of it {_fmt_share(_share(dev_us, floor_us))}")
-        if label == "recorded":
-            numbers["host_us_per_call"] = host_us_per_call(lambda: ops.wl1_scan(data, q, w))
-            run.record("wl1_scan", **numbers)
-        else:
-            run.kernels["wl1_scan"][f"{label}_shape"] = {"n": n, "b": b, **numbers}
-
-
-def phase_wl1_rerank(run):
-    """The candidate re-rank against its plain version at b=64, d=128 over
-    C=512 (the recorded shape) and C=4096 candidates per query, normal
-    points, queries and weights; and a ragged shape."""
-    import torch
-
-    from repro_torch.kernels import ops
-
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 61)
-    for label, b, C, d in (("recorded", BASELINE_B, 512, 128), ("C=4096", BASELINE_B, 4096, 128),
-                           ("ragged", 37, 515, 130)):
-        pts, q, w = (torch.randn(s, generator=gen, device="cuda")
-                     for s in ((b, C, d), (b, d), (b, d)))
-        got = ops.wl1_rerank(pts, q, w)
-        want = ops.wl1_rerank(pts, q, w, force="plain")
-        torch.cuda.synchronize()
-        err = _wl1_check(f"wl1_rerank {label} b={b} C={C} d={d}", got, want)
-        if label == "ragged":
-            continue
-        ms = time_ms(lambda: ops.wl1_rerank(pts, q, w), iters=10, warmup=2)
-        plain_ms = time_ms(lambda: ops.wl1_rerank(pts, q, w, force="plain"), iters=1)
-        dev_us = device_us_per_call(f"wl1_rerank {label}", lambda: ops.wl1_rerank(pts, q, w))
-        nbytes = 4 * (b * C * d + 2 * b * d + b * C)
-        flops = 3 * b * C * d
-        b_ms, b_by = bound(nbytes, flops)
-        # C=512's 16.8 MB stay in the L2 between calls here, so it can beat
-        # the bound (every point read once from HBM)
-        numbers = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                       library_ms=None, device_us=dev_us,
-                       share_of_bound=_share(dev_us, b_ms * 1e3))
-        print(f"  {label}: kernel {ms:.4f} ms (device {_fmt_us(dev_us)} per call), plain "
-              f"{plain_ms:.4f} ms, library: none; bound {b_ms * 1e3:.1f} us by {b_by} "
-              f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); device share of bound "
-              f"{_fmt_share(numbers['share_of_bound'])}")
-        if label == "recorded":
-            numbers["host_us_per_call"] = host_us_per_call(lambda: ops.wl1_rerank(pts, q, w))
-            run.record("wl1_rerank", **numbers)
-            scan = run.kernels.get("wl1_scan", {})
-            print(f"  host per call ({HOST_CALLS} back-to-back calls, no sync): ops.wl1_rerank "
-                  f"{numbers['host_us_per_call']:.1f} us (device {_fmt_us(dev_us)}); "
-                  f"ops.wl1_scan {scan.get('host_us_per_call', float('nan')):.1f} us (device "
-                  f"{_fmt_us(scan.get('device_us'))})")
-        else:
-            run.kernels["wl1_rerank"]["C4096_shape"] = {"C": C, **numbers}
 
 
 def _timed_query(index, q, w, spec):
@@ -1532,7 +488,7 @@ def _serve(family: str, batches: int, wl, index=None, **overrides):
         cfg = dataclasses.replace(SERVICE.index_config, family=family, **overrides)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        index = tapi.Index.build(SEED + 2, wl.data, cfg)
+        index = tapi.Index.build(SEED + 2, wl.rows, cfg)
         torch.cuda.synchronize()
         print(f"  [{family}] built index over n={index.n} d={cfg.d} K={cfg.K} L={cfg.L} "
               f"C={cfg.max_candidates} W={cfg.W} on {index.device} in "
@@ -1558,16 +514,18 @@ def _serve(family: str, batches: int, wl, index=None, **overrides):
 
 
 def profile(label, fn, top=12, unprofiled_wall=False, into=None):
-    """Print device time by kernel and the device's idle share over one
-    call of ``fn`` (torch.profiler; diagnostics, the run does not depend on
-    them) and return the device busy time in us (None when not measured).
-    With ``unprofiled_wall`` the same call is first timed without the
-    profiler, and the idle share is also estimated against that wall time.
-    A dict ``into`` receives the walls and the ``top`` rows (name, device
-    us, count)."""
+    """Print the device's busy time and idle share over one call of ``fn``
+    and its ``top`` device operations, read as the benchmark reads a window
+    (``portbench.trace.Trace`` over a ``torch.profiler`` trace, the call
+    inside a ``portbench.window`` span; diagnostics, the run does not depend
+    on them), and return the busy time in us (None when not measured). With
+    ``unprofiled_wall`` the same call is first timed without the profiler,
+    and the idle share is also estimated against that wall time. A dict
+    ``into`` receives the walls, the busy time and the top operations."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile as torch_profile
+    from torch.profiler import ProfilerActivity, profile as torch_profile, record_function
+
+    from portbench.trace import WINDOW_SPAN, Trace
 
     torch.cuda.synchronize()
     plain_wall_us = None
@@ -1578,32 +536,30 @@ def profile(label, fn, top=12, unprofiled_wall=False, into=None):
         plain_wall_us = (time.perf_counter() - t0) * 1e6
     try:
         with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-        # device-side rows only: a CPU op's row repeats its kernels' device time
-        rows = [e for e in prof.key_averages()
-                if e.device_type != DeviceType.CPU and e.self_device_time_total > 0]
+            with record_function(WINDOW_SPAN):
+                fn()
+                torch.cuda.synchronize()
+        trace = Trace.from_profiler(prof)
     except Exception as e:  # diagnostics only: a profiler fault must not fail the run
         print(f"  profile {label}: not measured ({type(e).__name__}: {e})")
         return None
-    busy_us = sum(e.self_device_time_total for e in rows)
+    busy_us = 0.0 if trace is None else trace.busy_s() * 1e6
     if busy_us == 0:
         print(f"  profile {label}: no device time recorded (not measured)")
         return None
+    wall_us = trace.window_s * 1e6
     print(f"  profile {label}: wall {wall_us:.0f} us (profiler on), device busy {busy_us:.0f} us, "
           f"idle share {max(0.0, 1 - busy_us / wall_us):.3f}")
     if plain_wall_us is not None:
         print(f"  profile {label}: the same call without the profiler just before: wall "
               f"{plain_wall_us:.0f} us; estimated idle share (profiled busy / unprofiled wall) "
               f"{max(0.0, 1 - busy_us / plain_wall_us):.3f}")
-    ranked = sorted(rows, key=lambda e: -e.self_device_time_total)[:top]
-    for e in ranked:
-        print(f"    {e.self_device_time_total:9.1f} us  x{e.count:<4d} {e.key[:90]}")
+    ops = trace.device_ops(top)
+    for name, secs in ops:
+        print(f"    {secs * 1e6:9.1f} us  {name[:90]}")
     if into is not None:
         into.update(wall_us=wall_us, unprofiled_wall_us=plain_wall_us, busy_us=busy_us,
-                    top=[(e.key[:120], e.self_device_time_total, e.count) for e in ranked])
+                    top=[(name[:120], secs * 1e6) for name, secs in ops])
     return busy_us
 
 
@@ -1620,24 +576,64 @@ def _path_counts(label, needed):
     return counts
 
 
+def _rerank_equals_gather(index, q, w, k):
+    """``wl1_rerank`` over the rows ``data[ids]`` of a probe batch's deduped
+    candidates, sorted, must give ``gather_rerank_topk``'s first k distances
+    on the same ids bit for bit: both sum a row in one order (the gathers'
+    row body). At b=64 the gather cuts each query's slots into several
+    splits, a schedule the CUDA tests hold against the re-rank only through
+    the one-warp schedule."""
+    import torch
+
+    import repro_torch.api as tapi
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.gather_rerank import f32_splits
+
+    call = _capture_kernel_calls(lambda: index.query(q, w, tapi.QuerySpec(k=k)),
+                                 names=("gather_rerank_topk",))["gather_rerank_topk"][-1]
+    data, ids = call["data"], call["ids"]
+    n = data.shape[0]
+    fused, _ = ops.gather_rerank_topk(data, ids, q, w, k)
+    dists = ops.wl1_rerank(data[ids.clamp(max=n - 1).long()], q, w)
+    dists = torch.where(ids < n, dists, torch.full_like(dists, float("inf")))
+    same = torch.equal(torch.sort(dists, dim=1).values[:, :k], fused)
+    print(f"  [theta] wl1_rerank over data[ids] of a batch's candidates {tuple(ids.shape)}, "
+          f"sorted, against gather_rerank_topk (S={f32_splits(data, ids)}): dists bit-equal "
+          f"{same}")
+    if not same:
+        raise AssertionError("wl1_rerank's distances differ from gather_rerank_topk's")
+
+
 def phase_main_path(svc):
     import repro_torch.api as tapi
     from repro_torch.kernels import _build
 
-    wl = svc.wl
+    wl, cfg = svc.wl, svc.index.config
+    spec, exact = tapi.QuerySpec(k=10), tapi.QuerySpec(k=10, mode="exact")
     _build.reset_launch_counts()
     index, q, w, theta = _serve("theta", 3, wl, index=svc.index)
-    profile("of one theta probe batch", lambda: index.query(q, w, tapi.QuerySpec(k=10)),
-            unprofiled_wall=True)
-    *_, l2 = _serve("l2", 1, wl, W=L2_W)
-    counts = _path_counts("f32", ("alsh_project", "dedupe_candidates", "gather_rerank_topk",
-                                  "wl1_scan_topk"))
+    profile("of one theta probe batch", lambda: index.query(q, w, spec), unprofiled_wall=True)
+    q64, w64 = q[:64].contiguous(), w[:64].contiguous()
+    _rerank_equals_gather(index, q64, w64, 10)
+    l2_index, l2q, l2w, l2 = _serve("l2", 1, wl, W=L2_W)
+    _path_counts("f32", ("alsh_project", "dedupe_candidates", "gather_rerank_topk",
+                         "wl1_scan_topk", "wl1_rerank"))
     for family, rows, floor in (("theta", theta, THETA_RECALL_FLOOR), ("l2", l2, L2_RECALL_FLOOR)):
         rec = sum(r["recall"] for r in rows) / len(rows)
         print(f"  [{family}] mean recall@10 {rec:.3f} (floor {floor})")
         if rec < floor:
             raise AssertionError(f"{family} probe recall@10 {rec:.3f} is under its floor {floor}")
-    return counts, {"theta": theta, "l2": l2}
+    b = q.shape[0]
+    _kernels_against_plain("f32", {
+        f"the theta build n={index.n}": _capture_kernel_calls(
+            lambda: tapi.Index.build(SEED + 2, wl.rows, cfg)),
+        f"a theta probe batch b={b}": _capture_kernel_calls(lambda: index.query(q, w, spec)),
+        f"an exact batch b={b}": _capture_kernel_calls(lambda: index.query(q, w, exact)),
+        "the exact check b=64": _capture_kernel_calls(lambda: index.query(q64, w64, exact)),
+        "the rerank check b=64": _capture_kernel_calls(
+            lambda: _rerank_equals_gather(index, q64, w64, 10), names=("wl1_rerank",)),
+        f"an l2 probe batch b={b}": _capture_kernel_calls(lambda: l2_index.query(l2q, l2w, spec)),
+    })
 
 
 def phase_quant_path(svc):
@@ -1667,10 +663,10 @@ def phase_quant_path(svc):
     if not same:
         raise AssertionError("f32 storage with screen_alpha > 0 must equal alpha = 0")
     oracle = f32.query(q[:64], w[:64], exact)
-    rows = {}
+    calls = {}
     for storage in ("int8", "bf16"):
         t0 = time.perf_counter()
-        index = tapi.Index.build(SEED + 2, wl.data, dataclasses.replace(cfg, storage=storage))
+        index = tapi.Index.build(SEED + 2, wl.rows, dataclasses.replace(cfg, storage=storage))
         torch.cuda.synchronize()
         print(f"  [{storage}] built in {time.perf_counter() - t0:.3f} s; table_bytes "
               f"{index.table_bytes} ({f32.table_bytes / index.table_bytes:.2f}x smaller than f32)")
@@ -1698,18 +694,18 @@ def phase_quant_path(svc):
             if launched != (2 if alpha else 1):
                 raise AssertionError(f"{storage} alpha={alpha}: {launched} quantized-kernel "
                                      f"launches, expected {2 if alpha else 1}")
-            rows[f"{storage}/alpha={alpha}"] = {"ms": ms, "cand_frac": cand_frac,
-                                                "recall_own": rec_own, "recall_f32": rec_f32}
+            calls[f"a {storage} batch b={b}, alpha={alpha}"] = _capture_kernel_calls(
+                lambda: index.query(q, w, spec))
         if storage == "int8":
             profile("of one int8 screened batch",
                     lambda: index.query(q, w, tapi.QuerySpec(k=k, screen_alpha=SCREEN_ALPHA)),
                     unprofiled_wall=True)
     # f32 timed again after the quantized batches: f32, quantized, f32 in turns
-    rows["f32_ms"] = [f32_ms, _median_ms(f32, q, w, tapi.QuerySpec(k=k))]
-    print(f"  [f32] the same batch again: {rows['f32_ms'][1]:.2f} ms (median of 5 warm calls)")
-    counts = _path_counts("quantized", ("alsh_project", "dedupe_candidates",
-                                        "gather_rerank_topk_blocked", "wl1_scan_topk"))
-    return counts, rows
+    print(f"  [f32] the same batch again: {_median_ms(f32, q, w, tapi.QuerySpec(k=k)):.2f} ms "
+          f"(median of 5 warm calls)")
+    _path_counts("quantized", ("alsh_project", "dedupe_candidates", "gather_rerank_topk_blocked",
+                               "wl1_scan_topk"))
+    _kernels_against_plain("quantized", calls)
 
 
 def phase_multiprobe_path(svc):
@@ -1741,9 +737,10 @@ def phase_multiprobe_path(svc):
     if worse or not bool((mp.n_candidates >= probe.n_candidates).all()):
         raise AssertionError("multiprobe must see a superset of the probe batch's candidates")
     profile("of one theta multiprobe batch", lambda: index.query(q, w, mspec), top=6)
-    counts = _path_counts("multiprobe", ("alsh_project", "multiprobe_keys", "dedupe_candidates",
-                                         "gather_rerank_topk"))
-    return counts, {"ms": ms, "cand_frac": cand_frac, "recall": rec, "recall_probe": rec_probe}
+    _path_counts("multiprobe", ("alsh_project", "multiprobe_keys", "dedupe_candidates",
+                                "gather_rerank_topk"))
+    _kernels_against_plain("multiprobe", {f"a multiprobe batch b={b}": _capture_kernel_calls(
+        lambda: index.query(q, w, mspec))})
 
 
 def _no_dead_ids(label, res, tombstones):
@@ -1775,7 +772,7 @@ def phase_stream_path(svc):
     _build.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    index = tapi.Index.build(SEED + 2, wl.data, cfg, update=update)
+    index = tapi.Index.build(SEED + 2, wl.rows, cfg, update=update)
     torch.cuda.synchronize()
     print(f"  [stream] built the mutable f32 index n={index.n} delta_capacity={STREAM_CAP} in "
           f"{time.perf_counter() - t0:.3f} s; table_bytes {index.table_bytes}")
@@ -1786,9 +783,9 @@ def phase_stream_path(svc):
     if not same:
         raise AssertionError("a mutable index with an empty delta must answer as the sealed one")
 
-    ticks, next_retire = [], 0
+    calls, next_retire = {}, 0
     for t in range(1, STREAM_TICKS + 1):
-        centres, rows = stream_rows(SEED + 1000 + t, STREAM_INGEST // CLUSTER, d)
+        centres, rows = stream_rows(SEED + 1000 + t, d)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         index, ids = index.insert(rows)
@@ -1823,41 +820,41 @@ def phase_stream_path(svc):
         if hit < STREAM_HIT_FLOOR:
             raise AssertionError(f"tick {t}: only {hit:.3f} of the queries on new centres "
                                  f"found a delta row (floor {STREAM_HIT_FLOOR})")
-        row = {"insert_ms": ins_ms, "delete_ms": del_ms, "batch_ms": ms, "exact_ms": ex_ms,
-               "fill": index.delta_fill, "recall": rec, "delta_hits": hit}
         if index.needs_compact != (t == 12):
             raise AssertionError(f"tick {t}: needs_compact is {index.needs_compact} at fill "
                                  f"{index.delta_fill}")
         if index.needs_compact:
             profile(f"of one stream batch (tick {t}, fill {index.delta_fill})",
                     lambda: index.query(q, w, spec), unprofiled_wall=True)
+            calls[f"a batch b={b}, fill {index.delta_fill}"] = _capture_kernel_calls(
+                lambda: index.query(q, w, spec))
+            calls[f"the exact check b=64, fill {index.delta_fill}"] = _capture_kernel_calls(
+                lambda: index.query(q[:64], w[:64], exact))
             live = torch.from_numpy(index.live_ids()).to("cuda")
             survivors = torch.cat([index.state.data, index.delta.data])[live]  # f32: raw rows
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             compacted = index.compact()
             torch.cuda.synchronize()
-            row["compact_ms"] = (time.perf_counter() - t0) * 1e3
+            compact_ms = (time.perf_counter() - t0) * 1e3
             fresh = tapi.Index.build(SEED + 2, survivors, cfg, update=update)
             same_state = all(torch.equal(getattr(compacted.state, f), getattr(fresh.state, f))
                              for f in ("sorted_keys", "perm", "data", "levels"))
             a, f_ = compacted.query(q, w, spec), fresh.query(q, w, spec)
             same_ans = all(torch.equal(getattr(a, f), getattr(f_, f))
                            for f in ("ids", "dists", "n_candidates"))
-            print(f"  [stream] compacted to n={compacted.n} in {row['compact_ms']:.2f} ms; "
+            print(f"  [stream] compacted to n={compacted.n} in {compact_ms:.2f} ms; "
                   f"sorted_keys/perm/data/levels equal Index.build over the survivors: "
                   f"{same_state}; answers equal: {same_ans}")
             if not (same_state and same_ans):
                 raise AssertionError("compact() differs from a fresh build over the survivors")
             index, next_retire = compacted, 0
-        ticks.append(row)
 
     # int8 beside f32, two ticks of the same operations
-    twin = {s: tapi.Index.build(SEED + 2, wl.data, dataclasses.replace(cfg, storage=s),
+    twin = {s: tapi.Index.build(SEED + 2, wl.rows, dataclasses.replace(cfg, storage=s),
                                 update=update) for s in ("f32", "int8")}
-    quant_rows = []
     for t in range(1, 3):
-        centres, rows = stream_rows(SEED + 3000 + t, STREAM_INGEST // CLUSTER, d)
+        centres, rows = stream_rows(SEED + 3000 + t, d)
         retire = torch.arange((t - 1) * STREAM_RETIRE, t * STREAM_RETIRE, dtype=torch.int32,
                               device="cuda")
         for s_ in twin:
@@ -1884,94 +881,13 @@ def phase_stream_path(svc):
                                      f"two-segment kernel, expected {2 if alpha else 1}")
             if rec < QUANT_RECALL_FLOOR:
                 raise AssertionError(f"int8 alpha={alpha}: recall@{k} {rec:.3f} under its floor")
-            quant_rows.append({"tick": t, "alpha": alpha, "ms": ms, "recall_own": rec})
-    counts = _path_counts("stream", ("alsh_project", "dedupe_candidates",
-                                     "gather_rerank_topk_two_seg",
-                                     "gather_rerank_topk_blocked_two_seg"))
-    return counts, {"ticks": ticks, "int8": quant_rows}
-
-
-def phase_unfused_path():
-    """The unfused baseline of benchmarks/kernels_bench.py, which the fused
-    kernels are measured against, on the card: the materializing scan then
-    ``torch.topk`` against ``wl1_scan_topk`` (n=65,536, b=64, k=10, normal
-    data, queries and weights), and ``data[ids]`` then ``wl1_rerank`` then
-    ``torch.topk`` against ``gather_rerank_topk`` on real probe candidates
-    (b=64, d=128, k=10, P=512…4096: uniform rows, queries at 0.01 from a row,
-    weights |N(0,1)| + 0.1, an L=8, C=P/8, K=14, M=16 theta index). The two
-    sides must agree: dists bit for bit (each kernel pair sums a row in one
-    order), ids equal up to genuine ties. The indexing and ``torch.topk``
-    are the baseline's plain XLA stages, not ports of a kernel."""
-    import torch
-
-    import repro_torch.api as tapi
-    from repro_torch.core.index import _dedupe_candidates
-    from repro_torch.engine.pipeline import probe_keys, sources_for
-    from repro_torch.kernels import _build, ops
-
-    n, b, d, k = BASELINE_N, BASELINE_B, 128, BASELINE_K
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 70)
-    _build.reset_launch_counts()
-    data, q, w = (torch.randn(s, generator=gen, device="cuda") for s in ((n, d), (b, d), (b, d)))
-
-    def unfused_scan():
-        vals, sel = torch.topk(ops.wl1_scan(data, q, w), k, dim=1, largest=False)
-        return vals, sel.to(torch.int32)
-
-    label = "scan: wl1_scan + torch.topk vs wl1_scan_topk"
-    unfused, fused = unfused_scan(), ops.wl1_scan_topk(data, q, w, k)
-    err = _check_topk(label, unfused, fused, data, q, w)
-    _same_dists(label, unfused[0], fused[0])
-    un_ms = time_ms(unfused_scan, iters=10, warmup=2)
-    f_ms = time_ms(lambda: ops.wl1_scan_topk(data, q, w, k), iters=10, warmup=2)
-    print(f"  scan n={n} b={b} k={k}: unfused {un_ms:.4f} ms, fused wl1_scan_topk {f_ms:.4f} ms "
-          f"(unfused / fused {un_ms / f_ms:.2f})")
-    rows = {"scan": {"unfused_ms": un_ms, "fused_ms": f_ms, "max_abs_err": err}}
-
-    data = torch.rand((n, d), generator=gen, device="cuda")
-    base = torch.randint(0, n, (b,), generator=gen, device="cuda")
-    q = (data[base] + 0.01 * torch.randn((b, d), generator=gen, device="cuda")).clamp(0, 1)
-    w = torch.randn((b, d), generator=gen, device="cuda").abs() + 0.1
-    for P in BASELINE_P:
-        cfg = tapi.IndexConfig(d=d, M=16, K=14, L=8, max_candidates=P // 8,
-                               space=tapi.BoundedSpace(0.0, 1.0, 16.0))
-        state = tapi.Index.build(SEED + P, data, cfg).state
-        cand = sources_for(state, None, None, cfg, probe_keys(state, q, w, cfg))[0].emit(q, w)
-        ids, n_cand = _dedupe_candidates(cand, n)
-
-        def unfused_tail():
-            pts = data[ids.clamp(max=n - 1).long()]  # the (b, P, d) gather
-            dists = ops.wl1_rerank(pts, q, w)
-            dists = torch.where(ids < n, dists, torch.full_like(dists, float("inf")))
-            vals, sel = torch.topk(dists, k, dim=1, largest=False)
-            out_i = torch.gather(ids, 1, sel)
-            return vals, torch.where(torch.isfinite(vals), out_i, torch.full_like(out_i, -1))
-
-        label = f"tail P={P}: data[ids] + wl1_rerank + torch.topk vs gather_rerank_topk"
-        unfused, fused = unfused_tail(), ops.gather_rerank_topk(data, ids, q, w, k)
-        err = _check_topk(label, unfused, fused, data, q, w)
-        _same_dists(label, unfused[0], fused[0])
-        un_ms = time_ms(unfused_tail, iters=10, warmup=2)
-        f_ms = time_ms(lambda: ops.gather_rerank_topk(data, ids, q, w, k), iters=10, warmup=2)
-        uniq = float(n_cand.float().mean())
-        print(f"  tail P={P} ({uniq:.0f} unique ids per query): unfused {un_ms:.4f} ms, fused "
-              f"gather_rerank_topk {f_ms:.4f} ms (unfused / fused {un_ms / f_ms:.2f})")
-        rows[f"tail_P{P}"] = {"unfused_ms": un_ms, "fused_ms": f_ms, "unique_ids": uniq,
-                              "max_abs_err": err}
-    counts = _path_counts("unfused baseline", ("wl1_scan", "wl1_rerank"))
-    return counts, rows
-
-
-def _same_dists(label, unfused, fused):
-    """The unfused side's distances must be the fused kernel's bit for bit:
-    both sum each row in the same order (the scan's loop; the gathers' VEC4
-    row body)."""
-    import torch
-
-    same = torch.equal(unfused, fused)
-    print(f"  {label}: dists bit-equal: {same}")
-    if not same:
-        raise AssertionError(f"{label}: dists differ from the fused kernel's")
+            if t == 1:
+                calls[f"an int8 batch b={b}, alpha={alpha}, fill "
+                      f"{twin['int8'].delta_fill}"] = _capture_kernel_calls(
+                    lambda: twin["int8"].query(q, w, qspec))
+    _path_counts("stream", ("alsh_project", "dedupe_candidates", "gather_rerank_topk_two_seg",
+                            "gather_rerank_topk_blocked_two_seg"))
+    _kernels_against_plain("stream", calls)
 
 
 def phase_early_exit_path(svc):
@@ -2008,7 +924,6 @@ def phase_early_exit_path(svc):
     q, w = svc.wl.batch(b, SEED + 100)  # the f32 path's first batch
     mp = tapi.QuerySpec(k=k, mode="multiprobe", n_probes=8, max_flips=3)
     windows = {"probe": cfg.L, "multiprobe": cfg.L * min(8, n_flip_subsets(cfg.K, 3))}
-    rows = {}
     _build.reset_launch_counts()
 
     def slack0(label, idx, qq, ww, off_spec):
@@ -2032,18 +947,17 @@ def phase_early_exit_path(svc):
         if not (bits and bad == 0 and cand and exhausted and full):
             raise AssertionError(f"{label}: the streamed query at slack 0 differs from the "
                                  f"monolithic query")
-        rows[f"{label}/slack0"] = {"ms": on_ms, "monolithic_ms": off_ms}
 
     slack0("f32 probe", index, q, w, tapi.QuerySpec(k=k))
     update = tapi.UpdateSpec(delta_capacity=STREAM_CAP, compact_threshold=STREAM_THRESHOLD)
-    mut = tapi.Index.build(SEED + 2, svc.wl.data, cfg, update=update)
-    centres, new_rows = stream_rows(SEED + 5000, STREAM_INGEST // CLUSTER, cfg.d)
+    mut = tapi.Index.build(SEED + 2, svc.wl.rows, cfg, update=update)
+    centres, new_rows = stream_rows(SEED + 5000, cfg.d)
     mut = mut.insert(new_rows)[0].delete(torch.arange(0, STREAM_RETIRE, dtype=torch.int32,
                                                       device="cuda"))
     qs, ws = stream_batch(svc.wl, centres, SEED + 5001)
     slack0(f"f32 mutable, delta fill {mut.delta_fill}", mut, qs, ws, tapi.QuerySpec(k=k))
     del mut
-    int8 = tapi.Index.build(SEED + 2, svc.wl.data, dataclasses.replace(cfg, storage="int8"))
+    int8 = tapi.Index.build(SEED + 2, svc.wl.rows, dataclasses.replace(cfg, storage="int8"))
     slack0("int8, screen off", int8, q, w, tapi.QuerySpec(k=k))
     del int8
 
@@ -2075,10 +989,6 @@ def phase_early_exit_path(svc):
             raise AssertionError(f"early exit {label}: tables_probed outside [1, {n_win}]")
         profile(f"of one streamed {label} batch (slack {EXIT_SLACK})",
                 lambda: index.query(q, w, spec), top=6, unprofiled_wall=True)
-        rows[f"{label}/slack{EXIT_SLACK}"] = {
-            "ms": ms, "monolithic_ms": mono_ms, "tables_probed_mean": float(tp.mean()),
-            "tables_probed_p99": float(torch.quantile(tp, 0.99)), "groups_run": groups_run,
-            "stop_reasons": mix, "recall": rec, "recall_monolithic": rec_mono}
 
     spec = tapi.QuerySpec(k=k, early_exit=True, exit_group=EXIT_GROUP, exit_slack=EXIT_SLACK)
     rep = index.explain(q[:64], w[:64], spec)
@@ -2100,10 +1010,9 @@ def phase_early_exit_path(svc):
     mean_tp, n_win = stats[0].split("tables_probed~")[1].split()[0].split("/")
     if not 1.0 <= float(mean_tp) <= float(n_win):
         raise AssertionError(f"serve --stats: tables_probed {mean_tp} outside [1, {n_win}]")
-    counts = _path_counts("early exit", ("alsh_project", "dedupe_candidates", "gather_rerank_topk",
-                                         "gather_rerank_topk_two_seg",
-                                         "gather_rerank_topk_blocked", "wl1_scan_topk"))
-    return counts, rows
+    _path_counts("early exit", ("alsh_project", "dedupe_candidates", "gather_rerank_topk",
+                                "gather_rerank_topk_two_seg", "gather_rerank_topk_blocked",
+                                "wl1_scan_topk"))
 
 
 def _launched(fn):
@@ -2182,8 +1091,7 @@ def _round_trip(label, index, directory, card):
           f"({codec}, {on_disk / raw:.3f} of raw); {card}")
     if loaded.device.type != "cuda":
         raise AssertionError(f"{label}: Index.load put the index on {loaded.device}")
-    return loaded, {"save_s": save_s, "load_s": load_s, "raw_bytes": raw,
-                    "disk_bytes": on_disk, "codec": codec}
+    return loaded
 
 
 def phase_persist_path(svc, card):
@@ -2222,11 +1130,10 @@ def phase_persist_path(svc, card):
     wl, cfg = svc.wl, svc.index.config
     k, b, d = SERVICE.topk, SERVICE.query_batch, cfg.d
     spec, exact = tapi.QuerySpec(k=k), tapi.QuerySpec(k=k, mode="exact")
-    rows = {}
     update = tapi.UpdateSpec(delta_capacity=STREAM_CAP, compact_threshold=STREAM_THRESHOLD)
 
     def tick(idx, t):
-        _, new = stream_rows(SEED + 5000 + t, STREAM_INGEST // CLUSTER, d)
+        _, new = stream_rows(SEED + 5000 + t, d)
         retire = torch.arange((t - 1) * STREAM_RETIRE, t * STREAM_RETIRE, dtype=torch.int32,
                               device="cuda")
         return idx.insert(new)[0].delete(retire)
@@ -2234,19 +1141,18 @@ def phase_persist_path(svc, card):
     # set-up, off the path's counts: the indexes to be saved
     mutable = {}
     for storage in ("int8", "f32"):
-        idx = tapi.Index.build(SEED + 2, wl.data, dataclasses.replace(cfg, storage=storage),
+        idx = tapi.Index.build(SEED + 2, wl.rows, dataclasses.replace(cfg, storage=storage),
                                update=update)
         for t in (1, 2):
             idx = tick(idx, t)
         mutable[storage] = idx
-    bf16 = tapi.Index.build(SEED + 2, wl.data, dataclasses.replace(cfg, storage="bf16"))
-    small = tapi.Index.build(SEED, Workload(8192, d, seed=SEED + 7).data, cfg)
+    bf16 = tapi.Index.build(SEED + 2, wl.rows, dataclasses.replace(cfg, storage="bf16"))
+    small = tapi.Index.build(SEED, workload(8192, d, seed=SEED + 7).rows, cfg)
     del idx
     _build.reset_launch_counts()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_persist_") as tmp:
         # 1. the f32 sealed service index
-        loaded, rows["f32"] = _round_trip("f32 sealed", svc.index, os.path.join(tmp, "f32"),
-                                          card)
+        loaded = _round_trip("f32 sealed", svc.index, os.path.join(tmp, "f32"), card)
         _same_state("f32 sealed", svc.index, loaded)
         for label, qq, ww, s in (("f32 probe batch", svc.q, svc.w, spec),
                                  ("f32 exact, 64 queries", svc.q[:64], svc.w[:64], exact)):
@@ -2264,10 +1170,9 @@ def phase_persist_path(svc, card):
             if (fill, dead) != (2 * STREAM_INGEST, 2 * STREAM_RETIRE):
                 raise AssertionError(f"{storage} mutable: fill {fill}, {dead} tombstones")
             label = f"{storage} mutable"
-            back, rows[label] = _round_trip(label, idx, os.path.join(tmp, storage + "_mut"),
-                                            card)
+            back = _round_trip(label, idx, os.path.join(tmp, storage + "_mut"), card)
             _same_state(label, idx, back)
-            q, w = stream_batch(wl, stream_rows(SEED + 5000 + 2, 32, d)[0], SEED + 5100)
+            q, w = stream_batch(wl, stream_rows(SEED + 5000 + 2, d)[0], SEED + 5100)
             alphas = (SCREEN_ALPHA, 0.0) if storage == "int8" else (0.0,)
             for stage in ("loaded", "one more tick", "compacted"):
                 if stage == "one more tick":
@@ -2283,7 +1188,7 @@ def phase_persist_path(svc, card):
             del idx, back
 
         # 3. the bf16 sealed index
-        back, rows["bf16"] = _round_trip("bf16 sealed", bf16, os.path.join(tmp, "bf16"), card)
+        back = _round_trip("bf16 sealed", bf16, os.path.join(tmp, "bf16"), card)
         _same_state("bf16 sealed", bf16, back)
         a, la = _launched(lambda: bf16.query(svc.q, svc.w, spec))
         c, lc = _launched(lambda: back.query(svc.q, svc.w, spec))
@@ -2314,10 +1219,9 @@ def phase_persist_path(svc, card):
           f"{sorted(m for m in ('msgpack', 'ml_dtypes') if m in sys.modules) or 'none'})")
     if imported:
         raise AssertionError(f"persistence imported {imported}")
-    counts = _path_counts("persist", ("alsh_project", "gather_rerank_topk",
-                                      "gather_rerank_topk_two_seg", "gather_rerank_topk_blocked",
-                                      "gather_rerank_topk_blocked_two_seg", "wl1_scan_topk"))
-    return counts, rows
+    _path_counts("persist", ("alsh_project", "gather_rerank_topk", "gather_rerank_topk_two_seg",
+                             "gather_rerank_topk_blocked", "gather_rerank_topk_blocked_two_seg",
+                             "wl1_scan_topk"))
 
 
 def _timed_planner(tapi, weights):
@@ -2359,7 +1263,7 @@ def _attempts(marks):
     return out
 
 
-def phase_plan_path(run, svc, card):
+def phase_plan_path(svc, card):
     """Quality-first planning and the offline tuner at the SERVICE width
     (n=262,144, d=128, batches of 1024), launch counts zeroed before its
     builds:
@@ -2395,9 +1299,9 @@ def phase_plan_path(run, svc, card):
        held-out queries meet the target less ``confirm_slack``, a
        calibrated one equals the table-less plan; the confirmation's
        seconds beside the full calibration's;
-    7. the candidates per ms the card re-ranks on the f32 probe batch beside
-       the planner's ``candidates_per_ms`` default (unchanged: both packages
-       must choose alike)."""
+    7. the candidates per ms of batch wall time the card re-ranks on the f32
+       probe batch beside the planner's ``candidates_per_ms`` default
+       (unchanged: both packages must choose alike)."""
     import dataclasses
     import os
     import tempfile
@@ -2414,7 +1318,6 @@ def phase_plan_path(run, svc, card):
     wl, q, w = svc.wl, svc.q, svc.w
     k, b = SERVICE.topk, SERVICE.query_batch
     quality = tapi.QualitySpec(k=PLAN_K, recall_target=PLAN_RECALL)
-    rows = {"card": card}
     weights = wl.batch(64, SEED + 9000)[1]  # the service's query-weight distribution
     hq, hw = wl.batch(PLAN_HELD_OUT, SEED + 9100)
     exact = tapi.QuerySpec(k=k, mode="exact")
@@ -2426,13 +1329,12 @@ def phase_plan_path(run, svc, card):
     try:
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
-            default = tapi.Index.build(SEED + 2, wl.data, quality, family="theta", M=32)
+            default = tapi.Index.build(SEED + 2, wl.rows, quality, family="theta", M=32)
     except ValueError as e:
         if "no hash family yields usable" not in str(e):
             raise
         print(f"  [plan] default planner (weights |N(0,1)|+0.1): the theory solve refused "
               f"after {time.perf_counter() - t0:.3f} s: {str(e)[:110]}")
-        rows.update(default_planner="refused: no usable collision probabilities")
     else:
         torch.cuda.synchronize()
         dplan = default.plans[quality]
@@ -2445,15 +1347,13 @@ def phase_plan_path(run, svc, card):
               f"warnings: {[str(x.message)[:100] for x in caught] or 'none'}")
         if default.device.type != "cuda":
             raise AssertionError(f"the default quality build ran on {default.device}")
-        rows.update(default_planner=str(dplan), default_config=str(default.config),
-                    default_held_out_recall=dheld, default_plan_build_s=default.plan_times[quality])
         del default
     planner = _timed_planner(tapi, weights)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
-        index = tapi.Index.build(SEED + 2, wl.data, quality, family="theta", M=32,
+        index = tapi.Index.build(SEED + 2, wl.rows, quality, family="theta", M=32,
                                  planner=planner)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
@@ -2479,10 +1379,6 @@ def phase_plan_path(run, svc, card):
           f"{sum(mono):.1f} ms, {len(streamed)} streamed (early exit) {sum(streamed):.1f} ms; "
           + ", ".join(f"{r.mode[0]}{r.n_probes}/{r.max_candidates}{'/ee' if r.early_exit else ''}"
                       f" {ms:.1f}" for r, ms in per_rung))
-    rows.update(rungs_monolithic_ms=sum(mono), rungs_streamed_ms=sum(streamed))
-    rows.update(build_s=build_s, plan_config_s=config_s, attempts=[
-        {"geometry": g, "build_s": bs, "calibration_s": cs} for g, bs, cs in attempts],
-        plan_build_s=index.plan_times[quality], config=str(cfg), plan=str(plan))
 
     # 2. the planned answer
     a, la = _launched(lambda: index.query(q, w, quality))
@@ -2496,19 +1392,15 @@ def phase_plan_path(run, svc, card):
     explicit = tapi.QuerySpec(k=k)
     ms_plan = _median_ms(index, q, w, plan)
     ms_service = _median_ms(svc.index, q, w, explicit)
-    busy_plan = profile("of one planned batch", lambda: index.query(q, w, plan), top=6)
-    busy_service = profile("of one explicit SERVICE batch",
-                           lambda: svc.index.query(q, w, explicit), top=6)
+    profile("of one planned batch", lambda: index.query(q, w, plan), top=6)
+    profile("of one explicit SERVICE batch", lambda: svc.index.query(q, w, explicit), top=6)
     held = recall_at_k(index.query(hq, hw, plan).ids, index.query(hq, hw, exact).ids, k)
     held_service = recall_at_k(svc.index.query(hq, hw, explicit).ids,
                                svc.index.query(hq, hw, exact).ids, k)
-    print(f"  [plan] batch of {b}: planned {ms_plan:.3f} ms (device busy {_fmt_us(busy_plan)}), "
-          f"explicit SERVICE {ms_service:.3f} ms (device busy {_fmt_us(busy_service)}); held-out "
+    print(f"  [plan] batch of {b}: planned {ms_plan:.3f} ms, explicit SERVICE {ms_service:.3f} "
+          f"ms; held-out "
           f"recall@{k} on {PLAN_HELD_OUT} queries {held:.4f} (predicted_recall "
           f"{plan.predicted_recall:.4f}; SERVICE {held_service:.4f}); {card}")
-    rows.update(ms=ms_plan, ms_service=ms_service, busy_us=busy_plan,
-                busy_us_service=busy_service, held_out_recall=held,
-                held_out_recall_service=held_service, predicted_recall=plan.predicted_recall)
 
     # 3. the ladder and explain
     t0 = time.perf_counter()
@@ -2531,10 +1423,9 @@ def phase_plan_path(run, svc, card):
     print(f"  [plan] explain: provenance {rep.provenance}, plan_build_s {rep.plan_build_s:.3f} s,"
           f" mean predicted success {float(rep.predicted_success.mean()):.4f}, truncated "
           f"windows in {int((rep.truncated_tables > 0).sum())}/{b} queries")
-    rows.update(ladder_rungs=len(ladder), ladder_s=ladder_s)
 
     # 4. a quantized index plans: its screened rungs run the blocked gather
-    int8 = tapi.Index.build(SEED + 2, wl.data,
+    int8 = tapi.Index.build(SEED + 2, wl.rows,
                             dataclasses.replace(SERVICE.index_config, storage="int8"))
     t0 = time.perf_counter()
     with warnings.catch_warnings(record=True) as caught:
@@ -2547,12 +1438,11 @@ def phase_plan_path(run, svc, card):
           f"launches {l8}; warnings: {[str(x.message)[:100] for x in caught] or 'none'}")
     if not l8.get("gather_rerank_topk_blocked"):
         raise AssertionError("the int8 calibration never ran the blocked gather")
-    rows.update(int8_plan=str(p8), int8_s=int8_s)
     del int8
 
     # 5. the plan memo persists
     with tempfile.TemporaryDirectory(prefix="chip_smoke_plan_") as tmp:
-        loaded, _ = _round_trip("planned index", index, os.path.join(tmp, "planned"), card)
+        loaded = _round_trip("planned index", index, os.path.join(tmp, "planned"), card)
         if loaded.plans != index.plans:
             raise AssertionError(f"loaded plans {loaded.plans} != saved {index.plans}")
         c, lc = _launched(lambda: loaded.query(q, w, quality))
@@ -2568,7 +1458,7 @@ def phase_plan_path(run, svc, card):
                                         source="sampled"),),
             families=("theta",), K=(SERVICE.K,), L=(SERVICE.L,), n_probes=(1, 2, 4, 8),
             window=(64, 128))
-        real = wl.data.cpu().numpy()
+        real = wl.rows.cpu().numpy()
         t0 = time.perf_counter()
         inline, inline_l = _launched(lambda: tuner.run_scan(
             space, os.path.join(tmp, "inline.jsonl"), real_data=real))
@@ -2626,30 +1516,21 @@ def phase_plan_path(run, svc, card):
                                  f"{prior.predicted_recall}, held-out {prior_held}")
     elif prior != bare:
         raise AssertionError("a calibrated fallback differs from the table-less plan")
-    rows.update(tune_inline_s=inline_s, tune_pooled_s=pooled_s, prior_provenance=prior.provenance,
-                prior_s=prior_s, full_calibration_s=bare_s, prior_held_out_recall=prior_held,
-                prior_cost=costs[0], full_calibration_cost=costs[1], tune_best_recall=best)
 
     # 7. candidates per ms on the f32 probe batch
-    gather_ms = run.kernels.get("gather_rerank_topk", {}).get("ms")
-    per_ms = svc.valid / ms_service
-    print(f"  [plan] the f32 probe batch re-ranks {svc.valid} candidates: {per_ms:.0f} per ms of "
-          f"batch wall time"
-          + (f", {svc.valid / gather_ms:.0f} per ms of gather_rerank_topk" if gather_ms else "")
-          + f" (Planner.candidates_per_ms default {tapi.Planner().candidates_per_ms:.0f}); "
-          f"{card}")
-    rows.update(candidates_per_ms=per_ms,
-                candidates_per_gather_ms=svc.valid / gather_ms if gather_ms else None)
-    counts = _path_counts("plan", ("alsh_project", "gather_rerank_topk",
-                                   "gather_rerank_topk_blocked", "wl1_scan_topk"))
-    return counts, rows
+    valid = int(svc.index.query(q, w, explicit).n_candidates.sum())
+    per_ms = valid / ms_service
+    print(f"  [plan] the f32 probe batch re-ranks {valid} candidates: {per_ms:.0f} per ms of "
+          f"batch wall time (Planner.candidates_per_ms default "
+          f"{tapi.Planner().candidates_per_ms:.0f}); {card}")
+    _path_counts("plan", ("alsh_project", "gather_rerank_topk", "gather_rerank_topk_blocked",
+                          "wl1_scan_topk"))
 
 
-def _capture_kernel_calls(fn, names=("alsh_project", "gather_rerank_topk")):
+def _capture_kernel_calls(fn, names=KERNEL_ENTRIES):
     """Run ``fn`` with the entries ``names`` of ``ops`` spied on (by default
-    ``alsh_project`` and ``gather_rerank_topk``; the streamed tail's group
-    entry reaches the latter too) and return ``{name: [arguments, ...]}`` of
-    their calls, in order, each a dict of every parameter by name."""
+    all of them) and return ``{name: [arguments, ...]}`` of their calls, in
+    order, each a dict of every parameter by name."""
     import inspect
 
     from repro_torch.kernels import ops
@@ -2677,100 +1558,107 @@ def _capture_kernel_calls(fn, names=("alsh_project", "gather_rerank_topk")):
     return calls
 
 
-def _kernel_shapes(run, path, calls_by_label, launches, two_seg=False):
-    """``alsh_project`` and ``gather_rerank_topk`` timed on the inputs a path
-    gave them (``calls_by_label`` from ``_capture_kernel_calls``; the
-    broker's rung 0 at b=1 and b=64 and on the planner's b=64 calibration
-    batch, the lm path's decode steps and datastore build): kernel and
-    plain times, the bound, the kernel's agreement with its plain version,
-    and launches x (time - bound) with the path's launch count of the
-    kernel. With ``two_seg`` a gather over a delta segment is the
-    two-segment kernel's; otherwise a delta fails the path (a sealed f32
-    index's gathers)."""
+def _flip_scores(proj, keys):
+    """The float64 score of the flip subset behind each (b, L, P) key: the
+    |proj| summed over the bits where the key differs from the sign key."""
     import torch
-    import torch.nn.functional as F
 
+    K = proj.shape[-1]
+    bit = torch.ones((), dtype=torch.int64, device=proj.device) << torch.arange(
+        K, device=proj.device)
+    base = ((proj >= 0).long() * bit).sum(-1)
+    bits = ((keys.long() ^ base[..., None])[..., None] & bit) != 0  # (b, L, P, K)
+    return (bits * proj.double().abs()[:, :, None, :]).sum(-1)
+
+
+def _against_plain(label, name, a):
+    """One captured call ``a`` of ``ops.<name>`` made again on the card and
+    through its plain version, on the same inputs; prints what was compared
+    and fails where they disagree. The top-k entries are held by
+    ``_check_topk`` (a stored table decoded, a delta appended), the
+    projection by ``PROJ_ATOL`` and its signs away from 0, the multiprobe
+    keys bit for bit on dyadic projections and up to near-equal scores on
+    the raw ones, the dedupe bit for bit, the materializing distances by
+    ``WL1_RTOL``."""
+    import torch
+
+    from repro_torch import quant
     from repro_torch.kernels import ops
 
-    out = {"alsh_project": {}, "gather_rerank_topk": {}, "gather_rerank_topk_two_seg": {}}
+    plain = dict(a, force="plain")
+    if name in ("wl1_scan_topk", "gather_rerank_topk"):
+        got, want = getattr(ops, name)(**a), getattr(ops, name)(**plain)
+        table = a["data"]
+        if name == "gather_rerank_topk":
+            if a["delta"] is not None:
+                table = torch.cat([table, a["delta"].to(table.dtype)])
+            if table.dtype != torch.float32 or a["scales"] is not None:
+                table = quant.decode_table(table, a["scales"])
+            what = (f"{a['data'].dtype} table {tuple(a['data'].shape)}"
+                    f"{', scaled' if a['scales'] is not None else ''}"
+                    f"{'' if a['delta'] is None else f', delta {tuple(a['delta'].shape)}'}, "
+                    f"ids {tuple(a['ids'].shape)}")
+        else:
+            what = f"data {tuple(table.shape)}, b={a['queries'].shape[0]}"
+        _check_topk(f"{label}: {what}, k={a['k']}", got, want, table, a["queries"],
+                    a["weights"])
+        return
+    if name == "alsh_project":
+        got, want = ops.alsh_project(**a), ops.alsh_project(**plain)
+        err = float((got - want).abs().max())
+        far = want.abs() > PROJ_ATOL  # theta codes are compared away from 0 only
+        flips = int(((got >= 0) != (want >= 0))[far].sum())
+        ok = err <= PROJ_ATOL and not flips
+        what = (f"levels {tuple(a['levels'].shape)}, H={a['folded'].shape[0]}, "
+                f"{'weighted' if a['weights'] is not None else 'unweighted'}: max_abs_err "
+                f"{err:.3g} (atol {PROJ_ATOL}), theta-code flips away from 0: {flips}")
+    elif name == "multiprobe_keys":
+        dyadic = dict(a, proj_lk=torch.round(a["proj_lk"] * 256) / 256)  # exact subset sums
+        exact = torch.equal(ops.multiprobe_keys(**dyadic),
+                            ops.multiprobe_keys(**dict(dyadic, force="plain")))
+        got, want = ops.multiprobe_keys(**a), ops.multiprobe_keys(**plain)
+        differ = got != want
+        sg, sw = _flip_scores(a["proj_lk"], got), _flip_scores(a["proj_lk"], want)
+        gap = float(((sg - sw).abs() / torch.maximum(sg, sw).clamp_min(1e-30))[differ].max()
+                    ) if bool(differ.any()) else 0.0
+        ok = exact and gap <= MP_SCORE_RTOL
+        what = (f"proj {tuple(a['proj_lk'].shape)}, {a['n_probes']} probes, {a['max_flips']} "
+                f"flips: keys {tuple(got.shape)} bit-equal on dyadic projections {exact}; on "
+                f"the raw ones {int(differ.sum())} differ, largest relative score gap "
+                f"{gap:.3g} (limit {MP_SCORE_RTOL})")
+    elif name == "dedupe_candidates":
+        (gi, gn), (wi, wn) = ops.dedupe_candidates(**a), ops.dedupe_candidates(**plain)
+        ok = torch.equal(gi, wi) and torch.equal(gn, wn)
+        what = f"cand {tuple(a['cand'].shape)}, n={a['n']}: ids and counts bit-equal {ok}"
+    else:  # wl1_scan, wl1_rerank
+        got, want = getattr(ops, name)(**a), getattr(ops, name)(**plain)
+        diff = (got - want).abs()
+        ok = (bool((diff <= WL1_ATOL + WL1_RTOL * want.abs()).all())
+              and bool(torch.isfinite(got).all()))
+        rows = a["data"] if name == "wl1_scan" else a["pts"]
+        what = (f"rows {tuple(rows.shape)}, b={a['queries'].shape[0]}: max_abs_err "
+                f"{float(diff.max()):.3g} (rtol/atol {WL1_RTOL})")
+    print(f"  {label}: {what}")
+    if not ok:
+        raise AssertionError(f"{label}: kernel disagrees with the plain version")
+
+
+def _kernels_against_plain(path, calls_by_label, sealed_f32=False):
+    """Every kernel call a path made, as ``_capture_kernel_calls`` caught
+    it (``calls_by_label``: label -> {entry: [arguments, ...]}), against
+    the plain version on the same inputs (``_against_plain``). With
+    ``sealed_f32`` a gather with a delta or scales fails the path (its index
+    is a sealed f32 one). Untimed; run after the path's launch counts are
+    read."""
     for label, calls in calls_by_label.items():
-        if calls["alsh_project"]:
-            a = calls["alsh_project"][-1]
-            levels, folded, weights, tiled = a["levels"], a["folded"], a["weights"], a["tiled"]
-            n, d = levels.shape
-            H, _, m1 = folded.shape
-            got = ops.alsh_project(levels, folded, weights, tiled=tiled)
-            want = ops.alsh_project(levels, folded, weights, force="plain")
-            err = float((got - want).abs().max())
-            if err > PROJ_ATOL:
-                raise AssertionError(f"alsh_project at {label}: kernel disagrees ({err})")
-            ms = time_ms(lambda: ops.alsh_project(levels, folded, weights, tiled=tiled),
-                         iters=20, warmup=2)
-            plain_ms = time_ms(lambda: ops.alsh_project(levels, folded, weights,
-                                                        force="plain"), iters=3)
-            # library yardstick, as phase_alsh_project: the one-hot f32 product
-            onehot = F.one_hot(levels.long(), m1).float()
-            if weights is not None:
-                onehot = onehot * weights[..., None]
-            lhs = onehot.reshape(n, d * m1)
-            rhs = folded.permute(1, 2, 0).reshape(d * m1, H).contiguous()
-            lib_ms = time_ms(lambda: torch.matmul(lhs, rhs), iters=20, warmup=2)
-            dev_us = device_us_per_call(f"alsh_project at {label}", lambda: ops.alsh_project(
-                levels, folded, weights, tiled=tiled))
-            wgt = weights is not None
-            b_ms, b_by = bound(4 * (n * d * (2 if wgt else 1) + H * d * m1 + n * H),
-                               n * H * d * (2 if wgt else 1))
-            n_l = launches["alsh_project"]
-            print(f"  [{path}] alsh_project at {label}: levels ({n}, {d}), H={H}: kernel "
-                  f"{ms:.4f} ms (device per call {_fmt_us(dev_us)}), plain {plain_ms:.4f} ms, "
-                  f"one-hot matmul {lib_ms:.4f} ms, bound {b_ms * 1e3:.2f} us by {b_by}; "
-                  f"max_abs_err {err:.3g}; {path}-path launches {n_l} x (kernel - bound) = "
-                  f"{n_l * (ms - b_ms):.1f} ms")
-            out["alsh_project"][label] = {"n": n, "H": H, "ms": ms, "device_us": dev_us,
-                                          "plain_ms": plain_ms, "library_ms": lib_ms,
-                                          "bound_ms": b_ms, "bound_by": b_by,
-                                          "max_abs_err": err}
-        if calls["gather_rerank_topk"]:
-            # the last call: a monolithic rung's only one, a streamed rung's
-            # last per-group merge (the heap plus one group's windows)
-            a = calls["gather_rerank_topk"][-1]
-            data, ids, q, w, k, delta = (a[x] for x in ("data", "ids", "queries", "weights",
-                                                         "k", "delta"))
-            if a["scales"] is not None or (delta is not None and not two_seg):
-                raise AssertionError(f"{label}: the {path}'s f32 sealed index gathered "
-                                     f"with a delta or scales")
-            name = "gather_rerank_topk" if delta is None else "gather_rerank_topk_two_seg"
-            table = data if delta is None else torch.cat([data, delta])
-
-            def gather(force=None):
-                return ops.gather_rerank_topk(data, ids, q, w, k, delta=delta, force=force)
-
-            got, want = gather(), gather(force="plain")
-            torch.cuda.synchronize()
-            err = _check_topk(f"[{path}] {name} at {label}", got, want, table, q, w)
-            ms = time_ms(gather, iters=20, warmup=2)
-            dev_us = device_us_per_call(f"{name} at {label}", gather)
-            plain_ms = time_ms(lambda: gather(force="plain"), iters=1)
-            b, P = ids.shape
-            n_tot = table.shape[0]
-            b_ms, b_by, *_ = gather_bound(ids, n_tot, data.shape[1], k, 4, scaled=False)
-            n_g = launches[name]
-            n_calls = len(calls["gather_rerank_topk"])
-            print(f"  [{path}] {name} at {label}: ids ({b}, {P}) (the last of "
-                  f"{n_calls} calls in the query), {int((ids < n_tot).sum()) / b:.1f} "
-                  f"valid per query: kernel {ms:.4f} ms (device per call {_fmt_us(dev_us)}), "
-                  f"plain {plain_ms:.4f} ms, library: none; bound "
-                  f"{b_ms * 1e3:.2f} us by {b_by}; {path}-path launches {n_g} x (kernel - "
-                  f"bound) = {n_g * (ms - b_ms):.1f} ms")
-            out[name][label] = {"b": b, "P": P, "calls_in_query": n_calls,
-                                                "ms": ms, "device_us": dev_us,
-                                                "plain_ms": plain_ms, "library_ms": None,
-                                                "bound_ms": b_ms, "bound_by": b_by,
-                                                "max_abs_err": err}
-    for name, shapes in out.items():
-        if shapes:
-            run.kernels.setdefault(name, {})[f"{path}_shapes"] = shapes
-    return {name: shapes for name, shapes in out.items() if shapes}
+        for name, args in calls.items():
+            for i, a in enumerate(args):
+                where = f"[{path}] {name} at {label}, call {i + 1} of {len(args)}"
+                if sealed_f32 and name == "gather_rerank_topk" and (
+                        a["scales"] is not None or a["delta"] is not None):
+                    raise AssertionError(f"{where}: the sealed f32 index gathered with a delta "
+                                         f"or scales")
+                _against_plain(where, name, a)
 
 
 def _broker_stats(label, responses, stats, n_requests, ladder):
@@ -2800,7 +1688,7 @@ def _broker_stats(label, responses, stats, n_requests, ladder):
             "mean_coverage": stats.mean_coverage}
 
 
-def phase_broker_path(run, svc, card):
+def phase_broker_path(svc, card):
     """The serving tier at the SERVICE width (n=262,144, d=128, k=10) on one
     card, launch counts zeroed before its build (``serve --mode broker``'s
     flow, with the rates derived as ``benchmarks/serving_bench.py`` derives
@@ -2830,9 +1718,9 @@ def phase_broker_path(run, svc, card):
        ``killed, recover_failed, recover_failed, recovered``, no row of the
        dead shard while it is down, answers after recovery bit-identical to
        those before;
-    5. after the path's counts are read: ``alsh_project`` and
-       ``gather_rerank_topk`` timed at rung 0's shapes (b=1, b=64, and the
-       planner's b=64 calibration batch), see ``_kernel_shapes``."""
+    5. after the path's counts are read: the kernels against their plain
+       versions on the inputs rung 0 gave them (b=1, b=64, and the
+       planner's b=64 calibration batch), see ``_kernels_against_plain``."""
     import os
     import tempfile
 
@@ -2861,7 +1749,7 @@ def phase_broker_path(run, svc, card):
         quality = tapi.QualitySpec(k=PLAN_K, recall_target=target)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        index = tapi.Index.build(SEED + 2, wl.data, quality, family="theta", M=32)
+        index = tapi.Index.build(SEED + 2, wl.rows, quality, family="theta", M=32)
         ladder = index.plan_ladder(quality)
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t0
@@ -2907,8 +1795,7 @@ def phase_broker_path(run, svc, card):
                           lambda: index.query(hq, hw, spec), top=4)
     for r in range(len(ladder)):
         print(f"  [broker] rung {r}: ms per batch "
-              + ", ".join(f"b={b} {grid[(r, b)]:.3f}" for b in BROKER_BUCKETS)
-              + f"; device busy at b={BROKER_MAX_BATCH} {_fmt_us(busy[r])}")
+              + ", ".join(f"b={b} {grid[(r, b)]:.3f}" for b in BROKER_BUCKETS))
     inversions = {b: [r for r in range(1, len(ladder)) if grid[(r, b)] > grid[(r - 1, b)]]
                   for b in BROKER_BUCKETS}
     print(f"  [broker] rungs served slower than the rung above them, by bucket: {inversions}; "
@@ -3019,7 +1906,7 @@ def phase_broker_path(run, svc, card):
             del broker, responses, ss
         finally:
             tapi.Index.save, tapi.Index.load = orig_save, classmethod(orig_load)
-    counts = _path_counts("broker", ("alsh_project", "gather_rerank_topk", "wl1_scan_topk"))
+    _path_counts("broker", ("alsh_project", "gather_rerank_topk", "wl1_scan_topk"))
     if _build.library_loads() != loads0:
         raise AssertionError("the broker path built or loaded a kernel library")
 
@@ -3032,9 +1919,8 @@ def phase_broker_path(run, svc, card):
     }
     calls[f"rung 0, calibration batch b={qs.shape[0]}"] = _capture_kernel_calls(
         lambda: index.query(qs, ws, ladder[0]))
-    rows["kernel_shapes"] = _kernel_shapes(run, "broker", calls, counts)
+    _kernels_against_plain("broker", calls, sealed_f32=True)
     print(f"  [broker] summary {json.dumps(rows, default=str)}")
-    return counts, rows
 
 
 def _at_least(label, launches, names, S):
@@ -3081,10 +1967,10 @@ def phase_sharded_path(svc, card):
     S = math.prod(SHARD_MESH)
     n_local, k, b = SERVICE.n_per_shard, SERVICE.topk, SERVICE.query_batch
     _build.reset_launch_counts()
-    wl = Workload(S * n_local, cfg.d, seed=SEED + 60)
+    wl = workload(S * n_local, cfg.d, seed=SEED + 60)
     # permute before the partition: otherwise every cluster sits in one shard
     gen = torch.Generator(device="cuda").manual_seed(SEED + 61)
-    wl.data = wl.data[torch.randperm(wl.data.shape[0], generator=gen, device="cuda")]
+    wl.rows = wl.rows[torch.randperm(wl.rows.shape[0], generator=gen, device="cuda")]
     q, w = wl.batch(b, SEED + 62)
     mesh = tdist.make_mesh(SHARD_MESH, SHARD_AXES, devices=[torch.device("cuda", 0)] * S)
     spec = tapi.QuerySpec(k=k)
@@ -3094,7 +1980,7 @@ def phase_sharded_path(svc, card):
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    single = tapi.Index.build(SEED + 2, wl.data, cfg)
+    single = tapi.Index.build(SEED + 2, wl.rows, cfg)
     torch.cuda.synchronize()
     out["single_build_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -3114,7 +2000,7 @@ def phase_sharded_path(svc, card):
     local = tdist.local_results(sharded.index_sharded, q, w, cfg, spec)
     summed = torch.stack([r.n_candidates for r in local]).sum(0, dtype=torch.int32)
     same_nc = torch.equal(res.n_candidates, summed)
-    alone = tapi.Index(state=build_index(None, wl.data[:n_local], cfg, tables=single.state.tables,
+    alone = tapi.Index(state=build_index(None, wl.rows[:n_local], cfg, tables=single.state.tables,
                                          mixers=single.state.mixers), config=cfg)
     own = alone.query(q, w, spec)
     g0 = tdist.globalize_ids(local[0].ids, 0, S, n_local)
@@ -3168,9 +2054,9 @@ def phase_sharded_path(svc, card):
 
     # 4. mutable: two stream ticks on one host, then shard; lockstep after
     update = tapi.UpdateSpec(delta_capacity=SHARD_CAP)
-    host = tapi.Index.build(SEED + 2, wl.data, cfg, update=update)
+    host = tapi.Index.build(SEED + 2, wl.rows, cfg, update=update)
     for t in range(1, SHARD_TICKS + 1):
-        centres, rows = stream_rows(SEED + 5000 + t, STREAM_INGEST // CLUSTER, cfg.d)
+        centres, rows = stream_rows(SEED + 5000 + t, cfg.d)
         host = host.insert(rows)[0].delete(torch.arange((t - 1) * STREAM_RETIRE,
                                                         t * STREAM_RETIRE, device="cuda"))
     torch.cuda.synchronize()
@@ -3190,7 +2076,7 @@ def phase_sharded_path(svc, card):
     _at_least("mutable exact", launches, ("gather_rerank_topk_two_seg",), S)
     out["mutable_exact_bit_equal"] = _exact_pair(f"mutable exact, b={SHARD_CHECK}", mex,
                                                  host.query(qc, wc, exact))
-    rows = stream_rows(SEED + 5100, STREAM_INGEST // CLUSTER, cfg.d)[1]
+    rows = stream_rows(SEED + 5100, cfg.d)[1]
     host, ids_h = host.insert(rows)
     msh, ids_s = msh.insert(rows)
     same_ids = torch.equal(ids_h, ids_s) and bool((ids_s >= 0).all())
@@ -3234,14 +2120,13 @@ def phase_sharded_path(svc, card):
           f"{bad or 'none'}")
     if bad or cs.n != ch.n:
         raise AssertionError(f"the sharded compact differs from the single-host one: {bad}")
-    counts = _path_counts("sharded", ("alsh_project", "gather_rerank_topk",
-                                      "gather_rerank_topk_two_seg", "wl1_scan_topk"))
+    _path_counts("sharded", ("alsh_project", "gather_rerank_topk", "gather_rerank_topk_two_seg",
+                             "wl1_scan_topk"))
     print(f"  [sharded] numbers: {json.dumps(out)}")
-    return counts, out
 
 
 # The static-contract phase: the kernels the audit lattice launches on the card
-# (wl1_scan and wl1_rerank lie only on the unfused path)
+# (no query path calls wl1_scan or wl1_rerank)
 LATTICE_KERNELS = ("alsh_project", "gather_rerank_topk", "gather_rerank_topk_two_seg",
                    "gather_rerank_topk_blocked", "gather_rerank_topk_blocked_two_seg",
                    "wl1_scan_topk", "multiprobe_keys", "dedupe_candidates")
@@ -3399,7 +2284,7 @@ def phase_static_contracts(svc, card):
     t0 = time.perf_counter()
     report = audit.run_audit(golden=golden, live_probe=False, device="cuda")
     audit_s = time.perf_counter() - t0
-    counts = _path_counts("static_contracts", LATTICE_KERNELS)
+    _path_counts("static_contracts", LATTICE_KERNELS)
     ck, mem = report["compile_keys"], report["memory"]
     print(f"  audit (cuda): {ck['raw_points']} raw lattice points -> {ck['count']} compile keys "
           f"(budget {ck['budget']}); worst path {mem['worst_path']} at "
@@ -3455,11 +2340,11 @@ def phase_static_contracts(svc, card):
     # six SERVICE batches: peak bytes and host syncs
     k, b, cfg = SERVICE.topk, SERVICE.query_batch, svc.index.config
     q, w = svc.wl.batch(b, SEED + 100)  # the f32 path's first batch
-    int8 = tapi.Index.build(SEED + 2, svc.wl.data, dataclasses.replace(cfg, storage="int8"))
-    stream = tapi.Index.build(SEED + 2, svc.wl.data, cfg, update=tapi.UpdateSpec(
+    int8 = tapi.Index.build(SEED + 2, svc.wl.rows, dataclasses.replace(cfg, storage="int8"))
+    stream = tapi.Index.build(SEED + 2, svc.wl.rows, cfg, update=tapi.UpdateSpec(
         delta_capacity=STREAM_CAP, compact_threshold=STREAM_THRESHOLD))
     for t in range(1, 13):  # the stream path's ticks 1-12, before its compact
-        centres, rows = stream_rows(SEED + 1000 + t, STREAM_INGEST // CLUSTER, cfg.d)
+        centres, rows = stream_rows(SEED + 1000 + t, cfg.d)
         stream, _ = stream.insert(rows)
         stream = stream.delete(torch.arange((t - 1) * STREAM_RETIRE, t * STREAM_RETIRE,
                                             dtype=torch.int32, device="cuda"))
@@ -3476,15 +2361,10 @@ def phase_static_contracts(svc, card):
     }
     print(f"  SERVICE batches (b={b}, n={svc.index.n}, d={cfg.d}; stream fill "
           f"{stream.delta_fill}), {card}:")
-    out = {"audit_s": audit_s, "checked_against_cpu": n_cmp, "max_abs_err": worst,
-           "paths": {row["name"]: {
-        "tracker_peak_bytes": row["peak_live_bytes"],
-        "allocator_peak_bytes": row.get("allocator_peak_bytes")} for row in report["paths"]}}
-    out["service"] = {label: _batch_contracts(label, lambda a=args: a[0].query(*a[1:]))
-                      for label, args in batches.items()}
-    out["phase_s"] = time.perf_counter() - t_phase
-    print(f"  static_contracts phase: {out['phase_s']:.1f} s (the audit {audit_s:.1f} s), {card}")
-    return counts, out
+    for label, args in batches.items():
+        _batch_contracts(label, lambda a=args: a[0].query(*a[1:]))
+    print(f"  static_contracts phase: {time.perf_counter() - t_phase:.1f} s (the audit "
+          f"{audit_s:.1f} s), {card}")
 
 
 # The lm path: LM serving with ALSH retrieval at the full width of gemma3-1b
@@ -3643,10 +2523,10 @@ def _host_split(label, fn):
     return out
 
 
-def _lm_scan_shape(run, calls, launches):
-    """``wl1_scan_topk`` at the inputs the lm path's exact lookup gave it:
-    against its plain version and bit for bit against ``wl1_scan`` and a
-    stable sort, timed beside the plain version, with its bound."""
+def _lm_scan_shape(calls):
+    """``wl1_scan_topk`` at the inputs the lm path's exact lookup gave it,
+    bit for bit against ``wl1_scan`` and a stable sort; then both kernels
+    against their plain versions on those inputs."""
     import torch
 
     from repro_torch.kernels import ops
@@ -3655,27 +2535,18 @@ def _lm_scan_shape(run, calls, launches):
         raise AssertionError(f"the exact lookup made {len(calls)} scans, not 1")
     data, q, w, k = (calls[0][x] for x in ("data", "queries", "weights", "k"))
     (n, d), b = data.shape, q.shape[0]
-    label = f"[lm] wl1_scan_topk at the exact lookup n={n} b={b} d={d} k={k}"
+    label = f"the exact lookup n={n} b={b} d={d} k={k}"
     got = ops.wl1_scan_topk(data, q, w, k)
-    want = ops.wl1_scan_topk(data, q, w, k, force="plain")
-    torch.cuda.synchronize()
-    err = _check_topk(label, got, want, data, q, w)
-    sd, si = sorted_scan_topk(data, q, w, k)
+    ref = []
+    scans = _capture_kernel_calls(lambda: ref.append(sorted_scan_topk(data, q, w, k)),
+                                  names=("wl1_scan",))
+    sd, si = ref[0]
     if not (torch.equal(got[0], sd) and torch.equal(got[1], si)):
-        raise AssertionError(f"{label}: differs from wl1_scan + stable sort")
-    ms = time_ms(lambda: ops.wl1_scan_topk(data, q, w, k), iters=10, warmup=2)
-    plain_ms = time_ms(lambda: ops.wl1_scan_topk(data, q, w, k, force="plain"), iters=1)
-    dev_us = device_us_per_call(label, lambda: ops.wl1_scan_topk(data, q, w, k))
-    nbytes = 4 * (n * d + 2 * b * d) + 8 * b * k
-    b_ms, b_by = bound(nbytes, 3 * b * n * d)
-    print(f"  {label}: bit-equal to wl1_scan + stable sort; kernel {ms:.4f} ms (device per "
-          f"call {_fmt_us(dev_us)}), plain {plain_ms:.4f} ms, library: none; bound "
-          f"{b_ms * 1e3:.2f} us by {b_by}; lm-path launches {launches}")
-    numbers = {"n": n, "b": b, "d": d, "k": k, "ms": ms, "device_us": dev_us,
-               "plain_ms": plain_ms, "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
-               "max_abs_err": err}
-    run.kernels.setdefault("wl1_scan_topk", {})["lm_shape"] = numbers
-    return numbers
+        raise AssertionError(f"[lm] wl1_scan_topk at {label}: differs from wl1_scan + stable "
+                             f"sort")
+    print(f"  [lm] wl1_scan_topk at {label}: bit-equal to wl1_scan + stable sort")
+    del got, ref, sd, si
+    _kernels_against_plain("lm", {label: {"wl1_scan_topk": calls, **scans}})
 
 
 def _lm_recall_by_keys(state, rcfg, q_dec):
@@ -3719,7 +2590,7 @@ def _lm_recall_by_keys(state, rcfg, q_dec):
     return out
 
 
-def phase_lm_path(run, card):
+def phase_lm_path(card):
     """LM serving with ALSH retrieval (``serve --mode lm``'s flow) at the full
     width of gemma3-1b (26 layers, d_model 1152, 4 heads over 1 kv head x
     256, d_ff 6912, vocab 262,144; f32 parameters drawn on the card from a
@@ -3743,14 +2614,14 @@ def phase_lm_path(run, card):
        growing loop's 64 reduced keys on the sealed datastore against its
        exact mode (``wl1_scan_topk``);
     3. after the counts are read: that exact lookup against the CPU plain
-       path, and its scan at the captured shape against the plain version
+       path, and its scan at the captured shape against ``wl1_scan`` and a
+       stable sort and both against their plain versions
        (``_lm_scan_shape``); recall on uniform and near-duplicate keys
        beside the decode steps' (``_lm_recall_by_keys``); the lookups of
        the last steps on both datastores against the CPU plain path over
        copies of them (ids equal, dists 1e-5, kNN log-probs 1e-5), and the
        kernels at the path's captured shapes against their plain versions
-       with their times and bounds (``_kernel_shapes``); the casts of one
-       decode step replayed alone;
+       (``_kernels_against_plain``);
     4. the reduced gemma3-1b in f32 on the card and the CPU with the same
        parameters: prefill and 4 decode steps, logits within 1e-4, tokens
        equal;
@@ -3928,13 +2799,13 @@ def phase_lm_path(run, card):
           f"{q_all.shape[0]} decode-step keys: {out['recall_at_8']:.3f} "
           f"({out['cand_per_query']:.1f} candidates a query)")
     out["peak_allocated_bytes"] = torch.cuda.max_memory_allocated()
-    counts = _path_counts("lm", ("alsh_project", "dedupe_candidates", "gather_rerank_topk",
-                                 "gather_rerank_topk_two_seg", "wl1_scan_topk"))
+    _path_counts("lm", ("alsh_project", "dedupe_candidates", "gather_rerank_topk",
+                        "gather_rerank_topk_two_seg", "wl1_scan_topk"))
     print(f"  [lm] allocator peak over the path {out['peak_allocated_bytes']} B "
           f"({out['peak_allocated_bytes'] / 2**30:.2f} GiB)")
 
     # the exact lookup against the CPU plain path, and its scan at the path's
-    # shape against the plain version; then recall on other keys
+    # shape against a stable sort and the plain versions; then recall on other keys
     cpu = _datastore_on_cpu(sealed)
     want_exact = cpu.index.query(q_all.cpu(), w_all.cpu(), exact_spec)
     out["exact_against_cpu"] = _against_cpu("[lm] exact lookup, all steps: card vs the CPU "
@@ -3944,7 +2815,7 @@ def phase_lm_path(run, card):
           f"path, dists max_abs_err {out['exact_against_cpu']:.3g}, ids equal "
           f"{bool(torch.equal(exact.ids.cpu(), want_exact.ids))}")
     del cpu, want_exact
-    out["scan"] = _lm_scan_shape(run, scan_calls, counts["wl1_scan_topk"])
+    _lm_scan_shape(scan_calls)
     out["recall_by_keys"] = _lm_recall_by_keys(sealed, rcfg, q_all)
 
     # 3. the lookups and the kernels against their plain versions
@@ -3962,34 +2833,11 @@ def phase_lm_path(run, card):
     calls = {
         f"datastore build n={sealed.index.n}, unweighted": build_calls,
         f"decode step b={B}, sealed": sealed_calls,
-        f"decode step b={B}, growing (fill {state.index.delta_fill})": {
-            "alsh_project": grow_calls["alsh_project"][:1],
-            "gather_rerank_topk": grow_calls["gather_rerank_topk"]},
-        f"insert b={B}, unweighted": {"alsh_project": grow_calls["alsh_project"][1:],
-                                      "gather_rerank_topk": []},
+        f"decode step b={B}, growing (fill {state.index.delta_fill})": dict(
+            grow_calls, alsh_project=grow_calls["alsh_project"][:1]),
+        f"insert b={B}, unweighted": {"alsh_project": grow_calls["alsh_project"][1:]},
     }
-    out["kernel_shapes"] = _kernel_shapes(run, "lm", calls, counts, two_seg=True)
-
-    # the casts one decode step makes (f32 weights to bf16 per call, the
-    # table cast for the lookup and for the tied unembedding, and its upcast)
-    cdt = getattr(torch, cfg.compute_dtype)
-    table = params["embed"]["table"]
-    weights = [t for t in leaves if t.ndim >= 2 and t is not table]
-
-    def casts():
-        for t in weights:
-            t.to(cdt)
-        table.to(cdt)
-        table.to(cdt).float()
-
-    cast_ms = time_ms(casts, iters=5, warmup=1)
-    w_elems = sum(t.numel() for t in weights)
-    cast_bytes = 6 * w_elems + 6 * table.numel() + 12 * table.numel()
-    out["casts"] = {"ms": cast_ms, "bytes": cast_bytes,
-                    "bound_ms": cast_bytes / HBM_BYTES_PER_S * 1e3}
-    print(f"  [lm] the casts of one decode step alone: {cast_ms:.3f} ms for {cast_bytes} B "
-          f"(bound {out['casts']['bound_ms']:.3f} ms at 3.35 TB/s); the products then read the "
-          f"cast weights and the upcast table ({2 * w_elems + 4 * table.numel()} B)")
+    _kernels_against_plain("lm", calls)
 
     # 4. the reduced model, card against the CPU
     red = reduced_model(cfg)
@@ -4033,7 +2881,6 @@ def phase_lm_path(run, card):
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"  [lm] phase {out['phase_s']:.1f} s, {card}")
     print(f"  [lm] numbers: {json.dumps(out, default=str)}")
-    return counts, out
 
 
 TRAIN_ARCH = "gemma3-1b"  # the lm path's config, uncut
@@ -4153,15 +3000,6 @@ def _train_full_width(cfg, tcfg, S, out):
     out["profile"] = prof
     out["aten_ops_per_step"] = _count_aten_ops(lambda: step_fn(state, batch))
     print(f"  [train] one step dispatches {out['aten_ops_per_step']} ATen ops")
-
-    _, grads = ts._value_and_grad(state.params, batch, cfg)
-    adam_ms = time_ms(lambda: optim.adamw_update(state.params, grads, state.opt, tcfg), iters=3)
-    adam_bytes = 28 * n_params  # read p, g, m, v; write p, m, v (f32)
-    out["adamw"] = {"ms": adam_ms, "bytes": adam_bytes,
-                    "bound_ms": adam_bytes / HBM_BYTES_PER_S * 1e3}
-    print(f"  [train] adamw_update alone over {n_params} parameters: {adam_ms:.2f} ms (bound "
-          f"{out['adamw']['bound_ms']:.2f} ms: {adam_bytes} B at 3.35 TB/s)")
-    del grads
 
     ctcfg = dataclasses.replace(tcfg, microbatch=2, grad_compression="int8_ef")
     cstate = ts.TrainState(params=state.params, opt=optim.init_opt_state(state.params, ctcfg))
@@ -4397,7 +3235,7 @@ def _train_pipeline():
     return {"fwd_err": fwd_err, "grad_err": grad_err}
 
 
-def phase_train_path(run, card):
+def phase_train_path(card):
     """Training (``launch/train``'s flow) at the full width of gemma3-1b (26
     layers, d_model 1152, vocab 262,144, f32 parameters drawn on the card,
     bf16 compute, ``remat=True``) under ``TrainConfig()``, at train_4k's
@@ -4406,8 +3244,8 @@ def phase_train_path(run, card):
     a. one warm-up step and TRAIN_TIMED_STEPS timed ones (ms per step, the
        median on the host clock to the sync on the loss; tokens/s), one
        step profiled (device busy, idle share, the top device ops) and its
-       ATen ops counted, the allocator peak, ``adamw_update`` alone, loss
-       and grad norm finite (the loss beside ln V); then
+       ATen ops counted, the allocator peak, loss and grad norm finite (the
+       loss beside ln V); then
        TRAIN_COMPRESSED_STEPS steps with ``microbatch=2, int8_ef``;
     b. the reduced config on the card against the CPU (``_train_card_vs_cpu``);
     c. the deterministic restart drill in its own process (``restart_drill``);
@@ -4437,7 +3275,6 @@ def phase_train_path(run, card):
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"  [train] phase {out['phase_s']:.1f} s, {card}")
     print(f"  [train] numbers: {json.dumps(out, default=str)}")
-    return counts, out
 
 
 FAM_SCOUT_UNITS = 2  # of llama4-scout's 12 units (8 of its 48 layers): ~19.7 B bf16 parameters
@@ -4786,7 +3623,7 @@ def _family_card_vs_cpu(arch):
     return out
 
 
-def phase_families_path(run, card):
+def phase_families_path(card):
     """The other six model families (ROADMAP.md Queue A item 14c), one at a
     time, each freed before the next, with the launch counts zeroed first:
 
@@ -4812,7 +3649,7 @@ def phase_families_path(run, card):
        parameters, does not fit the card beside its embeddings);
     3. after the counts are read: the retrieval decode steps' kernels at
        their captured shapes against their plain versions
-       (``_kernel_shapes``)."""
+       (``_kernels_against_plain``)."""
     from repro_torch.kernels import _build
 
     t_phase = time.perf_counter()
@@ -4826,14 +3663,13 @@ def phase_families_path(run, card):
         out[arch]["seconds"] = time.perf_counter() - t0
         print(f"  [families] {arch}: {out[arch]['seconds']:.1f} s")
     out["card_vs_cpu"] = {arch: _family_card_vs_cpu(arch) for arch in FAM_REDUCED}
-    counts = _path_counts("families", ("alsh_project", "gather_rerank_topk"))
-    out["kernel_shapes"] = _kernel_shapes(run, "families", calls, counts)
+    _path_counts("families", ("alsh_project", "gather_rerank_topk"))
+    _kernels_against_plain("families", calls, sealed_f32=True)
     del calls
     _free_card()
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"  [families] phase {out['phase_s']:.1f} s, {card}")
     print(f"  [families] numbers: {json.dumps(out, default=str)}")
-    return counts, out
 
 
 MESH_LLAMA4 = ("llama4-scout-17b-16e", "llama4-maverick-400b-a17b")  # train_4k on pod2, --optimized
@@ -4969,6 +3805,11 @@ def _mesh_one_card(out):
                 raise AssertionError(f"{arch} x {name}: {got} B allocated ({requested} "
                                      f"requested), {cell.argument_size_in_bytes} predicted")
             step = make_decode_step(cfg)
+            # the warm-up step from an emptied cache, so the timed steps reuse
+            # the blocks it made (with blocks cached from the set-up in play,
+            # the second mamba2-2.7b decode_32k step found no room for its 20
+            # GiB stacked cache)
+            _free_card()
             torch.cuda.reset_peak_memory_stats()
             with torch.no_grad():
                 logits, tok, new = step(params, batch, caches)
@@ -5067,7 +3908,7 @@ def _mesh_moe(out):
         raise AssertionError(f"a2a_shardmap: card vs CPU {err}, {dropped} dropped")
 
 
-def phase_mesh_path(run, card):
+def phase_mesh_path(card):
     """The mesh and dry-run tooling (ROADMAP.md Queue A item 14d):
 
     a. the dry run (``_mesh_dryrun``): every runnable (arch x shape) of the
@@ -5102,7 +3943,6 @@ def phase_mesh_path(run, card):
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"  [mesh] phase {out['phase_s']:.1f} s, {card}")
     print(f"  [mesh] numbers: {json.dumps(out, default=str)}")
-    return counts, out
 
 
 def phase_small_check():
@@ -5116,9 +3956,9 @@ def phase_small_check():
 
     cfg = tapi.IndexConfig(d=128, M=32, K=12, L=32, max_candidates=128,
                            space=tapi.BoundedSpace(0.0, 1.0, 32.0))
-    wl = Workload(8192, 128, seed=SEED + 7)
+    wl = workload(8192, 128, seed=SEED + 7)
     q, w = (t.cpu() for t in wl.batch(64, SEED + 8))
-    data = wl.data.cpu()
+    data = wl.rows.cpu()
     int8 = dataclasses.replace(cfg, storage="int8")
     for label, config, spec in (
         ("exact", cfg, tapi.QuerySpec(k=10, mode="exact")),
@@ -5160,9 +4000,6 @@ def main() -> int:
     if sys.argv[1:] == ["--digests"]:
         print(json.dumps(projection_digests()))
         return 0
-    if sys.argv[1:] == ["--wl1-times"]:
-        print(json.dumps(wl1_times()))
-        return 0
     if sys.argv[1:] == ["--restart-drill"]:
         torch.use_deterministic_algorithms(True)
         print(json.dumps(restart_drill()))
@@ -5174,73 +4011,40 @@ def main() -> int:
     if run.failures:
         print(f"chip_smoke: FAILED phases: {run.failures}")
         return 1
-    svc = run.phase("service set-up (SERVICE workload, f32 theta index, candidates)",
-                    Service)
+    svc = run.phase("service set-up (SERVICE workload, f32 theta index)", Service)
     if svc is None:
         print(f"chip_smoke: FAILED phases: {run.failures}")
         return 1
-    run.phase("kernel alsh_project", phase_alsh_project, run, svc)
-    run.phase("kernel gather_rerank_topk", phase_gather_rerank, run, svc)
-    run.phase("kernel gather_rerank_topk_blocked", phase_gather_rerank_blocked, run, svc)
-    run.phase("kernel wl1_scan_topk", phase_scan, run, svc)
-    run.phase("kernel wl1_scan", phase_wl1_scan, run)
-    run.phase("kernel wl1_rerank", phase_wl1_rerank, run)
-    run.phase("kernel multiprobe_keys", phase_multiprobe_keys, run, svc)
-    run.phase("kernel dedupe_candidates", phase_dedupe_candidates, run)
-    seg = run.phase("two-segment set-up (a full delta, a stream batch's candidates)",
-                    TwoSegment, svc)
-    if seg is not None:
-        run.phase("kernel gather_rerank_topk_two_seg", phase_gather_rerank_two_seg, run, svc, seg)
-        run.phase("kernel gather_rerank_topk_blocked_two_seg",
-                  phase_gather_rerank_blocked_two_seg, run, svc, seg)
-        del seg
-    paths = [
-        run.phase("main path (SERVICE, theta + l2)", phase_main_path, svc),
-        run.phase("main path (SERVICE, int8 and bf16 storage, screen alpha 2 and 0)",
-                  phase_quant_path, svc),
-        run.phase("main path (SERVICE, theta multiprobe)", phase_multiprobe_path, svc),
-        run.phase("main path (SERVICE, stream: insert, delete, two-segment query, compact)",
-                  phase_stream_path, svc),
-        run.phase("main path (unfused baseline: wl1_scan / wl1_rerank beside the fused kernels)",
-                  phase_unfused_path),
-        run.phase("main path (SERVICE, early exit: streamed query, explain, serve --stats)",
-                  phase_early_exit_path, svc),
-        run.phase("main path (SERVICE, persistence: save, load, query)", phase_persist_path, svc,
-                  dev["card"]),
-        run.phase("main path (SERVICE, quality-first planning and the offline tuner)",
-                  phase_plan_path, run, svc, dev["card"]),
-        run.phase("main path (SERVICE, the serving broker: ladder, traces, shard chaos)",
-                  phase_broker_path, run, svc, dev["card"]),
-        run.phase("main path (SERVICE x8 shards, sharded)", phase_sharded_path, svc, dev["card"]),
-        run.phase("main path (static_contracts: lint, the audit lattice, seeded regressions, "
-                  "SERVICE peak bytes and syncs)", phase_static_contracts, svc, dev["card"]),
-        run.phase("main path (lm: full-width gemma3-1b, prefill and decode, plain, with ALSH "
-                  "retrieval and a growing datastore)", phase_lm_path, run, dev["card"]),
-        run.phase("main path (train: full-width gemma3-1b at S=4096, card vs CPU, restart "
-                  "drill, pipeline)", phase_train_path, run, dev["card"]),
-        run.phase("main path (families: hubert-xlarge, qwen2-vl-2b, mamba2-2.7b, zamba2-7b, "
-                  "llama4-scout cut to 2 units at full width; all six reduced, card vs CPU)",
-                  phase_families_path, run, dev["card"]),
-        run.phase("main path (mesh: the dry run of every cell, decode cells on one card, the "
-                  "MoE mesh impls on a (2, 4) mesh of the card)", phase_mesh_path, run,
-                  dev["card"]),
-    ]
+    card = dev["card"]
+    run.phase("path (SERVICE, theta + l2)", phase_main_path, svc)
+    run.phase("path (SERVICE, int8 and bf16 storage, screen alpha 2 and 0)", phase_quant_path,
+              svc)
+    run.phase("path (SERVICE, theta multiprobe)", phase_multiprobe_path, svc)
+    run.phase("path (SERVICE, stream: insert, delete, two-segment query, compact)",
+              phase_stream_path, svc)
+    run.phase("path (SERVICE, early exit: streamed query, explain, serve --stats)",
+              phase_early_exit_path, svc)
+    run.phase("path (SERVICE, persistence: save, load, query)", phase_persist_path, svc, card)
+    run.phase("path (SERVICE, quality-first planning and the offline tuner)", phase_plan_path,
+              svc, card)
+    run.phase("path (SERVICE, the serving broker: ladder, traces, shard chaos)",
+              phase_broker_path, svc, card)
+    run.phase("path (SERVICE x8 shards, sharded)", phase_sharded_path, svc, card)
+    run.phase("path (static_contracts: lint, the audit lattice, seeded regressions, SERVICE "
+              "peak bytes and syncs)", phase_static_contracts, svc, card)
+    run.phase("path (lm: full-width gemma3-1b, prefill and decode, plain, with ALSH retrieval "
+              "and a growing datastore)", phase_lm_path, card)
+    run.phase("path (train: full-width gemma3-1b at S=4096, card vs CPU, restart drill, "
+              "pipeline)", phase_train_path, card)
+    run.phase("path (families: hubert-xlarge, qwen2-vl-2b, mamba2-2.7b, zamba2-7b, llama4-scout "
+              "cut to 2 units at full width; all six reduced, card vs CPU)",
+              phase_families_path, card)
+    run.phase("path (mesh: the dry run of every cell, decode cells on one card, the MoE mesh "
+              "impls on a (2, 4) mesh of the card)", phase_mesh_path, card)
     run.phase("check against the CPU path", phase_small_check)
-    if run.failures or any(p is None for p in paths):
+    if run.failures:
         print(f"chip_smoke: FAILED phases: {run.failures}")
         return 1
-    # launches: each path's own counts (zeroed just before it), summed
-    counts = {name: sum(p[0][name] for p in paths) for name in paths[0][0]}
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
-            "bound_ms", "bound_by", "library_ms")
-    rows = []
-    for name, entry in run.kernels.items():
-        entry["launches"] = counts[name]
-        entry["launches_by_path"] = dict(zip(PATHS, (p[0][name] for p in paths)))
-        rows.append({k: entry[k] for k in keys} | {
-            k: v for k, v in entry.items() if k not in keys
-        })
-    print(json.dumps({"kernels": rows, "card": dev["card"]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": dev["kind"],
                                              "count": dev["count"]}}))
     return 0

@@ -14,7 +14,7 @@ each query as soon as its running top-k is final:
     every query (one batched window probe: the group's tables are the same
     for every query), maps the block of already-stopped queries to the
     sentinel, re-dedupes the heap ids into the block and re-ranks the
-    ``(b, k + G·C)`` candidates with ``ops.gather_rerank_topk_group`` — the
+    ``(b, k + G·C)`` candidates with ``ops.gather_rerank_topk`` — the
     fused gather kernels, f32 or quantized, one or two segments.
   * **The stop predicate** runs per query after each group: geometric —
     with non-negative weights every distance is >= 0, so a full heap at
@@ -160,8 +160,8 @@ def stream_topk(
         live_slots = delta_live_mask(delta, tombstones, n_main)
         dcand = _delta_candidates(keys, delta, live_slots, n_main, n_tot)
         cand0, _ = _dedupe_candidates(dcand, n_tot)
-        heap_d, heap_i = ops.gather_rerank_topk_group(main_data, cand0, queries, weights, k,
-                                                      scales=scales, delta=delta_data)
+        heap_d, heap_i = ops.gather_rerank_topk(main_data, cand0, queries, weights, k,
+                                                scales=scales, delta=delta_data)
         n_cand = n_cand + mark_new(cand0)
     else:
         heap_d = torch.full((b, k), float("inf"), dtype=torch.float32, device=dev)
@@ -177,8 +177,8 @@ def stream_topk(
     sentinel = torch.full((), n_tot, dtype=torch.int32, device=dev)
 
     for g in range(n_groups):
-        # repro: allow[RPR001] host-driven group loop, one sync per group (ROADMAP Queue B)
-        if g and not bool(live.any()):  # repro: allow[RPR002] host-driven group loop, ROADMAP Queue B
+        # repro: allow[RPR001] host-driven group loop, one sync per group (ROADMAP Queue D item 8)
+        if g and not bool(live.any()):  # repro: allow[RPR002] host group loop, ROADMAP Queue D item 8
             break
         lo = g * G
         tbl_g = tbl[lo : lo + G]
@@ -191,8 +191,8 @@ def stream_topk(
         block = torch.where(live[:, None], block, sentinel)
         heap_ids = torch.where(heap_i >= 0, heap_i, sentinel)
         cand, _ = _dedupe_candidates(torch.cat([heap_ids, block], dim=1), n_tot)
-        nd, ni = ops.gather_rerank_topk_group(main_data, cand, queries, weights, k,
-                                              scales=scales, delta=delta_data)
+        nd, ni = ops.gather_rerank_topk(main_data, cand, queries, weights, k,
+                                        scales=scales, delta=delta_data)
         heap_d = torch.where(live[:, None], nd, heap_d)
         heap_i = torch.where(live[:, None], ni, heap_i)
         n_cand = n_cand + mark_new(cand)

@@ -177,9 +177,9 @@ GATHER_RERANK_BLOCKED_TWO_SEG = Kernel(
     {"gather_rerank_blocked2_launch": [_P, _P, _I] + [_P] * 8 + [_I] * 7 + [_P]},
 )
 # The one-warp-per-query schedule of the stored-type source on its own: the
-# bit reference of the split schedule for the tests and chip_smoke.py. No
-# query path reaches it, so it is not in KERNELS (no launch count of a path,
-# no row of the kernel table); its source builds with the others.
+# bit reference of the split schedule for the tests. No query path reaches
+# it, so it is not in KERNELS (no launch count of a path, no row of the
+# kernel table); its source builds with the others.
 GATHER_RERANK_WARP = Kernel(
     "gather_rerank_topk_warp",
     "gather_rerank_blocked.cu",

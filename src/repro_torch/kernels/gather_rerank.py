@@ -17,7 +17,7 @@ and one warp per query, ``WARPS`` queries per block.
     bit what the f32 kernel returns over the decoded table;
   * ``gather_rerank_topk_warp_cuda`` (same source): the one-warp schedule
     alone for every stored type, the bit reference of the split schedule
-    for the tests and ``chip_smoke.py``. No query path reaches it.
+    for the tests. No query path reaches it.
 
 With ``delta=`` (a mutable index's delta segment) each launches its
 two-segment entry, whose ids address the virtual ``[data; delta]`` table;

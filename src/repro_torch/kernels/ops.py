@@ -7,8 +7,9 @@ Counterpart of ``repro.kernels.ops``. Policy:
     build or the launch fails;
   * a CPU tensor takes the plain PyTorch version (``kernels/ref.py``);
   * ``force="plain"`` runs the plain version on any device. It exists for
-    the tests and for ``chip_smoke.py``, which hold each kernel against its
-    plain version on the card; the engine never passes it.
+    the tests, which hold each kernel against its plain version on the card,
+    and for ``chip_smoke.py``, which does so on the inputs its paths capture;
+    the engine never passes it.
 
 The CUDA wrappers import nothing CUDA-specific until they run, so this
 module imports on machines without a GPU or ``nvcc``.
@@ -161,23 +162,3 @@ def gather_rerank_topk(
                                                 scales=scales)
     return ref.gather_rerank_topk(data, ids, queries, weights, k, scales=scales)
 
-
-def gather_rerank_topk_group(
-    data: torch.Tensor,
-    ids: torch.Tensor,
-    queries: torch.Tensor,
-    weights: torch.Tensor,
-    k: int,
-    scales: torch.Tensor | None = None,
-    delta: torch.Tensor | None = None,
-    force: str | None = None,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Fused tail entry for GROUP-sized candidate blocks: the per-group merge
-    of the streamed early-exit loop (``repro_torch.engine.stream``), once per
-    group over the (b, k + G·C) heap-plus-group candidates. Same contract and
-    the same routing as :func:`gather_rerank_topk` — on the card the f32 or
-    the quantized kernel, single- or two-segment; on the CPU the plain
-    versions. The reference moves its CPU monolith/chunked crossover for
-    these small blocks; the plain versions here have one schedule."""
-    return gather_rerank_topk(data, ids, queries, weights, k, scales=scales, delta=delta,
-                              force=force)

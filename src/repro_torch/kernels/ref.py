@@ -2,8 +2,8 @@
 
 Counterpart of ``repro.kernels.ref`` (and of the chunked jnp schedules). The
 CPU path of :mod:`repro_torch.kernels.ops` runs these, the tests hold them
-against the JAX package, and ``chip_smoke.py`` holds each CUDA kernel
-against them on the card.
+against the JAX package, and the CUDA tests hold each CUDA kernel against
+them on the card.
 
 Every function here CHUNKS its work: the reference oracles materialize
 (n, H, d) or (b, n, d) intermediates, which at the service width are tens of

@@ -648,24 +648,6 @@ def test_wl1_rerank_equals_gather_rerank_topk_bits(dev, b, C, d, align):
     assert torch.equal(torch.gather(got, 1, torch.gather(slot_of, 1, want_i.long())), want_d)
 
 
-@pytest.mark.parametrize("case", ["f32", "int8-scaled", "f32-two-seg"])
-def test_group_entry_equals_gather_rerank_topk(dev, case):
-    rs = np.random.default_rng(3)
-    n, b, P, d, k = 3000, 37, 700, 128, 10
-    data = _t(rs.normal(size=(n, d)).astype(np.float32), dev)
-    q = _t(rs.normal(size=(b, d)).astype(np.float32), dev)
-    w = _t(np.abs(rs.normal(size=(b, d))).astype(np.float32), dev)
-    ids = _t(rs.integers(0, n + 200, (b, P)).astype(np.int32), dev)
-    kw = {}
-    if case == "int8-scaled":
-        data, kw["scales"] = _quantized(data, "int8-scaled", dev)
-    if case == "f32-two-seg":
-        kw["delta"] = data[:300].contiguous()
-    got = ops.gather_rerank_topk_group(data, ids, q, w, k, **kw)
-    want = ops.gather_rerank_topk(data, ids, q, w, k, **kw)
-    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-
-
 @pytest.mark.parametrize("view", ["sealed", "mutable", "int8"])
 def test_streamed_query_on_the_card_matches_the_cpu_path(dev, view):
     """The streamed early-exit query on the card: at slack 0 it equals the

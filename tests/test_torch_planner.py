@@ -260,7 +260,7 @@ def test_plan_config_degenerate_raises_in_both():
 
 
 def _clustered(n=2048, d=128, seed=0):
-    """The SERVICE workload's recipe (chip_smoke.py's ``Workload``) at a
+    """The SERVICE workload's recipe (portbench's ``clusters``) at a
     small n: clusters of 16 rows around centres uniform in [0.1, 0.9]^d,
     jitter 1e-3; and its query weights, 64 rows of 1 + 0.1·|N(0, 1)|."""
     rs = np.random.default_rng(seed)
